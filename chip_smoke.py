@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py            # needs one CUDA card
 
-1. Prints the card's name and power limit and builds the three CUDA
-   kernels from pingoo_tpu_torch/csrc (one nvcc per source, together).
+1. Prints the card's name and power limit, builds the three CUDA
+   kernels from pingoo_tpu_torch/csrc (one nvcc per source, together)
+   and prints ptxas's registers and spills per instantiation.
 2. Kernel phases: on the real 500-rule plan's tables, at B=2048 and the
    fields' full width (2048 bytes for url/path), with seeded lengths and
    planted attack strings, each kernel is held bit-equal to its plain
    PyTorch version on the card (the NFA at pair and single stepping and
    with per-row, partly negative offsets over an odd-width chunk), and
-   timed (median of CUDA-event timings).
+   timed (median of CUDA-event timings). The NFA is also held bit-equal
+   on synthetic banks that reach every instantiation of its kernel
+   (words per lane x passes x carry) and both table paths.
 3. Slice phase: a VerdictService(max_batch=2048) on the card answers
    8,192 CRS-style requests through `evaluate` under every
    PINGOO_DFA=off|auto|force x PINGOO_PREFILTER=off|banks mode; every
@@ -18,7 +21,10 @@
    oracle and the port's CPU path. The default mode (auto, banks) is the
    main path: the kernels' launch counts are reset just before it and
    read just after, and each kernel must have launched.
-4. Prints one JSON line of per-kernel results, then, last,
+4. Main-path NFA capture: one more main-path pass records the inputs of
+   every NFA launch; they are replayed through the kernel and the plain
+   version (bit equality) and the replay is timed.
+5. Prints one JSON line of per-kernel results, then, last,
    {"ok": true, "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
@@ -28,8 +34,10 @@ Imports no JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import os
+import random
 import re
 import statistics
 import subprocess
@@ -49,6 +57,21 @@ MODES = [(dfa, pf) for dfa in ("auto", "off", "force")
 # lanes).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+# Synthetic NFA banks that reach every dispatch path of csrc/nfa_scan.cu:
+# one bank per words-per-lane bucket (W <= 32, 64, 96, 128, 192, 256,
+# 384, 512 words) and per (cross-word carry, propagation passes) pair
+# the compiler produces. Carry off with 2 or more passes, and more than
+# 4 passes, it never produces (a pattern spans at most 4 words); the
+# NFA phase forces those two through `extra_passes`.
+WIDTH_TARGETS = (29, 61, 93, 125, 189, 253, 381, 509)
+WIDTH_COMBOS = ((False, 1), (True, 1), (True, 2), (True, 3), (True, 4))
+# The pattern that gives a bank its carry and passes: a 40-byte literal
+# spans two words with no optional run; an optional run of n bits adds
+# one pass per word boundary it crosses.
+CARRY_SOURCES = {1: "x" * 40, 2: r"e{0,40}f", 3: r"g{0,80}h",
+                 4: r"k{0,95}m"}
+FILLER_LEN = 25  # 25 positions + a guard bit: one word each, never two
 
 ATTACKS = [
     b"/search?q=1' UNION SELECT pass --", b"<script>alert(1)</script>",
@@ -90,9 +113,10 @@ def field_batch(rng, width: int, dev):
     return (torch.from_numpy(data).to(dev), torch.from_numpy(lens).to(dev))
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of `fn()` over `reps` runs (after one
-    warm-up run)."""
+def cuda_times(fn, reps: int) -> list[float]:
+    """CUDA-event times (ms) of `fn()` over `reps` runs, after one
+    warm-up run. Each run starts on an idle card, so the host's own
+    time to issue the launches counts."""
     import torch
 
     fn()
@@ -105,7 +129,31 @@ def cuda_ms(fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of `fn()` over `reps` runs."""
+    return statistics.median(cuda_times(fn, reps))
+
+
+def queued_ms(fn, reps: int) -> float:
+    """CUDA-event time (ms) per run of `fn()` with all `reps` runs queued
+    behind a sleep kernel: the card runs the launches back to back, so
+    the host's time to issue them does not count."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms: covers the issuing
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def max_abs_err(pairs) -> int:
@@ -252,6 +300,7 @@ def kernel_phase(plan, dev, rng) -> dict:
                                       pair),
             nfa_scan.scan_chunk_plain(t, chunk, lens, got_pair[0], toff,
                                       pair))]))
+    err = max(err, nfa_width_phase(dev, rng))
     ms = cuda_ms(lambda: nfa_run(nfa_scan.fused_scan_chunk, True), 15)
     plain_ms = cuda_ms(lambda: nfa_run(nfa_scan.scan_chunk_plain, True), 2)
     nbytes = ops = 0
@@ -279,6 +328,214 @@ def kernel_phase(plan, dev, rng) -> dict:
             fail(f"{name} kernel disagrees with its plain version "
                  f"(max_abs_err {r['max_abs_err']})")
     return results
+
+
+def filler(i: int, wide: bool) -> bytes:
+    """A 25-byte literal: lowercase letters, or with `wide` any byte but
+    0 (banks of ~240 byte classes, whose padded table outgrows shared
+    memory from K = 8 on)."""
+    r = random.Random(1000 + i)
+    if wide:
+        return bytes(r.randrange(1, 256) for _ in range(FILLER_LEN))
+    return bytes(r.choice(b"abcdijlnoqrstuvwyz") for _ in range(FILLER_LEN))
+
+
+def width_bank(words: int, carry: bool, passes: int, compile_regex,
+               build_bank, wide: bool = False):
+    """An NfaBank of exactly `words` words, with a cross-word carry or
+    not and `passes` propagation passes: CARRY_SOURCES[passes] plus
+    one-word literals. Takes the compiler's two functions, so the port's
+    and the JAX package's compilers build the same bank. Returns (bank,
+    the literals' bytes)."""
+    extra = [CARRY_SOURCES[passes]] if carry else []
+    n = words
+    for _ in range(6):
+        lits = [filler(i, wide) for i in range(max(n, 0))]
+        srcs = extra + ["".join(f"\\x{c:02x}" for c in lit) for lit in lits]
+        bank = build_bank([p for s in srcs for p in compile_regex(s)])
+        if bank.num_words == words:
+            break
+        n += words - bank.num_words
+    got = (bank.num_words, bank.has_carry, bank.prop_passes)
+    if got != (words, carry, passes):
+        raise RuntimeError(f"width bank {(words, carry, passes)} came out "
+                           f"as {got}")
+    return bank, lits
+
+
+def width_batch(rng, lits, B: int, L: int, wide: bool = False):
+    """[B, L] uint8 rows over the bank's bytes with a carry pattern's
+    match or a literal planted in each, lengths in [0, L] with every
+    seventh row empty; returns numpy (data, lens)."""
+    import numpy as np
+
+    plants = [b"x" * 40, b"e" * 30 + b"f", b"g" * 70 + b"h",
+              b"k" * 90 + b"m", b"ef", b"gh"] + lits[:8]
+    alphabet = np.arange(1, 256, dtype=np.uint8) if wide \
+        else np.frombuffer(b"xefghkmabcdijlnoqrs", np.uint8)
+    data = rng.choice(alphabet, size=(B, L))
+    lens = rng.integers(0, L + 1, size=B).astype(np.int32)
+    lens[::7] = 0
+    for b in range(B):
+        p = plants[rng.integers(len(plants))][:L]
+        at = rng.integers(0, L - len(p) + 1)
+        data[b, at:at + len(p)] = np.frombuffer(p, np.uint8)
+        data[b, lens[b]:] = 0
+    return data, lens
+
+
+def width_cases():
+    """(words, carry, passes, wide) of the NFA phase's synthetic banks:
+    the compiler's (carry, passes) pairs at each words-per-lane bucket,
+    carry off at 3 passes and carry at 6 (forced), and a wide-alphabet
+    bank (carry, 2 passes)."""
+    return [(w, c, p, wide) for w in WIDTH_TARGETS
+            for c, p, wide in [(c, p, False) for c, p in WIDTH_COMBOS]
+            + [(False, 3, False), (True, 6, False), (True, 2, True)]]
+
+
+def width_tables(words, carry, passes, wide, compile_regex, build_bank,
+                 bank_to_tables):
+    """One width case's tables (through the given compiler) and literals;
+    passes the compiler never gives are forced through `extra_passes`."""
+    natural = (carry, passes) in WIDTH_COMBOS
+    bank, lits = width_bank(words, carry, passes if natural else
+                            (4 if carry else 1), compile_regex, build_bank,
+                            wide)
+    tables = bank_to_tables(bank)
+    if not natural:
+        tables = dataclasses.replace(tables, extra_passes=passes - 1)
+    return tables, lits
+
+
+def nfa_width_phase(dev, rng) -> int:
+    """The NFA kernel against its plain version on synthetic banks that
+    reach every instantiation of csrc/nfa_scan.cu (each words-per-lane
+    bucket with each carry and pass count) and both table paths (shared
+    memory, L2), at pair and single stepping: a first chunk from the zero
+    state at offset 0, then an odd-width chunk from that carried state at
+    per-row offsets, some negative, over B=75 rows (no multiple of the
+    rows per block) with empty rows. The forced-pass cases read a class
+    table that is not 16-byte aligned ("u" in the printed labels).
+    Returns the max_abs_err."""
+    import torch
+
+    from pingoo_tpu_torch.compiler.nfa import build_bank
+    from pingoo_tpu_torch.compiler.repat import compile_regex
+    from pingoo_tpu_torch.ops import nfa_scan
+
+    Bw, L, cut = 75, 131, 58
+    err = cases = 0
+    labels, seen = [], set()
+    for words, carry, passes, wide in width_cases():
+        tables, lits = width_tables(words, carry, passes, wide,
+                                    compile_regex, build_bank,
+                                    nfa_scan.bank_to_tables)
+        tables = tables.to(dev)
+        forced = (carry, passes) not in WIDTH_COMBOS
+        if forced:  # a class table off 16-byte alignment: staged by words
+            flat = torch.zeros(tables.cls_table.numel() + 1,
+                               dtype=torch.int32, device=dev)
+            flat[1:] = tables.cls_table.flatten()
+            tables = dataclasses.replace(
+                tables, cls_table=flat[1:].view(tables.cls_table.shape))
+        data, lens = width_batch(rng, lits, Bw, L, wide)
+        data = torch.from_numpy(data).to(dev)
+        lens = torch.from_numpy(lens).to(dev)
+        toff = torch.from_numpy(
+            (cut + rng.integers(-70, 20, size=Bw)).astype("int32")).to(dev)
+        S0 = nfa_scan.init_scan_state(Bw, words, dev)
+        first = nfa_scan.scan_chunk_plain(tables, data[:, :cut], lens, S0, 0)
+        if not first.any():
+            fail(f"width bank {(words, carry, passes, wide)}: the first "
+                 f"chunk left every state word zero")
+        for pair in (True, False):
+            err = max(err, max_abs_err([
+                (nfa_scan.fused_scan_chunk(tables, data[:, :cut], lens, S0,
+                                           0, pair), first),
+                (nfa_scan.fused_scan_chunk(tables, data[:, cut:], lens,
+                                           first, toff, pair),
+                 nfa_scan.scan_chunk_plain(tables, data[:, cut:], lens,
+                                           first, toff, pair))]))
+            cases += 2
+        K, P, c = nfa_scan.kernel_variant(words, passes, carry)
+        # The kernel reads a padded table above 227 KB from L2.
+        l2 = 1024 + tables.cls_table.shape[0] * 128 * K > 227 * 1024
+        seen.add((K, P, c, l2))
+        labels.append(f"{words}{'c' if carry else '-'}{passes}"
+                      f"{'w' if wide else ''}:K{K}P{P}{'L2' if l2 else ''}"
+                      f"{'u' if forced else ''}")
+    missing = [(K, P, c) for K in nfa_scan.WORDS_PER_LANE
+               for P, c in ((1, False), (1, True), (2, True), (0, True))
+               if not any(s[:3] == (K, P, c) for s in seen)]
+    if missing or not any(s[3] for s in seen):
+        fail(f"the width banks reached no {missing} instantiation or no "
+             f"L2 table")
+    print(f"nfa widths: {cases} cases, {len({s[:3] for s in seen})} "
+          f"instantiations, {sum(s[3] for s in seen)} with the table in "
+          f"L2: {' '.join(labels)}; max_abs_err {err}", flush=True)
+    return err
+
+
+def capture_main_path(plan, lists, reqs, dev) -> list[dict]:
+    """Serve `reqs` once on the main path with `nfa_scan.fused_scan_chunk`
+    wrapped (scan_chunk looks it up at call time); returns every
+    launch's inputs."""
+    from pingoo_tpu_torch.engine.service import VerdictService
+    from pingoo_tpu_torch.ops import nfa_scan
+
+    keys = {id(t): k for k, t in plan.np_tables.items()}
+    launches = []
+    real = nfa_scan.fused_scan_chunk
+
+    def wrapped(tables, data, lengths, state, t_offset, pair=True):
+        launches.append(dict(
+            key=keys[id(tables)], data=data.clone(), lens=lengths.clone(),
+            state=state.clone(), pair=pair,
+            toff=t_offset.clone() if hasattr(t_offset, "clone")
+            else t_offset))
+        return real(tables, data, lengths, state, t_offset, pair)
+
+    os.environ["PINGOO_DFA"], os.environ["PINGOO_PREFILTER"] = MODES[0]
+    nfa_scan.fused_scan_chunk = wrapped
+    try:
+        asyncio.run(serve(VerdictService(plan, lists, max_batch=B,
+                                         device=dev), reqs))
+    finally:
+        nfa_scan.fused_scan_chunk = real
+        os.environ.pop("PINGOO_DFA")
+        os.environ.pop("PINGOO_PREFILTER")
+    return launches
+
+
+def main_path_nfa_phase(plan, launches) -> dict:
+    """Replay the captured main-path NFA launches through the kernel and
+    the plain version (bit equality) and time the whole replay."""
+    import numpy as np
+
+    from pingoo_tpu_torch.ops import nfa_scan
+
+    if not launches:
+        fail("the main path launched no NFA kernel to capture")
+
+    def replay(fn):
+        return [fn(plan.np_tables[c["key"]], c["data"], c["lens"],
+                   c["state"], c["toff"], c["pair"]) for c in launches]
+
+    err = max_abs_err(zip(replay(nfa_scan.fused_scan_chunk),
+                          replay(nfa_scan.scan_chunk_plain)))
+    times = cuda_times(lambda: replay(nfa_scan.fused_scan_chunk), 40)
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    dev_ms = queued_ms(lambda: replay(nfa_scan.fused_scan_chunk), 200)
+    shapes = [f"{c['key']}:{c['data'].shape[0]}x{c['data'].shape[1]}"
+              f"/W{c['state'].shape[1]}" for c in launches]
+    print(f"nfa main path: {len(launches)} launches {' '.join(shapes)}, "
+          f"max_abs_err {err}; replay {med * 1e3:.1f} us (quartiles "
+          f"{q1 * 1e3:.1f}-{q3 * 1e3:.1f}), queued on the card "
+          f"{dev_ms * 1e3:.1f} us", flush=True)
+    return dict(main_path_us=med * 1e3, main_path_launches=len(launches),
+                main_path_shapes=shapes, main_path_device_us=dev_ms * 1e3,
+                max_abs_err=err)
 
 
 async def serve(service, reqs):
@@ -327,7 +584,7 @@ def profile_main_path(plan, lists, reqs, dev) -> None:
           flush=True)
 
 
-def slice_phase(plan, rules, lists, dev) -> dict:
+def slice_phase(plan, rules, lists, reqs, dev) -> dict:
     """Serve the traffic in every mode; returns the main path's launch
     counts."""
     import numpy as np
@@ -341,10 +598,7 @@ def slice_phase(plan, rules, lists, dev) -> dict:
                                                  interpret_rules_row,
                                                  make_verdict_fn)
     from pingoo_tpu_torch.ops import _build
-    from pingoo_tpu_torch.utils.crs import generate_traffic
 
-    reqs = generate_traffic(N_REQUESTS, attack_fraction=0.3, seed=SEED,
-                            lists=lists)
     t0 = time.monotonic()
     oracle = np.stack([interpret_rules_row(plan, tuple_to_context(r, lists))
                        for r in reqs])
@@ -423,7 +677,7 @@ def main() -> int:
 
     from pingoo_tpu_torch.compiler.plan import compile_ruleset
     from pingoo_tpu_torch.ops import _build
-    from pingoo_tpu_torch.utils.crs import generate_ruleset
+    from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
 
     card = card_line()
     print(card, flush=True)
@@ -433,10 +687,19 @@ def main() -> int:
           f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})",
           flush=True)
     for name, report in _build.ptxas_reports.items():
-        regs = re.findall(r"Used (\d+) registers", report)
-        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", report))
-        print(f"  ptxas {name}: registers per instantiation "
-              f"{','.join(regs)}; spill bytes {spills}", flush=True)
+        parts = []
+        for fn, body in re.findall(r"Compiling entry function '(\S+)'"
+                                   r"(.*?)(?=Compiling entry|\Z)", report,
+                                   re.S):
+            # nfa_chunk_kernel<K, P, CARRY> is named by its arguments.
+            t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", fn)
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = max([int(n) for n in
+                         re.findall(r"(\d+) bytes spill", body)] or [0])
+            parts.append(f"{f'K{t[1]}P{t[2]}c{t[3]}:' if t else ''}"
+                         f"{regs[1] if regs else '?'}/{spill}")
+        print(f"  ptxas {name}: registers/spill bytes per instantiation "
+              f"{' '.join(parts)}", flush=True)
 
     dev = torch.device("cuda")
     rules, lists = generate_ruleset(500)
@@ -444,7 +707,15 @@ def main() -> int:
     print(f"plan: {plan.stats}", flush=True)
     rng = np.random.default_rng(SEED)
     results = kernel_phase(plan, dev, rng)
-    counts = slice_phase(plan, rules, lists, dev)
+    reqs = generate_traffic(N_REQUESTS, attack_fraction=0.3, seed=SEED,
+                            lists=lists)
+    counts = slice_phase(plan, rules, lists, reqs, dev)
+    main_nfa = main_path_nfa_phase(
+        plan, capture_main_path(plan, lists, reqs, dev))
+    if main_nfa.pop("max_abs_err") != 0:
+        fail("the NFA kernel disagrees with its plain version on a "
+             "captured main-path launch")
+    results["nfa_scan"].update(main_nfa)
     out = []
     for name in ("nfa_scan", "bitsplit_dfa", "prefilter"):
         r = results[name]
@@ -456,7 +727,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "library_ms": None,
+            **{k: v for k, v in r.items() if k.startswith("main_path_")}})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,28 +7,54 @@
 // (0 <= t < len, t = toff + column):
 //     adv  = (S << 1) | init_unanchored | (t == 0 ? init_anchored : 0)
 //     adv |= carry_mask & (pre-step bit 31 of word w-1)
-//     passes x 1+extra: x = (adv & opt) + opt; adv |= x ^ opt;
-//                       between passes adv |= carry_mask & (x < opt of w-1)
+//     passes x P: x = (adv & opt) + opt; adv |= x ^ opt;
+//                 between passes adv |= carry_mask & (x < opt of w-1)
 //     S    = (adv | (S & rep)) & cls_table[cls_map[byte]]
 //
-// Design: one warp per row. Word w lives in lane w / K, slot w % K (K =
-// ceil(W / 32) words per lane, a template argument), so a word's left
-// neighbour is in the same lane except for slot 0, whose neighbour is
-// the previous lane's last slot: one __shfl_up_sync per carry. The
-// shift carry reads the PRE-step top bit of word w-1, and the escape
-// carry of pass p reads pass p's `x < opt` of word w-1 before pass p+1.
-// The class map and the [C, W] class table (26 KB for the url bank) sit
-// in shared memory. All lanes of a warp share the row, so the length
-// gate is warp-uniform: the kernel walks only the row's live columns,
-// which are one contiguous run. PAIR unrolls the walk two columns per
-// iteration (the TPU kernel's pair stepping); a trailing odd column is
-// skipped structurally, never read as a pad byte, so both steppings give
-// the same state.
+// Design: one warp per row, four rows per block. Word w lives in lane
+// w / K, slot w % K (K words per lane), so a word's left neighbour is in
+// the same lane except for slot 0, whose neighbour is the previous
+// lane's last slot: one __shfl_up_sync per carry. The shift carry is a
+// funnel shift of the PRE-step word w-1, masked to bit 31 where
+// carry_mask continues the span; the escape carry of pass p is pass p's
+// `x < opt` of word w-1, added before pass p+1.
+//   * K, the pass count P and the carry are template arguments (chosen
+//     by ops/nfa_scan.py `kernel_variant`): passes unroll, and a bank
+//     without carry runs no carry code and one pass. Without the escape
+//     carry a second pass sets no new bit: within a run of opt bits the
+//     first pass already sets every bit from the run's lowest active bit
+//     through one past its top, and adding opt to that run gives the same
+//     bits back. P = 0 loops over the runtime pass count (3 or more).
+//   * The byte -> class -> table-row lookup is off the dependent chain.
+//     A row's live bytes are read 32 columns at a time, one coalesced
+//     byte per lane a block ahead of use, and turned into table-row
+//     offsets through the shared class map; each step takes its offset
+//     with __shfl_sync, and step i+1's table words are loaded while step
+//     i computes.
+//   * The class table sits in shared memory with each class row padded
+//     to 32 * K words, so a lane's K words are aligned 16-, 8- or 4-byte
+//     loads that no two lanes of a load phase serve from one bank (the
+//     16-byte units of K = 8 and 16 are swizzled by lane). A padded table
+//     above 227 KB is read from global memory (L2) unpadded instead.
+//   * Only a row's first live column can sit at t == 0, so that step is
+//     peeled; the loop injects init_unanchored alone. A row walks only
+//     its live columns, one contiguous run, so there is no pad byte to
+//     skip, and the TPU kernel's pair stepping needs no counterpart: the
+//     walk and the state are the same for either.
+//   * Each warp issues its row's global loads (offset, length, state,
+//     first bytes) before the block stages the table, so the two
+//     latencies overlap. Four rows per block gives short launches (the
+//     main path's recheck is ~100 rows of 64 columns) more blocks, each
+//     staging its own copy of the table. Rows keep their static order: a
+//     longest-first order built on the device balanced full-width
+//     batches better, but its extra launch cost short launches more.
 //
-// What bounds it on an H100: the dependent chain of Lc steps per row
-// (each ~10 + 6 * passes integer ops per word plus one shared-memory
-// lookup and one or two shuffles), i.e. latency; the bytes moved are
-// B * Lc input bytes and 2 * B * W * 4 state bytes.
+// What bounds it on an H100: integer issue at full width (chip_smoke.py
+// counts the operations per word and byte for its bound) and the rows'
+// unequal lengths, as each SM's share is the sum of its rows; on short
+// launches the chain of dependent steps per row (two shuffles per step
+// with carry) and the staging. The bytes moved are B * Lc input bytes
+// and 2 * B * W * 4 state bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -36,181 +62,304 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-
-template <int K, bool PAIR>
-__global__ void nfa_chunk_kernel(
-    const uint8_t* __restrict__ data, int B, int Lc,
-    const int32_t* __restrict__ lens, const int32_t* __restrict__ toff,
-    const int32_t* __restrict__ cls_map, const uint32_t* __restrict__ cls_table,
-    int C, int W, const uint32_t* __restrict__ init_a,
-    const uint32_t* __restrict__ init_u, const uint32_t* __restrict__ opt,
-    const uint32_t* __restrict__ rep, const uint32_t* __restrict__ carry,
-    int passes, int has_carry, int table_in_smem,
-    const uint32_t* __restrict__ state_in, uint32_t* __restrict__ state_out) {
-  extern __shared__ uint32_t smem[];
-  int32_t* cmap = reinterpret_cast<int32_t*>(smem);
-  uint32_t* tab_s = smem + 256;
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) cmap[i] = cls_map[i];
-  if (table_in_smem) {
-    for (int i = threadIdx.x; i < C * W; i += blockDim.x) tab_s[i] = cls_table[i];
-  }
-  __syncthreads();
-  const uint32_t* tab = table_in_smem ? tab_s : cls_table;
-
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= B) return;  // the whole warp leaves together
-  const int w0 = lane * K;
-
-  uint32_t S[K], ia[K], iu[K], op[K], rp[K], cm[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int w = w0 + k;
-    const bool ok = w < W;
-    S[k] = ok ? state_in[(size_t)b * W + w] : 0u;
-    ia[k] = ok ? init_a[w] : 0u;
-    iu[k] = ok ? init_u[w] : 0u;
-    op[k] = ok ? opt[w] : 0u;
-    rp[k] = ok ? rep[w] : 0u;
-    cm[k] = ok ? carry[w] : 0u;
-  }
-
-  const long long t0 = toff[b];
-  const long long len = lens[b];
-  // Live columns: 0 <= t0 + i < len, one contiguous run [lo, hi).
-  long long lo = t0 < 0 ? -t0 : 0;
-  long long hi = len - t0;
-  if (hi > Lc) hi = Lc;
-  const uint8_t* row = data + (size_t)b * Lc;
-
-  auto step = [&](int i) {
-    const bool at0 = (t0 + i) == 0;
-    const uint32_t* bc = tab + (size_t)cmap[row[i]] * W + w0;
-    // Pre-step top bit of the previous lane's last word (shift carry).
-    uint32_t top_prev = __shfl_up_sync(FULL, S[K - 1] >> 31, 1);
-    if (lane == 0) top_prev = 0u;
-    uint32_t adv[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      adv[k] = (S[k] << 1) | iu[k] | (at0 ? ia[k] : 0u);
-    }
-    if (has_carry) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const uint32_t cin = k ? (S[k - 1] >> 31) : top_prev;
-        adv[k] |= cin & cm[k];
-      }
-    }
-    for (int p = 0; p < passes; ++p) {
-      uint32_t esc[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const uint32_t x = (adv[k] & op[k]) + op[k];  // wraps mod 2^32
-        esc[k] = x < op[k] ? 1u : 0u;
-        adv[k] |= x ^ op[k];
-      }
-      if (has_carry && p + 1 < passes) {
-        uint32_t esc_prev = __shfl_up_sync(FULL, esc[K - 1], 1);
-        if (lane == 0) esc_prev = 0u;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const uint32_t ein = k ? esc[k - 1] : esc_prev;
-          adv[k] |= ein & cm[k];
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const uint32_t m = (w0 + k < W) ? bc[k] : 0u;
-      S[k] = (adv[k] | (S[k] & rp[k])) & m;
-    }
-  };
-
-  if (PAIR) {
-    for (long long i = lo; i < hi; i += 2) {
-      step((int)i);
-      if (i + 1 < hi) step((int)(i + 1));  // odd tail: no pad column
-    }
-  } else {
-    for (long long i = lo; i < hi; ++i) step((int)i);
-  }
-
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int w = w0 + k;
-    if (w < W) state_out[(size_t)b * W + w] = S[k];
-  }
-}
+constexpr int WARPS = 4;  // rows per block
+constexpr int THREADS = 32 * WARPS;
 
 struct Args {
   const uint8_t* data;
   int B, Lc;
-  const int32_t *lens, *toff, *cls_map;
+  const int32_t *lens, *toff;  // toff null: every row starts at toff_all
+  int toff_all;
+  const int32_t* cls_map;
   const uint32_t* cls_table;
   int C, W;
   const uint32_t *init_a, *init_u, *opt, *rep, *carry;
-  int passes, has_carry;
+  int passes;
   const uint32_t* state_in;
   uint32_t* state_out;
+  int tab_in_smem;
 };
 
-constexpr int ROWS_PER_BLOCK = 8;  // 8 warps, one row each
+// 16-byte unit swizzle of a lane for K = 8, 16 (units per lane 2, 4):
+// the 8 lanes of a 16-byte load phase then hit 8 distinct bank groups.
+// Other K need none: K = 4, 12 step 1 or 3 units, K = 2, 6 step 1 or 3
+// 8-byte units, K = 1, 3 step 1 or 3 words per lane.
+template <int K>
+__device__ __forceinline__ int unit_swizzle(int lane) {
+  if constexpr (K == 8) return (lane >> 2) & 1;
+  if constexpr (K == 16) return (lane >> 1) & 3;
+  return 0;
+}
+
+// Position of word w in a padded shared-memory class row.
+template <int K>
+__device__ __forceinline__ int smem_pos(int w) {
+  if constexpr (K == 8 || K == 16) {
+    constexpr int U = K / 4;
+    const int lane = w / K, k = w % K;
+    return ((lane * U + ((k >> 2) ^ unit_swizzle<K>(lane))) << 2) + (k & 3);
+  }
+  return w;
+}
+
+// Stage the [C, W] class table into the padded layout: 16-byte loads of
+// the flat table (all of a round issued before its stores), then the
+// pad words zeroed.
+template <int K>
+__device__ __forceinline__ void stage_table(uint32_t* tab_s, const Args& a) {
+  constexpr int WS = 32 * K;
+  constexpr int R = 8;  // 16-byte loads in flight per thread
+  const int W = a.W, n = a.C * a.W;
+  auto put = [&](int f, uint32_t v) {
+    const int c = f / W;
+    tab_s[c * WS + smem_pos<K>(f - c * W)] = v;
+  };
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(a.cls_table) & 15) == 0) {
+    const uint4* g4 = reinterpret_cast<const uint4*>(a.cls_table);
+    const int n4 = n >> 2;
+    for (int i = threadIdx.x; i < n4; i += R * THREADS) {
+      uint4 v[R];
+#pragma unroll
+      for (int u = 0; u < R; ++u)
+        if (i + u * THREADS < n4) v[u] = __ldg(g4 + i + u * THREADS);
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int j = i + u * THREADS;
+        if (j < n4) {
+          put(4 * j, v[u].x);
+          put(4 * j + 1, v[u].y);
+          put(4 * j + 2, v[u].z);
+          put(4 * j + 3, v[u].w);
+        }
+      }
+    }
+    done = n4 << 2;
+  }
+  for (int f = done + threadIdx.x; f < n; f += THREADS) put(f, a.cls_table[f]);
+  const int pad = WS - W;
+  for (int i = threadIdx.x; i < a.C * pad; i += THREADS) {
+    const int c = i / pad;
+    tab_s[c * WS + smem_pos<K>(W + i - c * pad)] = 0u;
+  }
+}
+
+// The lane's K table words of the class row at `off` (words).
+template <int K>
+__device__ __forceinline__ void load_row(uint32_t (&m)[K], int off, int lane,
+                                         int swz, const uint32_t* tab_s,
+                                         const Args& a, bool in_smem) {
+  if (in_smem) {
+    const uint32_t* p = tab_s + off;
+    if constexpr (K % 4 == 0) {
+      const uint4* p4 = reinterpret_cast<const uint4*>(p) + lane * (K / 4);
+#pragma unroll
+      for (int i = 0; i < K / 4; ++i) {
+        const uint4 v = p4[i ^ swz];
+        m[4 * i] = v.x;
+        m[4 * i + 1] = v.y;
+        m[4 * i + 2] = v.z;
+        m[4 * i + 3] = v.w;
+      }
+    } else if constexpr (K % 2 == 0) {
+      const uint2* p2 = reinterpret_cast<const uint2*>(p) + lane * (K / 2);
+#pragma unroll
+      for (int i = 0; i < K / 2; ++i) {
+        const uint2 v = p2[i];
+        m[2 * i] = v.x;
+        m[2 * i + 1] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) m[k] = p[lane * K + k];
+    }
+  } else {
+    const uint32_t* p = a.cls_table + off + lane * K;
+#pragma unroll
+    for (int k = 0; k < K; ++k) m[k] = lane * K + k < a.W ? __ldg(p + k) : 0u;
+  }
+}
+
+// One byte step on a lane's K words. cm1 is carry_mask's bit 0 and cm31
+// the same at bit 31; both are 0 for word 0, so lane 0's wrapped-around
+// shuffles carry nothing in.
+template <int K, int P, bool CARRY>
+__device__ __forceinline__ void nfa_step(
+    uint32_t (&S)[K], const uint32_t (&m)[K], const uint32_t (&inj)[K],
+    const uint32_t (&op)[K], const uint32_t (&rp)[K],
+    const uint32_t (&cm31)[K], const uint32_t (&cm1)[K], int passes) {
+  uint32_t adv[K];
+  if constexpr (CARRY) {
+    const uint32_t prev = __shfl_up_sync(FULL, S[K - 1], 1);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      adv[k] = __funnelshift_l((k ? S[k - 1] : prev) & cm31[k], S[k], 1) |
+               inj[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) adv[k] = (S[k] << 1) | inj[k];
+  }
+  const int np = P ? P : passes;
+#pragma unroll
+  for (int p = 0; p < np; ++p) {
+    uint32_t x[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      x[k] = (adv[k] & op[k]) + op[k];  // wraps when a closure escapes
+      adv[k] |= x[k] ^ op[k];
+    }
+    if (CARRY && p + 1 < np) {
+      const uint32_t esc =
+          __shfl_up_sync(FULL, x[K - 1] < op[K - 1] ? 1u : 0u, 1);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const uint32_t e = k ? (x[k - 1] < op[k - 1] ? 1u : 0u) : esc;
+        adv[k] |= e & cm1[k];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) S[k] = (adv[k] | (S[k] & rp[k])) & m[k];
+}
+
+template <int K, int P, bool CARRY>
+__global__ void __launch_bounds__(THREADS) nfa_chunk_kernel(const Args a) {
+  extern __shared__ uint4 smem4[];
+  int32_t* cmap = reinterpret_cast<int32_t*>(smem4);  // class row offsets
+  uint32_t* tab_s = reinterpret_cast<uint32_t*>(smem4) + 256;
+  const int lane = threadIdx.x & 31;
+  const int w0 = lane * K;
+  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const bool in_smem = a.tab_in_smem != 0;
+
+  // The row's global loads, ahead of the staging. Live columns are the
+  // contiguous run [lo, hi) with 0 <= toff + column < len.
+  uint32_t S[K], inj0[K];
+  int lo = 0, hi = 0, byte0 = 0, nb = 0;
+  const uint8_t* row = a.data;
+  if (b < a.B) {
+    const long long t0 = a.toff ? a.toff[b] : a.toff_all;
+    const long long end = (long long)a.lens[b] - t0;
+    lo = t0 < 0 ? (int)(-t0 < a.Lc ? -t0 : a.Lc) : 0;
+    hi = end < lo ? lo : (end > a.Lc ? a.Lc : (int)end);
+    row += (size_t)b * a.Lc;
+    const bool anch = t0 + lo == 0;  // the first live column is at t == 0
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const bool ok = w0 + k < a.W;
+      S[k] = ok ? a.state_in[(size_t)b * a.W + w0 + k] : 0u;
+      inj0[k] = ok ? a.init_u[w0 + k] | (anch ? a.init_a[w0 + k] : 0u) : 0u;
+    }
+    if (lo < hi) byte0 = row[lo];
+    nb = lo + 1 + lane < hi ? row[lo + 1 + lane] : 0;
+  }
+  uint32_t iu[K], op[K], rp[K], cm31[K], cm1[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int w = w0 + k;
+    const bool ok = w < a.W;
+    iu[k] = ok ? a.init_u[w] : 0u;
+    op[k] = ok ? a.opt[w] : 0u;
+    rp[k] = ok ? a.rep[w] : 0u;
+    cm1[k] = ok && w > 0 ? a.carry[w] & 1u : 0u;
+    cm31[k] = cm1[k] << 31;
+  }
+
+  const int stride = in_smem ? 32 * K : a.W;
+  for (int i = threadIdx.x; i < 256; i += THREADS)
+    cmap[i] = a.cls_map[i] * stride;
+  if (in_smem) stage_table<K>(tab_s, a);
+  __syncthreads();
+  if (b >= a.B) return;  // the whole warp leaves together
+
+  const int swz = unit_swizzle<K>(lane);
+  if (lo < hi) {
+    uint32_t m[K];
+    load_row<K>(m, cmap[byte0], lane, swz, tab_s, a, in_smem);
+    nfa_step<K, P, CARRY>(S, m, inj0, op, rp, cm31, cm1, a.passes);
+    ++lo;
+  }
+  for (int base = lo; base < hi; base += 32) {
+    const int off = cmap[nb];  // column base + lane's class row
+    const int n = hi - base < 32 ? hi - base : 32;
+    nb = base + 32 + lane < hi ? row[base + 32 + lane] : 0;
+    uint32_t cur[K];
+    load_row<K>(cur, __shfl_sync(FULL, off, 0), lane, swz, tab_s, a, in_smem);
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      uint32_t nxt[K];
+      load_row<K>(nxt, __shfl_sync(FULL, off, j + 1 < n ? j + 1 : j), lane,
+                  swz, tab_s, a, in_smem);
+      nfa_step<K, P, CARRY>(S, cur, iu, op, rp, cm31, cm1, a.passes);
+#pragma unroll
+      for (int k = 0; k < K; ++k) cur[k] = nxt[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (w0 + k < a.W) a.state_out[(size_t)b * a.W + w0 + k] = S[k];
+}
+
 constexpr size_t SMEM_DEFAULT = 48 * 1024;
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-template <int K, bool PAIR>
-cudaError_t launch(const Args& a, cudaStream_t st) {
-  const size_t tab_bytes = (size_t)a.C * a.W * sizeof(uint32_t);
-  const size_t with_tab = 256 * sizeof(int32_t) + tab_bytes;
-  const int in_smem = with_tab <= SMEM_MAX ? 1 : 0;
-  const size_t smem = in_smem ? with_tab : 256 * sizeof(int32_t);
-  auto kern = nfa_chunk_kernel<K, PAIR>;
+template <int K, int P, bool CARRY>
+cudaError_t launch(Args a, cudaStream_t st) {
+  const size_t cmap_bytes = 256 * sizeof(int32_t);
+  const size_t tab_bytes = (size_t)a.C * 32 * K * sizeof(uint32_t);
+  a.tab_in_smem = cmap_bytes + tab_bytes <= SMEM_MAX;
+  const size_t smem = a.tab_in_smem ? cmap_bytes + tab_bytes : cmap_bytes;
+  auto kern = nfa_chunk_kernel<K, P, CARRY>;
   if (smem > SMEM_DEFAULT) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((a.B + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
-  const dim3 block(32 * ROWS_PER_BLOCK);
-  kern<<<grid, block, smem, st>>>(a.data, a.B, a.Lc, a.lens, a.toff,
-                                  a.cls_map, a.cls_table, a.C, a.W,
-                                  a.init_a, a.init_u, a.opt, a.rep, a.carry,
-                                  a.passes, a.has_carry, in_smem,
-                                  a.state_in, a.state_out);
+  kern<<<(a.B + WARPS - 1) / WARPS, THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool PAIR>
-cudaError_t dispatch(const Args& a, cudaStream_t st) {
-  const int k = (a.W + 31) / 32;
-  if (k <= 1) return launch<1, PAIR>(a, st);
-  if (k <= 2) return launch<2, PAIR>(a, st);
-  if (k <= 3) return launch<3, PAIR>(a, st);
-  if (k <= 4) return launch<4, PAIR>(a, st);
-  if (k <= 6) return launch<6, PAIR>(a, st);
-  if (k <= 8) return launch<8, PAIR>(a, st);
-  if (k <= 12) return launch<12, PAIR>(a, st);
-  if (k <= 16) return launch<16, PAIR>(a, st);
-  return cudaErrorInvalidValue;  // wider than 512 words: refused by the wrapper
+// P: 1 or 2 unrolled passes, 0 for a loop over a.passes; a bank without
+// carry runs P = 1 only.
+template <int K>
+cudaError_t launch_k(const Args& a, int P, int carry, cudaStream_t st) {
+  if (!carry) {
+    return P == 1 ? launch<K, 1, false>(a, st) : cudaErrorInvalidValue;
+  }
+  if (P == 1) return launch<K, 1, true>(a, st);
+  if (P == 2) return launch<K, 2, true>(a, st);
+  if (P == 0) return launch<K, 0, true>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int pingoo_nfa_scan_chunk(
     const void* data, int B, int Lc, const void* lens, const void* toff,
-    const void* cls_map, const void* cls_table, int C, int W,
+    int toff_all, const void* cls_map, const void* cls_table, int C, int W,
     const void* init_a, const void* init_u, const void* opt, const void* rep,
-    const void* carry, int passes, int has_carry, int pair,
+    const void* carry, int passes, int K, int P, int has_carry,
     const void* state_in, void* state_out, void* stream) {
   if (B <= 0 || W <= 0) return (int)cudaSuccess;
-  Args a{(const uint8_t*)data, B, Lc, (const int32_t*)lens,
-         (const int32_t*)toff, (const int32_t*)cls_map,
-         (const uint32_t*)cls_table, C, W, (const uint32_t*)init_a,
-         (const uint32_t*)init_u, (const uint32_t*)opt,
-         (const uint32_t*)rep, (const uint32_t*)carry, passes, has_carry,
-         (const uint32_t*)state_in, (uint32_t*)state_out};
+  if (passes < 1 || W > 32 * K) return (int)cudaErrorInvalidValue;
+  const Args a{(const uint8_t*)data, B, Lc, (const int32_t*)lens,
+               (const int32_t*)toff, toff_all, (const int32_t*)cls_map,
+               (const uint32_t*)cls_table, C, W, (const uint32_t*)init_a,
+               (const uint32_t*)init_u, (const uint32_t*)opt,
+               (const uint32_t*)rep, (const uint32_t*)carry, passes,
+               (const uint32_t*)state_in, (uint32_t*)state_out, 0};
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(pair ? dispatch<true>(a, st) : dispatch<false>(a, st));
+  switch (K) {
+    case 1: return (int)launch_k<1>(a, P, has_carry, st);
+    case 2: return (int)launch_k<2>(a, P, has_carry, st);
+    case 3: return (int)launch_k<3>(a, P, has_carry, st);
+    case 4: return (int)launch_k<4>(a, P, has_carry, st);
+    case 6: return (int)launch_k<6>(a, P, has_carry, st);
+    case 8: return (int)launch_k<8>(a, P, has_carry, st);
+    case 12: return (int)launch_k<12>(a, P, has_carry, st);
+    case 16: return (int)launch_k<16>(a, P, has_carry, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* pingoo_nfa_scan_error(int code) {

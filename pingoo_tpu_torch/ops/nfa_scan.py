@@ -11,8 +11,9 @@ optional runs that overflow a word, extra propagation passes.
 `scan_chunk_plain` is the plain PyTorch version of that step loop;
 `fused_scan_chunk` launches the hand-written kernel csrc/nfa_scan.cu
 (one warp per row, words across lanes; see the source for the design)
-and takes CUDA tensors only. `scan_chunk` sends a CUDA tensor to the
-kernel and a CPU tensor to the plain version. Tables hold uint32 words
+in the instantiation `kernel_variant` picks, and takes CUDA tensors
+only. `scan_chunk` sends a CUDA tensor to the kernel and a CPU tensor
+to the plain version. Tables hold uint32 words
 as int32 bits (ops/_tables.py); the plain loop widens them to int64.
 """
 
@@ -216,15 +217,36 @@ def scan_chunk_plain(tables: NfaTables, data: torch.Tensor,
     return narrow(S)
 
 
-MAX_WORDS = 512  # 16 words per lane of the one-warp-per-row kernel
+# Words per lane that csrc/nfa_scan.cu is built for: a bank of W words
+# runs on the smallest K with 32 * K >= W.
+WORDS_PER_LANE = (1, 2, 3, 4, 6, 8, 12, 16)
+MAX_WORDS = 32 * WORDS_PER_LANE[-1]
+
+
+def kernel_variant(num_words: int, passes: int,
+                   has_carry: bool) -> tuple[int, int, bool]:
+    """The instantiation of csrc/nfa_scan.cu that runs a bank: (K words
+    per lane, P unrolled passes or 0 for a loop over `passes`, carry).
+
+    A bank without cross-word carry runs one pass: with no escape carry
+    between passes, a second pass sets no new bit (the kernel's note
+    says why), so one pass gives the state of `passes` passes."""
+    if num_words > MAX_WORDS:
+        raise ValueError(f"NFA bank of {num_words} words exceeds the "
+                         f"kernel's {MAX_WORDS}-word limit")
+    K = next(k for k in WORDS_PER_LANE if 32 * k >= num_words)
+    if not has_carry:
+        return K, 1, False
+    return K, passes if passes <= 2 else 0, True
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = register(Kernel("nfa_scan", "pingoo_nfa_scan_chunk", [
-    _P, _I, _I, _P, _P,  # data, B, Lc, lens, toff
+    _P, _I, _I, _P, _P, _I,  # data, B, Lc, lens, toff, toff_all
     _P, _P, _I, _I,  # cls_map, cls_table, C, W
     _P, _P, _P, _P, _P,  # init_a, init_u, opt, rep, carry
-    _I, _I, _I,  # passes, has_carry, pair
+    _I, _I, _I, _I,  # passes, K, P, has_carry
     _P, _P, _P,  # state_in, state_out, stream
 ]))
 
@@ -234,8 +256,9 @@ def fused_scan_chunk(tables: NfaTables, data: torch.Tensor,
                      pair: bool = True) -> torch.Tensor:
     """The chunk advance as a CUDA kernel launch, with the contract of
     the JAX package's `pallas_scan.fused_scan_chunk` (replaces the TPU
-    kernel `_kernel`). `pair` selects two-columns-per-iteration
-    stepping; it changes no bits. Raises on a CPU tensor."""
+    kernel `_kernel`). `pair` is that kernel's two-columns-per-iteration
+    stepping; it changes no bits, and the CUDA kernel walks a row the
+    same way for either. Raises on a CPU tensor."""
     require_cuda(data, lengths, state)
     B, Lc = data.shape
     W = tables.opt.shape[0]
@@ -245,26 +268,30 @@ def fused_scan_chunk(tables: NfaTables, data: torch.Tensor,
     if tuple(state.shape) != (B, W) or state.dtype != torch.int32:
         raise ValueError(f"state must be [{B}, {W}] int32, got "
                          f"{state.dtype} {tuple(state.shape)}")
-    if W > MAX_WORDS:
-        raise ValueError(f"NFA bank of {W} words exceeds the kernel's "
-                         f"{MAX_WORDS}-word limit")
+    passes = 1 + tables.extra_passes
+    K, P, carry = kernel_variant(W, passes, tables.has_carry)
     if Lc == 0 or B == 0:
         return state
     data = data.contiguous()
     state = state.contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    toff = row_offsets(t_offset, B, data.device)
-    require_cuda(data, lens, toff, state, tables.cls_map, tables.cls_table,
+    if isinstance(t_offset, torch.Tensor):
+        toff, toff_all = row_offsets(t_offset, B, data.device), 0
+        require_cuda(data, toff)
+    else:
+        toff, toff_all = None, int(t_offset)
+        if not -2**31 <= toff_all < 2**31:
+            raise ValueError(f"t_offset {toff_all} does not fit in int32")
+    require_cuda(data, lens, state, tables.cls_map, tables.cls_table,
                  tables.opt)
     out = torch.empty_like(state)
     C = tables.cls_table.shape[0]
     KERNEL.launch(
-        ptr(data), B, Lc, ptr(lens), ptr(toff),
-        ptr(tables.cls_map), ptr(tables.cls_table), C, W,
+        ptr(data), B, Lc, ptr(lens), None if toff is None else ptr(toff),
+        toff_all, ptr(tables.cls_map), ptr(tables.cls_table), C, W,
         ptr(tables.init_anchored), ptr(tables.init_unanchored),
         ptr(tables.opt), ptr(tables.rep), ptr(tables.carry_mask),
-        1 + tables.extra_passes, int(tables.has_carry), int(pair),
-        ptr(state), ptr(out), stream_of(data))
+        passes, K, P, int(carry), ptr(state), ptr(out), stream_of(data))
     return out
 
 

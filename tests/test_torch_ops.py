@@ -8,16 +8,20 @@ for the chunked DFA and prefilter contracts, to its lax.scan chunk
 functions: the NFA advance (pair and single
 stepping, odd chunk widths, per-row and negative offsets, cross-word
 carry, extra propagation passes, a batch that is no multiple of the
-TPU's 128-row tile), the bitsplit-DFA walk and the prefilter
-shift-AND. Then match_ops, cidr and the window correlator. Every
+TPU's 128-row tile; the synthetic banks on which chip_smoke.py runs
+every instantiation of the CUDA kernel), the bitsplit-DFA walk and the
+prefilter shift-AND. Then match_ops, cidr and the window correlator. Every
 comparison is of integers or booleans: the tolerance is zero.
 """
 
+import dataclasses
 import random
 
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from pingoo_tpu.compiler import compile_ruleset as ref_compile
 from pingoo_tpu.compiler.nfa import build_bank as ref_build_bank
@@ -183,6 +187,62 @@ def test_nfa_odd_length_tiny_batch():
     lens[0] = 7
     check_nfa(tables, data, lens, np.zeros((3, tables.opt.shape[0]),
                                            np.uint32), 0)
+
+
+# Every dispatch path of csrc/nfa_scan.cu: chip_smoke.py holds the CUDA
+# kernel to the plain version on these banks on the card; here the plain
+# version is held to the Pallas kernel on the same banks, built by the
+# JAX package's compiler from the same sources.
+
+
+@pytest.mark.parametrize("num_words,has_carry,passes,wide",
+                         chip_smoke.width_cases())
+def test_nfa_width_banks(num_words, has_carry, passes, wide):
+    tables, lits = chip_smoke.width_tables(
+        num_words, has_carry, passes, wide, ref_compile_regex,
+        ref_build_bank, ref_nfa.bank_to_tables)
+    rng = np.random.default_rng(1000 * num_words + 10 * passes + has_carry)
+    B, L, cut = 13, 33, 14
+    data, lens = chip_smoke.width_batch(rng, lits, B, L, wide)
+    zero = np.zeros((B, num_words), np.uint32)
+    first = np.asarray(ref_pallas.fused_scan_chunk(tables, data[:, :cut],
+                                                   lens, zero, 0))
+    assert first.any()
+    port = carry(tables)
+    for pair in (True, False):
+        got = nfa_scan.scan_chunk(port, t(data[:, :cut]), t(lens), bits(zero),
+                                  0, pair=pair)
+        np.testing.assert_array_equal(words(got), first, err_msg=str(pair))
+    toff = (cut + rng.integers(-20, 8, size=B)).astype(np.int32)
+    want = check_nfa(tables, data[:, cut:], lens, first, toff)
+    # The instantiation the CUDA kernel runs gives the same state: a bank
+    # without carry runs one pass whatever `passes` says.
+    _, P, _ = nfa_scan.kernel_variant(num_words, passes, has_carry)
+    run = dataclasses.replace(port, extra_passes=(P or passes) - 1)
+    got = nfa_scan.scan_chunk_plain(run, t(data[:, cut:]), t(lens),
+                                    bits(first), t(toff))
+    np.testing.assert_array_equal(words(got), want)
+
+
+@pytest.mark.parametrize("num_words,passes,has_carry,want", [
+    (1, 1, False, (1, 1, False)), (32, 3, False, (1, 1, False)),
+    (33, 1, True, (2, 1, True)), (64, 2, True, (2, 2, True)),
+    (65, 3, True, (3, 0, True)), (96, 4, True, (3, 0, True)),
+    (97, 2, True, (4, 2, True)), (128, 6, True, (4, 0, True)),
+    (129, 1, False, (6, 1, False)), (192, 2, True, (6, 2, True)),
+    (193, 2, True, (8, 2, True)), (256, 1, True, (8, 1, True)),
+    (257, 5, False, (12, 1, False)), (384, 2, True, (12, 2, True)),
+    (385, 3, True, (16, 0, True)), (512, 2, True, (16, 2, True)),
+])
+def test_nfa_kernel_variant(num_words, passes, has_carry, want):
+    """Words per lane, unrolled passes and carry of the CUDA kernel's
+    instantiation for a bank."""
+    assert nfa_scan.kernel_variant(num_words, passes, has_carry) == want
+
+
+def test_nfa_kernel_variant_refuses_wide_banks():
+    with pytest.raises(ValueError, match="512-word"):
+        nfa_scan.kernel_variant(513, 1, True)
 
 
 # -- bitsplit DFA ---------------------------------------------------------
