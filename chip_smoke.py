@@ -140,20 +140,30 @@ def cuda_ms(fn, reps: int) -> float:
 def queued_ms(fn, reps: int) -> float:
     """CUDA-event time (ms) per run of `fn()` with all `reps` runs queued
     behind a sleep kernel: the card runs the launches back to back, so
-    the host's time to issue them does not count."""
+    the host's time to issue them does not count. The host checks that
+    the sleep was still running when it had issued every run (the start
+    event not yet reached); if not, the sleep is lengthened and the runs
+    made again, and after four tries the phase fails."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)  # about 50 ms: covers the issuing
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 100_000_000  # about 50 ms at the H100's clock
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        queued = not start.query()
+        end.record()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    fail(f"the host could not issue {reps} runs within a sleep of "
+         f"{cycles // 4} cycles")
 
 
 def max_abs_err(pairs) -> int:
@@ -466,7 +476,7 @@ def nfa_width_phase(dev, rng) -> int:
                       f"{'w' if wide else ''}:K{K}P{P}{'L2' if l2 else ''}"
                       f"{'u' if forced else ''}")
     missing = [(K, P, c) for K in nfa_scan.WORDS_PER_LANE
-               for P, c in ((1, False), (1, True), (2, True), (0, True))
+               for P, c in ((1, False), (2, True), (0, True))
                if not any(s[:3] == (K, P, c) for s in seen)]
     if missing or not any(s[3] for s in seen):
         fail(f"the width banks reached no {missing} instantiation or no "
@@ -477,10 +487,10 @@ def nfa_width_phase(dev, rng) -> int:
     return err
 
 
-def capture_main_path(plan, lists, reqs, dev) -> list[dict]:
+def capture_main_path(plan, lists, reqs, dev) -> tuple[list[dict], int]:
     """Serve `reqs` once on the main path with `nfa_scan.fused_scan_chunk`
-    wrapped (scan_chunk looks it up at call time); returns every
-    launch's inputs."""
+    wrapped (scan_chunk looks it up at call time); returns every call's
+    inputs and the kernel's own launch count over that pass."""
     from pingoo_tpu_torch.engine.service import VerdictService
     from pingoo_tpu_torch.ops import nfa_scan
 
@@ -498,6 +508,7 @@ def capture_main_path(plan, lists, reqs, dev) -> list[dict]:
 
     os.environ["PINGOO_DFA"], os.environ["PINGOO_PREFILTER"] = MODES[0]
     nfa_scan.fused_scan_chunk = wrapped
+    before = nfa_scan.KERNEL.launches
     try:
         asyncio.run(serve(VerdictService(plan, lists, max_batch=B,
                                          device=dev), reqs))
@@ -505,17 +516,18 @@ def capture_main_path(plan, lists, reqs, dev) -> list[dict]:
         nfa_scan.fused_scan_chunk = real
         os.environ.pop("PINGOO_DFA")
         os.environ.pop("PINGOO_PREFILTER")
-    return launches
+    return launches, nfa_scan.KERNEL.launches - before
 
 
-def main_path_nfa_phase(plan, launches) -> dict:
-    """Replay the captured main-path NFA launches through the kernel and
-    the plain version (bit equality) and time the whole replay."""
+def main_path_nfa_phase(plan, launches, n_launched) -> dict:
+    """Replay the captured main-path NFA calls through the kernel and
+    the plain version (bit equality) and time the whole replay;
+    `n_launched` is the kernel's launch count over the captured pass."""
     import numpy as np
 
     from pingoo_tpu_torch.ops import nfa_scan
 
-    if not launches:
+    if not n_launched:
         fail("the main path launched no NFA kernel to capture")
 
     def replay(fn):
@@ -529,11 +541,12 @@ def main_path_nfa_phase(plan, launches) -> dict:
     dev_ms = queued_ms(lambda: replay(nfa_scan.fused_scan_chunk), 200)
     shapes = [f"{c['key']}:{c['data'].shape[0]}x{c['data'].shape[1]}"
               f"/W{c['state'].shape[1]}" for c in launches]
-    print(f"nfa main path: {len(launches)} launches {' '.join(shapes)}, "
+    print(f"nfa main path: {len(launches)} calls, {n_launched} launches "
+          f"{' '.join(shapes)}, "
           f"max_abs_err {err}; replay {med * 1e3:.1f} us (quartiles "
           f"{q1 * 1e3:.1f}-{q3 * 1e3:.1f}), queued on the card "
           f"{dev_ms * 1e3:.1f} us", flush=True)
-    return dict(main_path_us=med * 1e3, main_path_launches=len(launches),
+    return dict(main_path_us=med * 1e3, main_path_launches=n_launched,
                 main_path_shapes=shapes, main_path_device_us=dev_ms * 1e3,
                 max_abs_err=err)
 
@@ -711,7 +724,7 @@ def main() -> int:
                             lists=lists)
     counts = slice_phase(plan, rules, lists, reqs, dev)
     main_nfa = main_path_nfa_phase(
-        plan, capture_main_path(plan, lists, reqs, dev))
+        plan, *capture_main_path(plan, lists, reqs, dev))
     if main_nfa.pop("max_abs_err") != 0:
         fail("the NFA kernel disagrees with its plain version on a "
              "captured main-path launch")

@@ -24,7 +24,8 @@
 //     carry a second pass sets no new bit: within a run of opt bits the
 //     first pass already sets every bit from the run's lowest active bit
 //     through one past its top, and adding opt to that run gives the same
-//     bits back. P = 0 loops over the runtime pass count (3 or more).
+//     bits back. With carry, P = 2 unrolls the corpus banks' two passes
+//     and P = 0 loops over the runtime pass count (1, or 3 or more).
 //   * The byte -> class -> table-row lookup is off the dependent chain.
 //     A row's live bytes are read 32 columns at a time, one coalesced
 //     byte per lane a block ahead of use, and turned into table-row
@@ -319,14 +320,13 @@ cudaError_t launch(Args a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// P: 1 or 2 unrolled passes, 0 for a loop over a.passes; a bank without
-// carry runs P = 1 only.
+// P: 2 unrolled passes, or 0 for a loop over a.passes (any other count);
+// a bank without carry runs P = 1 only.
 template <int K>
 cudaError_t launch_k(const Args& a, int P, int carry, cudaStream_t st) {
   if (!carry) {
     return P == 1 ? launch<K, 1, false>(a, st) : cudaErrorInvalidValue;
   }
-  if (P == 1) return launch<K, 1, true>(a, st);
   if (P == 2) return launch<K, 2, true>(a, st);
   if (P == 0) return launch<K, 0, true>(a, st);
   return cudaErrorInvalidValue;

@@ -227,6 +227,7 @@ def kernel_variant(num_words: int, passes: int,
                    has_carry: bool) -> tuple[int, int, bool]:
     """The instantiation of csrc/nfa_scan.cu that runs a bank: (K words
     per lane, P unrolled passes or 0 for a loop over `passes`, carry).
+    With carry, only two passes (the corpus banks' count) unroll.
 
     A bank without cross-word carry runs one pass: with no escape carry
     between passes, a second pass sets no new bit (the kernel's note
@@ -237,7 +238,7 @@ def kernel_variant(num_words: int, passes: int,
     K = next(k for k in WORDS_PER_LANE if 32 * k >= num_words)
     if not has_carry:
         return K, 1, False
-    return K, passes if passes <= 2 else 0, True
+    return K, 2 if passes == 2 else 0, True
 
 
 _P = ctypes.c_void_p

@@ -226,11 +226,11 @@ def test_nfa_width_banks(num_words, has_carry, passes, wide):
 
 @pytest.mark.parametrize("num_words,passes,has_carry,want", [
     (1, 1, False, (1, 1, False)), (32, 3, False, (1, 1, False)),
-    (33, 1, True, (2, 1, True)), (64, 2, True, (2, 2, True)),
+    (33, 1, True, (2, 0, True)), (64, 2, True, (2, 2, True)),
     (65, 3, True, (3, 0, True)), (96, 4, True, (3, 0, True)),
     (97, 2, True, (4, 2, True)), (128, 6, True, (4, 0, True)),
     (129, 1, False, (6, 1, False)), (192, 2, True, (6, 2, True)),
-    (193, 2, True, (8, 2, True)), (256, 1, True, (8, 1, True)),
+    (193, 2, True, (8, 2, True)), (256, 1, True, (8, 0, True)),
     (257, 5, False, (12, 1, False)), (384, 2, True, (12, 2, True)),
     (385, 3, True, (16, 0, True)), (512, 2, True, (16, 2, True)),
 ])
