@@ -50,6 +50,17 @@
 //     longest-first order built on the device balanced full-width
 //     batches better, but its extra launch cost short launches more.
 //
+// Banks wider than 512 words (32 lanes x 16 words) run in segments of 512
+// words, one launch each, in word order. Every carry flows from word w-1
+// to word w and never back, so segment k's state never depends on
+// segment k+1: a segment needs from the one below only the carries into
+// its word 0, per column. The SEG instantiations (K = 16, with carry)
+// take them from a per-row, per-column buffer (bit 0: the pre-step bit
+// 31 of the word below; bit p+1: that word's escape `x < opt` of pass p)
+// in place of lane 0's shuffles, and lane 31 writes the same bits of the
+// segment's top word for the next segment. A bank without carry has no
+// cross-word term, so its segments run the plain instantiations.
+//
 // What bounds it on an H100: integer issue at full width (chip_smoke.py
 // counts the operations per word and byte for its bound) and the rows'
 // unequal lengths, as each SM's share is the sum of its rows; on short
@@ -74,11 +85,17 @@ struct Args {
   const int32_t* cls_map;
   const uint32_t* cls_table;
   int C, W;
+  int tW, sW;  // row strides (words) of cls_table and of the states
   const uint32_t *init_a, *init_u, *opt, *rep, *carry;
   int passes;
   const uint32_t* state_in;
   uint32_t* state_out;
   int tab_in_smem;
+  // SEG only: the carries into word 0 from the segment below, and those
+  // out of the top word for the segment above ([B, Lc] each; null for
+  // the first and the last segment).
+  const uint32_t* cin;
+  uint32_t* cout;
 };
 
 // 16-byte unit swizzle of a lane for K = 8, 16 (units per lane 2, 4):
@@ -104,8 +121,8 @@ __device__ __forceinline__ int smem_pos(int w) {
 }
 
 // Stage the [C, W] class table into the padded layout: 16-byte loads of
-// the flat table (all of a round issued before its stores), then the
-// pad words zeroed.
+// a flat table (all of a round issued before its stores), word loads of
+// a segment's rows, then the pad words zeroed.
 template <int K>
 __device__ __forceinline__ void stage_table(uint32_t* tab_s, const Args& a) {
   constexpr int WS = 32 * K;
@@ -116,7 +133,7 @@ __device__ __forceinline__ void stage_table(uint32_t* tab_s, const Args& a) {
     tab_s[c * WS + smem_pos<K>(f - c * W)] = v;
   };
   int done = 0;
-  if ((reinterpret_cast<uintptr_t>(a.cls_table) & 15) == 0) {
+  if (a.tW == W && (reinterpret_cast<uintptr_t>(a.cls_table) & 15) == 0) {
     const uint4* g4 = reinterpret_cast<const uint4*>(a.cls_table);
     const int n4 = n >> 2;
     for (int i = threadIdx.x; i < n4; i += R * THREADS) {
@@ -137,7 +154,10 @@ __device__ __forceinline__ void stage_table(uint32_t* tab_s, const Args& a) {
     }
     done = n4 << 2;
   }
-  for (int f = done + threadIdx.x; f < n; f += THREADS) put(f, a.cls_table[f]);
+  for (int f = done + threadIdx.x; f < n; f += THREADS) {
+    const int c = f / W;
+    put(f, a.cls_table[(size_t)c * a.tW + f - c * W]);
+  }
   const int pad = WS - W;
   for (int i = threadIdx.x; i < a.C * pad; i += THREADS) {
     const int c = i / pad;
@@ -182,16 +202,24 @@ __device__ __forceinline__ void load_row(uint32_t (&m)[K], int off, int lane,
 }
 
 // One byte step on a lane's K words. cm1 is carry_mask's bit 0 and cm31
-// the same at bit 31; both are 0 for word 0, so lane 0's wrapped-around
-// shuffles carry nothing in.
-template <int K, int P, bool CARRY>
-__device__ __forceinline__ void nfa_step(
+// the same at bit 31; both are 0 for the bank's word 0, so lane 0's
+// wrapped-around shuffles carry nothing in. With SEG, lane 0 takes the
+// carries into the segment's word 0 from `cin` instead, and the step
+// returns the carries out of lane 31's top word (meaningful on lane 31).
+template <int K, int P, bool CARRY, bool SEG>
+__device__ __forceinline__ uint32_t nfa_step(
     uint32_t (&S)[K], const uint32_t (&m)[K], const uint32_t (&inj)[K],
     const uint32_t (&op)[K], const uint32_t (&rp)[K],
-    const uint32_t (&cm31)[K], const uint32_t (&cm1)[K], int passes) {
+    const uint32_t (&cm31)[K], const uint32_t (&cm1)[K], int passes,
+    int lane, uint32_t cin) {
   uint32_t adv[K];
+  uint32_t cout = 0;
   if constexpr (CARRY) {
-    const uint32_t prev = __shfl_up_sync(FULL, S[K - 1], 1);
+    uint32_t prev = __shfl_up_sync(FULL, S[K - 1], 1);
+    if constexpr (SEG) {
+      if (lane == 0) prev = cin << 31;
+      cout = S[K - 1] >> 31;
+    }
 #pragma unroll
     for (int k = 0; k < K; ++k)
       adv[k] = __funnelshift_l((k ? S[k - 1] : prev) & cm31[k], S[k], 1) |
@@ -210,8 +238,12 @@ __device__ __forceinline__ void nfa_step(
       adv[k] |= x[k] ^ op[k];
     }
     if (CARRY && p + 1 < np) {
-      const uint32_t esc =
-          __shfl_up_sync(FULL, x[K - 1] < op[K - 1] ? 1u : 0u, 1);
+      const uint32_t top = x[K - 1] < op[K - 1] ? 1u : 0u;
+      uint32_t esc = __shfl_up_sync(FULL, top, 1);
+      if constexpr (SEG) {
+        if (lane == 0) esc = (cin >> (p + 1)) & 1u;
+        cout |= top << (p + 1);
+      }
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const uint32_t e = k ? (x[k - 1] < op[k - 1] ? 1u : 0u) : esc;
@@ -221,9 +253,10 @@ __device__ __forceinline__ void nfa_step(
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) S[k] = (adv[k] | (S[k] & rp[k])) & m[k];
+  return cout;
 }
 
-template <int K, int P, bool CARRY>
+template <int K, int P, bool CARRY, bool SEG>
 __global__ void __launch_bounds__(THREADS) nfa_chunk_kernel(const Args a) {
   extern __shared__ uint4 smem4[];
   int32_t* cmap = reinterpret_cast<int32_t*>(smem4);  // class row offsets
@@ -237,7 +270,10 @@ __global__ void __launch_bounds__(THREADS) nfa_chunk_kernel(const Args a) {
   // contiguous run [lo, hi) with 0 <= toff + column < len.
   uint32_t S[K], inj0[K];
   int lo = 0, hi = 0, byte0 = 0, nb = 0;
+  uint32_t cin0 = 0, ncb = 0;  // SEG: carries in, first column and ahead
   const uint8_t* row = a.data;
+  const uint32_t* cin_row = nullptr;
+  uint32_t* cout_row = nullptr;
   if (b < a.B) {
     const long long t0 = a.toff ? a.toff[b] : a.toff_all;
     const long long end = (long long)a.lens[b] - t0;
@@ -248,11 +284,19 @@ __global__ void __launch_bounds__(THREADS) nfa_chunk_kernel(const Args a) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const bool ok = w0 + k < a.W;
-      S[k] = ok ? a.state_in[(size_t)b * a.W + w0 + k] : 0u;
+      S[k] = ok ? a.state_in[(size_t)b * a.sW + w0 + k] : 0u;
       inj0[k] = ok ? a.init_u[w0 + k] | (anch ? a.init_a[w0 + k] : 0u) : 0u;
     }
     if (lo < hi) byte0 = row[lo];
     nb = lo + 1 + lane < hi ? row[lo + 1 + lane] : 0;
+    if constexpr (SEG) {
+      if (a.cin) {
+        cin_row = a.cin + (size_t)b * a.Lc;
+        if (lo < hi) cin0 = cin_row[lo];
+        ncb = lo + 1 + lane < hi ? cin_row[lo + 1 + lane] : 0u;
+      }
+      if (a.cout) cout_row = a.cout + (size_t)b * a.Lc;
+    }
   }
   uint32_t iu[K], op[K], rp[K], cm31[K], cm1[K];
 #pragma unroll
@@ -262,11 +306,11 @@ __global__ void __launch_bounds__(THREADS) nfa_chunk_kernel(const Args a) {
     iu[k] = ok ? a.init_u[w] : 0u;
     op[k] = ok ? a.opt[w] : 0u;
     rp[k] = ok ? a.rep[w] : 0u;
-    cm1[k] = ok && w > 0 ? a.carry[w] & 1u : 0u;
+    cm1[k] = ok && (w > 0 || SEG) ? a.carry[w] & 1u : 0u;
     cm31[k] = cm1[k] << 31;
   }
 
-  const int stride = in_smem ? 32 * K : a.W;
+  const int stride = in_smem ? 32 * K : a.tW;
   for (int i = threadIdx.x; i < 256; i += THREADS)
     cmap[i] = a.cls_map[i] * stride;
   if (in_smem) stage_table<K>(tab_s, a);
@@ -277,13 +321,20 @@ __global__ void __launch_bounds__(THREADS) nfa_chunk_kernel(const Args a) {
   if (lo < hi) {
     uint32_t m[K];
     load_row<K>(m, cmap[byte0], lane, swz, tab_s, a, in_smem);
-    nfa_step<K, P, CARRY>(S, m, inj0, op, rp, cm31, cm1, a.passes);
+    const uint32_t c = nfa_step<K, P, CARRY, SEG>(S, m, inj0, op, rp, cm31,
+                                                   cm1, a.passes, lane, cin0);
+    if (SEG && cout_row && lane == 31) cout_row[lo] = c;
     ++lo;
   }
   for (int base = lo; base < hi; base += 32) {
     const int off = cmap[nb];  // column base + lane's class row
     const int n = hi - base < 32 ? hi - base : 32;
     nb = base + 32 + lane < hi ? row[base + 32 + lane] : 0;
+    uint32_t cb = 0;
+    if constexpr (SEG) {
+      cb = ncb;
+      if (cin_row) ncb = base + 32 + lane < hi ? cin_row[base + 32 + lane] : 0u;
+    }
     uint32_t cur[K];
     load_row<K>(cur, __shfl_sync(FULL, off, 0), lane, swz, tab_s, a, in_smem);
 #pragma unroll 4
@@ -291,26 +342,30 @@ __global__ void __launch_bounds__(THREADS) nfa_chunk_kernel(const Args a) {
       uint32_t nxt[K];
       load_row<K>(nxt, __shfl_sync(FULL, off, j + 1 < n ? j + 1 : j), lane,
                   swz, tab_s, a, in_smem);
-      nfa_step<K, P, CARRY>(S, cur, iu, op, rp, cm31, cm1, a.passes);
+      uint32_t cin = 0;
+      if constexpr (SEG) cin = __shfl_sync(FULL, cb, j);
+      const uint32_t c = nfa_step<K, P, CARRY, SEG>(S, cur, iu, op, rp, cm31,
+                                                     cm1, a.passes, lane, cin);
+      if (SEG && cout_row && lane == 31) cout_row[base + j] = c;
 #pragma unroll
       for (int k = 0; k < K; ++k) cur[k] = nxt[k];
     }
   }
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    if (w0 + k < a.W) a.state_out[(size_t)b * a.W + w0 + k] = S[k];
+    if (w0 + k < a.W) a.state_out[(size_t)b * a.sW + w0 + k] = S[k];
 }
 
 constexpr size_t SMEM_DEFAULT = 48 * 1024;
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-template <int K, int P, bool CARRY>
+template <int K, int P, bool CARRY, bool SEG = false>
 cudaError_t launch(Args a, cudaStream_t st) {
   const size_t cmap_bytes = 256 * sizeof(int32_t);
   const size_t tab_bytes = (size_t)a.C * 32 * K * sizeof(uint32_t);
   a.tab_in_smem = cmap_bytes + tab_bytes <= SMEM_MAX;
   const size_t smem = a.tab_in_smem ? cmap_bytes + tab_bytes : cmap_bytes;
-  auto kern = nfa_chunk_kernel<K, P, CARRY>;
+  auto kern = nfa_chunk_kernel<K, P, CARRY, SEG>;
   if (smem > SMEM_DEFAULT) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -334,21 +389,36 @@ cudaError_t launch_k(const Args& a, int P, int carry, cudaStream_t st) {
 
 }  // namespace
 
+// seg: one segment of a bank wider than 512 words (K = 16 with carry;
+// cin/cout as in Args, either may be null). The pointers of a segment
+// (table, vectors, states) point at its first word in the bank's own
+// tensors, whose rows are tW (table) and sW (states) words apart.
 extern "C" int pingoo_nfa_scan_chunk(
     const void* data, int B, int Lc, const void* lens, const void* toff,
     int toff_all, const void* cls_map, const void* cls_table, int C, int W,
-    const void* init_a, const void* init_u, const void* opt, const void* rep,
-    const void* carry, int passes, int K, int P, int has_carry,
-    const void* state_in, void* state_out, void* stream) {
+    int tW, int sW, const void* init_a, const void* init_u, const void* opt,
+    const void* rep, const void* carry, int passes, int K, int P, int has_carry,
+    const void* state_in, void* state_out, int seg, const void* cin,
+    void* cout, void* stream) {
   if (B <= 0 || W <= 0) return (int)cudaSuccess;
-  if (passes < 1 || W > 32 * K) return (int)cudaErrorInvalidValue;
+  if (passes < 1 || W > 32 * K || tW < W || sW < W)
+    return (int)cudaErrorInvalidValue;
   const Args a{(const uint8_t*)data, B, Lc, (const int32_t*)lens,
                (const int32_t*)toff, toff_all, (const int32_t*)cls_map,
-               (const uint32_t*)cls_table, C, W, (const uint32_t*)init_a,
-               (const uint32_t*)init_u, (const uint32_t*)opt,
-               (const uint32_t*)rep, (const uint32_t*)carry, passes,
-               (const uint32_t*)state_in, (uint32_t*)state_out, 0};
+               (const uint32_t*)cls_table, C, W, tW, sW,
+               (const uint32_t*)init_a, (const uint32_t*)init_u,
+               (const uint32_t*)opt, (const uint32_t*)rep,
+               (const uint32_t*)carry, passes,
+               (const uint32_t*)state_in, (uint32_t*)state_out, 0,
+               (const uint32_t*)cin, (uint32_t*)cout};
   cudaStream_t st = (cudaStream_t)stream;
+  if (seg) {
+    // Carries out of a pass count above 31 would not fit their word.
+    if (K != 16 || !has_carry || passes > 31) return (int)cudaErrorInvalidValue;
+    if (P == 2) return (int)launch<16, 2, true, true>(a, st);
+    if (P == 0) return (int)launch<16, 0, true, true>(a, st);
+    return (int)cudaErrorInvalidValue;
+  }
   switch (K) {
     case 1: return (int)launch_k<1>(a, P, has_carry, st);
     case 2: return (int)launch_k<2>(a, P, has_carry, st);

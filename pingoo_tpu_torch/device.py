@@ -15,11 +15,20 @@ import torch
 # Knobs of the JAX package whose features the port does not have yet:
 # (variable, predicate on its value, the ROADMAP.md port-queue item).
 _UNPORTED = (
+    # Any value the JAX package reads as "on" (its default there); the
+    # port always runs one batch at a time, which is its "off".
+    ("PINGOO_PIPELINE", lambda v: v.strip().lower() not in
+     ("", "off", "0", "false"),
+     "port queue item 1c, the pipelined executor"),
+    ("PINGOO_PIPELINE_DEPTH", lambda v: v != "",
+     "port queue item 1c, the pipelined executor"),
     ("PINGOO_PREFILTER", lambda v: v == "compact",
      "port queue item 2, prefilter compact mode"),
     ("PINGOO_STAGING", lambda v: v.strip().lower() == "compact",
      "port queue item 3, compact staging"),
     ("PINGOO_NFA_SPLIT", lambda v: v not in ("", "0"),
+     "port queue item 4, halo split"),
+    ("PINGOO_SCAN_STRATEGY", lambda v: v == "halo",
      "port queue item 4, halo split"),
     ("PINGOO_MEGASTEP", lambda v: v not in ("", "off"),
      "port queue item 5, megastep and DeviceInputQueue"),

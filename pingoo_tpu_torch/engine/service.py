@@ -74,8 +74,10 @@ class VerdictService:
         self._task: Optional[asyncio.Task] = None
         # Per-batch wall times (ms) and sizes, for the caller's stats;
         # stage_ms splits each batch into host encoding ("encode"), the
-        # device verdict up to its result on the host ("verdict"), and
-        # host rules, overflow rows and action lanes ("finish").
+        # host's issue of the device verdict ("verdict": dispatch and the
+        # path's own syncs, up to the returned device tensor), and host
+        # rules, the wait for the device result, overflow rows and action
+        # lanes ("finish").
         self.batch_ms: list[float] = []
         self.batch_sizes: list[int] = []
         self.stage_ms: dict[str, list[float]] = {
@@ -142,7 +144,9 @@ class VerdictService:
             RequestBatch(size=n, arrays=bucket_arrays(batch.arrays)),
             pow2_batch_size(n, self.max_batch))
         t1 = time.monotonic()
-        dev = self._verdict_fn(self.plan.np_tables, fast.arrays).cpu()
+        # The device result stays on the card: finish_batch interprets the
+        # host rules before its one sync, so they overlap the device work.
+        dev = self._verdict_fn(self.plan.np_tables, fast.arrays)
         t2 = time.monotonic()
         matched = finish_batch(self.plan, dev, fast, self.lists)[:n]
         matched = self._rewrite_overflow_rows(reqs, batch, matched)

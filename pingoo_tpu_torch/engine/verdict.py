@@ -640,8 +640,10 @@ def _host_matrix(plan, batch, lists) -> np.ndarray:
 
 
 def finish_batch(plan, dev, batch, lists) -> np.ndarray:
-    """Combine a device verdict with the host-interpreted rules (which
-    run first, while the device works)."""
+    """Combine a device verdict with the host-interpreted rules. `dev`
+    may be a tensor still being computed on the card: the host rules run
+    first and `_host_array` then syncs once, so they overlap the device
+    work (as in the JAX package)."""
     out = _host_matrix(plan, batch, lists)
     dev = _host_array(dev)
     for col, idx in enumerate(plan.device_rule_indices):

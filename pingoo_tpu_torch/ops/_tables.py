@@ -20,6 +20,7 @@ dtypes, and `to` moves every tensor to a device.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from dataclasses import field
 
 import numpy as np
@@ -55,6 +56,23 @@ def to_numpy(t: torch.Tensor, kind: str | None = None) -> np.ndarray:
     if kind == U32_WIDE:
         return a.astype(np.uint32)
     return a
+
+
+_DERIVED: dict[tuple[int, str], tuple[weakref.ref, object]] = {}
+
+
+def derived(source: torch.Tensor, key: str, build):
+    """`build()`, made once per table tensor `source` and kept while
+    `source` lives: a kernel's own layout of a table, which is no field
+    of the table dataclass."""
+    k = (id(source), key)
+    hit = _DERIVED.get(k)
+    if hit is not None and hit[0]() is source:
+        return hit[1]
+    value = build()
+    _DERIVED[k] = (weakref.ref(source), value)
+    weakref.finalize(source, _DERIVED.pop, k, None)
+    return value
 
 
 def widen(t: torch.Tensor) -> torch.Tensor:

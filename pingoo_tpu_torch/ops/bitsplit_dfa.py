@@ -8,8 +8,10 @@ extracts per-slot hits (always/empty lanes as in nfa_scan).
 
 `dfa_scan_chunk_plain` is the plain PyTorch version of the chunk walk;
 `fused_dfa_chunk` launches csrc/bitsplit_dfa.cu (one thread per row,
-state and H in registers) and takes CUDA tensors only. `dfa_scan_chunk`
-sends a CUDA tensor to the kernel and a CPU tensor to the plain version.
+state and H in registers, the table in the kernel's own layout, made by
+`kernel_layout` once per table and staged into shared memory when it
+fits) and takes CUDA tensors only. `dfa_scan_chunk` sends a CUDA tensor
+to the kernel and a CPU tensor to the plain version.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from ..compiler.nfa import DfaBank
 from ._build import Kernel, ptr, register, require_cuda, stream_of
-from ._tables import U32, TensorTable, arr
+from ._tables import U32, TensorTable, arr, derived
 from .nfa_scan import row_offsets
 
 
@@ -103,11 +105,69 @@ def dfa_scan_chunk_plain(tables: DfaTables, data: torch.Tensor,
     return state, H
 
 
+# The kernel's table layout. Entries are 16 bits, so a table has at most
+# 65536 states; up to FLAG_STATES, bit 0 of an entry flags the next
+# state's step accepts. The kernel stages a layout of at most
+# SMEM_LAYOUT_BYTES into shared memory (the 227 KB a block may use, less
+# its class map and mbarrier) and reads a larger one through L1 from L2.
+MAX_STATES = 1 << 16
+FLAG_STATES = 1 << 15
+SMEM_LAYOUT_BYTES = 227 * 1024 - (256 * 4 + 16)
+
+
+@dataclass(frozen=True)
+class DfaLayout:
+    """A DFA table in csrc/bitsplit_dfa.cu's layout: `data` holds
+    `trans_bytes` bytes of int16-held entries [S, C] (entry = next << shift
+    | flag, flag = "next has a step accept" when shift is 1), then
+    `accept_bytes` bytes of step_accept [S, Wh]; both zero-padded to 16."""
+
+    data: torch.Tensor  # uint8
+    trans_bytes: int
+    accept_bytes: int
+    shift: int
+    path: str  # "smem" (staged into shared memory) or "l2"
+
+
+def _padded_bytes(t: torch.Tensor) -> torch.Tensor:
+    flat = t.contiguous().view(torch.uint8).reshape(-1)
+    pad = -flat.numel() % 16
+    return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+
+
+def build_layout(tables: DfaTables) -> DfaLayout:
+    """The kernel's layout of `tables`, on the tables' device."""
+    S, C = tables.num_states, tables.num_classes
+    if S > MAX_STATES:
+        raise ValueError(f"a DFA of {S} states exceeds the kernel's "
+                         f"{MAX_STATES}-state limit")
+    trans = tables.trans_flat.long().view(S, C)
+    shift = 1 if S <= FLAG_STATES else 0
+    entries = trans
+    if shift:
+        flag = (tables.step_accept != 0).any(dim=1).long()
+        entries = (trans << 1) | flag[trans]
+    entries = torch.where(entries >= 1 << 15, entries - (1 << 16), entries)
+    trans_b = _padded_bytes(entries.to(torch.int16))
+    acc_b = _padded_bytes(tables.step_accept)
+    fits = trans_b.numel() + acc_b.numel() <= SMEM_LAYOUT_BYTES
+    return DfaLayout(data=torch.cat([trans_b, acc_b]),
+                     trans_bytes=trans_b.numel(), accept_bytes=acc_b.numel(),
+                     shift=shift, path="smem" if fits else "l2")
+
+
+def kernel_layout(tables: DfaTables) -> DfaLayout:
+    """`build_layout(tables)`, made once per table."""
+    return derived(tables.trans_flat, "dfa_layout",
+                   lambda: build_layout(tables))
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = register(Kernel("bitsplit_dfa", "pingoo_bitsplit_dfa_chunk", [
-    _P, _I, _I, _P, _P,  # data, B, Lc, lens, toff
-    _P, _P, _P, _I, _I,  # trans, byte_cls, step_accept, C, Wh
+    _P, _I, _I, _P, _P, _I,  # data, B, Lc, lens, toff, toff_all
+    _P, _I, _I,  # layout, trans_bytes, accept_bytes
+    _P, _I, _I, _I,  # byte_cls, C, Wh, shift
     _P, _P, _P, _P, _P,  # state_in, H_in, state_out, H_out, stream
 ]))
 
@@ -131,16 +191,23 @@ def fused_dfa_chunk(tables: DfaTables, data: torch.Tensor,
         return state, H
     data = data.contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    toff = row_offsets(t_offset, B, data.device)
+    if isinstance(t_offset, torch.Tensor):
+        toff, toff_all = row_offsets(t_offset, B, data.device), 0
+        require_cuda(data, toff)
+    else:
+        toff, toff_all = None, int(t_offset)
+        if not -2**31 <= toff_all < 2**31:
+            raise ValueError(f"t_offset {toff_all} does not fit in int32")
     state = state.contiguous()
     H = H.contiguous()
-    require_cuda(data, lens, toff, state, H, tables.trans_flat)
+    require_cuda(data, lens, state, H, tables.trans_flat, tables.byte_cls)
+    layout = kernel_layout(tables)
     state_out = torch.empty_like(state)
     H_out = torch.empty_like(H)
     KERNEL.launch(
-        ptr(data), B, Lc, ptr(lens), ptr(toff),
-        ptr(tables.trans_flat), ptr(tables.byte_cls),
-        ptr(tables.step_accept), tables.num_classes, Wh,
+        ptr(data), B, Lc, ptr(lens), None if toff is None else ptr(toff),
+        toff_all, ptr(layout.data), layout.trans_bytes, layout.accept_bytes,
+        ptr(tables.byte_cls), tables.num_classes, Wh, layout.shift,
         ptr(state), ptr(H), ptr(state_out), ptr(H_out), stream_of(data))
     return state_out, H_out
 

@@ -11,10 +11,11 @@ optional runs that overflow a word, extra propagation passes.
 `scan_chunk_plain` is the plain PyTorch version of that step loop;
 `fused_scan_chunk` launches the hand-written kernel csrc/nfa_scan.cu
 (one warp per row, words across lanes; see the source for the design)
-in the instantiation `kernel_variant` picks, and takes CUDA tensors
-only. `scan_chunk` sends a CUDA tensor to the kernel and a CPU tensor
-to the plain version. Tables hold uint32 words
-as int32 bits (ops/_tables.py); the plain loop widens them to int64.
+in the instantiation `kernel_variant` picks, once per segment of at
+most 512 words, and takes CUDA tensors only. `scan_chunk` sends a CUDA
+tensor to the kernel and a CPU tensor to the plain version. Tables hold
+uint32 words as int32 bits (ops/_tables.py); the plain loop widens them
+to int64.
 """
 
 from __future__ import annotations
@@ -218,37 +219,44 @@ def scan_chunk_plain(tables: NfaTables, data: torch.Tensor,
 
 
 # Words per lane that csrc/nfa_scan.cu is built for: a bank of W words
-# runs on the smallest K with 32 * K >= W.
+# runs on the smallest K with 32 * K >= W. A wider bank runs in segments
+# of SEGMENT_WORDS words at K = 16, one launch each.
 WORDS_PER_LANE = (1, 2, 3, 4, 6, 8, 12, 16)
-MAX_WORDS = 32 * WORDS_PER_LANE[-1]
+SEGMENT_WORDS = 32 * WORDS_PER_LANE[-1]
 
 
 def kernel_variant(num_words: int, passes: int,
                    has_carry: bool) -> tuple[int, int, bool]:
     """The instantiation of csrc/nfa_scan.cu that runs a bank: (K words
     per lane, P unrolled passes or 0 for a loop over `passes`, carry).
-    With carry, only two passes (the corpus banks' count) unroll.
+    With carry, only two passes (the corpus banks' count) unroll. A bank
+    wider than SEGMENT_WORDS runs its segments at K = 16 (with carry, in
+    the kernel's SEG instantiation of the same P).
 
     A bank without cross-word carry runs one pass: with no escape carry
     between passes, a second pass sets no new bit (the kernel's note
     says why), so one pass gives the state of `passes` passes."""
-    if num_words > MAX_WORDS:
-        raise ValueError(f"NFA bank of {num_words} words exceeds the "
-                         f"kernel's {MAX_WORDS}-word limit")
-    K = next(k for k in WORDS_PER_LANE if 32 * k >= num_words)
+    K = next((k for k in WORDS_PER_LANE if 32 * k >= num_words),
+             WORDS_PER_LANE[-1])
     if not has_carry:
         return K, 1, False
     return K, 2 if passes == 2 else 0, True
+
+
+def segments(num_words: int) -> list[tuple[int, int]]:
+    """The [lo, hi) word ranges a bank's launches cover, in order."""
+    return [(lo, min(lo + SEGMENT_WORDS, num_words))
+            for lo in range(0, num_words, SEGMENT_WORDS)]
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = register(Kernel("nfa_scan", "pingoo_nfa_scan_chunk", [
     _P, _I, _I, _P, _P, _I,  # data, B, Lc, lens, toff, toff_all
-    _P, _P, _I, _I,  # cls_map, cls_table, C, W
+    _P, _P, _I, _I, _I, _I,  # cls_map, cls_table, C, W, tW, sW
     _P, _P, _P, _P, _P,  # init_a, init_u, opt, rep, carry
     _I, _I, _I, _I,  # passes, K, P, has_carry
-    _P, _P, _P,  # state_in, state_out, stream
+    _P, _P, _I, _P, _P, _P,  # state_in, state_out, seg, cin, cout, stream
 ]))
 
 
@@ -285,14 +293,34 @@ def fused_scan_chunk(tables: NfaTables, data: torch.Tensor,
             raise ValueError(f"t_offset {toff_all} does not fit in int32")
     require_cuda(data, lens, state, tables.cls_map, tables.cls_table,
                  tables.opt)
-    out = torch.empty_like(state)
     C = tables.cls_table.shape[0]
-    KERNEL.launch(
-        ptr(data), B, Lc, ptr(lens), None if toff is None else ptr(toff),
-        toff_all, ptr(tables.cls_map), ptr(tables.cls_table), C, W,
-        ptr(tables.init_anchored), ptr(tables.init_unanchored),
-        ptr(tables.opt), ptr(tables.rep), ptr(tables.carry_mask),
-        passes, K, P, int(carry), ptr(state), ptr(out), stream_of(data))
+    spans = segments(W)
+    wide = len(spans) > 1
+    if wide and carry and passes > 31:
+        raise ValueError(f"a bank wider than {SEGMENT_WORDS} words runs at "
+                         f"most 31 passes, not {passes}")
+    # A bank wider than one launch runs its segments in word order, each
+    # reading and writing its words of the bank's own table and states in
+    # place. With carry, segment i hands the carries out of its top word
+    # to segment i + 1 through one of two [B, Lc] buffers.
+    tab = tables.cls_table.contiguous()
+    out = torch.empty_like(state)
+    bufs = torch.empty((2, B, Lc), dtype=torch.int32, device=data.device) \
+        if wide and carry else None
+    for i, (lo, hi) in enumerate(spans):
+        Ks, Ps, _ = kernel_variant(hi - lo, passes, False) \
+            if wide and not carry else (K, P, carry)
+        seg = wide and carry
+        KERNEL.launch(
+            ptr(data), B, Lc, ptr(lens), None if toff is None else ptr(toff),
+            toff_all, ptr(tables.cls_map), ptr(tab[:, lo:]), C, hi - lo, W,
+            W, ptr(tables.init_anchored[lo:]),
+            ptr(tables.init_unanchored[lo:]), ptr(tables.opt[lo:]),
+            ptr(tables.rep[lo:]), ptr(tables.carry_mask[lo:]), passes, Ks,
+            Ps, int(carry), ptr(state[:, lo:]), ptr(out[:, lo:]), int(seg),
+            ptr(bufs[(i - 1) % 2]) if seg and i > 0 else None,
+            ptr(bufs[i % 2]) if seg and i + 1 < len(spans) else None,
+            stream_of(data))
     return out
 
 

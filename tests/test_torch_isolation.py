@@ -130,6 +130,9 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_MEGASTEP", "force"),
     ("PINGOO_BODY_INSPECT", "on"),
     ("PINGOO_MESH", "2x1x1"),
+    ("PINGOO_PIPELINE", "on"),
+    ("PINGOO_PIPELINE_DEPTH", "3"),
+    ("PINGOO_SCAN_STRATEGY", "halo"),
 ])
 def test_unported_knobs_raise(monkeypatch, name, value):
     rules, lists = generate_ruleset(20, with_lists=False, seed=3)
@@ -143,11 +146,24 @@ def test_unported_knobs_raise(monkeypatch, name, value):
         VerdictService(plan, lists, device="cpu")
 
 
+@pytest.mark.parametrize("name,value,item", [
+    ("PINGOO_PIPELINE", "on", "item 1c, the pipelined executor"),
+    ("PINGOO_PIPELINE", "1", "item 1c, the pipelined executor"),
+    ("PINGOO_PIPELINE_DEPTH", "3", "item 1c, the pipelined executor"),
+    ("PINGOO_SCAN_STRATEGY", "halo", "item 4, halo split"),
+])
+def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
+    monkeypatch.setenv(name, value)
+    with pytest.raises(NotImplementedError, match=item):
+        port_device.check_env()
+
+
 @pytest.mark.parametrize("name,value", [
     ("PINGOO_PREFILTER", "banks"), ("PINGOO_PREFILTER", "off"),
     ("PINGOO_STAGING", "full"), ("PINGOO_MEGASTEP", "off"),
     ("PINGOO_BODY_INSPECT", "off"), ("PINGOO_MESH", "1x1x1"),
-    ("PINGOO_NFA_SPLIT", "0"),
+    ("PINGOO_NFA_SPLIT", "0"), ("PINGOO_PIPELINE", "off"),
+    ("PINGOO_SCAN_STRATEGY", "pair"), ("PINGOO_SCAN_STRATEGY", "pallas"),
 ])
 def test_ported_knob_values_pass(monkeypatch, name, value):
     monkeypatch.setenv(name, value)

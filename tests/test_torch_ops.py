@@ -9,8 +9,10 @@ functions: the NFA advance (pair and single
 stepping, odd chunk widths, per-row and negative offsets, cross-word
 carry, extra propagation passes, a batch that is no multiple of the
 TPU's 128-row tile; the synthetic banks on which chip_smoke.py runs
-every instantiation of the CUDA kernel), the bitsplit-DFA walk and the
-prefilter shift-AND. Then match_ops, cidr and the window correlator. Every
+every instantiation of the CUDA kernel, and banks wider than one of its
+launches), the bitsplit-DFA walk and the prefilter shift-AND. The CUDA
+kernels' own table layouts and variants, which only the card runs, are
+pinned here too. Then match_ops, cidr and the window correlator. Every
 comparison is of integers or booleans: the tolerance is zero.
 """
 
@@ -240,9 +242,69 @@ def test_nfa_kernel_variant(num_words, passes, has_carry, want):
     assert nfa_scan.kernel_variant(num_words, passes, has_carry) == want
 
 
-def test_nfa_kernel_variant_refuses_wide_banks():
-    with pytest.raises(ValueError, match="512-word"):
-        nfa_scan.kernel_variant(513, 1, True)
+@pytest.mark.parametrize("num_words,passes,has_carry,want,launches", [
+    (513, 1, True, (16, 0, True), 2), (513, 2, False, (16, 1, False), 2),
+    (600, 2, True, (16, 2, True), 2), (600, 1, False, (16, 1, False), 2),
+    (1024, 3, True, (16, 0, True), 2), (1024, 2, True, (16, 2, True), 2),
+    (2000, 2, True, (16, 2, True), 4), (2000, 1, False, (16, 1, False), 4),
+])
+def test_nfa_kernel_variant_wide_banks(num_words, passes, has_carry, want,
+                                       launches):
+    """A bank wider than 512 words runs at K = 16 in segments of 512
+    words, one launch each, in word order."""
+    assert nfa_scan.kernel_variant(num_words, passes, has_carry) == want
+    spans = nfa_scan.segments(num_words)
+    assert len(spans) == launches
+    assert spans[0][0] == 0 and spans[-1][1] == num_words
+    assert all(hi - lo <= nfa_scan.SEGMENT_WORDS for lo, hi in spans)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+
+
+def test_nfa_wide_plan_bank():
+    """A bank wider than one launch of the NFA kernel (600 rules build a
+    600-word nfa_path): the port's compiler builds the JAX package's
+    tables, and the port's plain scan equals that package's Pallas
+    kernel (interpret mode) and its plain scan, over a first chunk and a
+    carried chunk at per-row offsets."""
+    from pingoo_tpu.config.schema import RuleConfig as RefRuleConfig
+    from pingoo_tpu.expr import compile_expression as ref_compile_expression
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.config.schema import RuleConfig
+    from pingoo_tpu_torch.expr import compile_expression
+
+    pairs = chip_smoke.wide_rules()
+    srcs = chip_smoke.wide_rule_sources(pairs)
+    ref = ref_compile([RefRuleConfig(name=f"w{i}", actions=(),
+                                     expression=ref_compile_expression(src))
+                       for i, src in enumerate(srcs)], {})
+    port = compile_ruleset([RuleConfig(name=f"w{i}", actions=(),
+                                       expression=compile_expression(src))
+                            for i, src in enumerate(srcs)], {}, device="cpu")
+    tables = ref.np_tables["nfa_path"]
+    W = tables.opt.shape[0]
+    assert W == 600 and len(nfa_scan.segments(W)) == 2
+    got_arrays = port.np_tables["nfa_path"].numpy_arrays()
+    for name, want in carry(tables).numpy_arrays().items():
+        np.testing.assert_array_equal(got_arrays[name], want, err_msg=name)
+    rng = np.random.default_rng(600)
+    B, L, cut = 16, 64, 23
+    data, lens = chip_smoke.wide_batch(rng, pairs, B, L)
+    zero = np.zeros((B, W), np.uint32)
+    port_t = port.np_tables["nfa_path"]
+    toff = (cut + rng.integers(-20, 8, size=B)).astype(np.int32)
+    state = zero
+    for chunk, off in ((data[:, :cut], 0), (data[:, cut:], toff)):
+        want = np.asarray(ref_pallas.fused_scan_chunk(tables, chunk, lens,
+                                                      state, off))
+        np.testing.assert_array_equal(
+            np.asarray(ref_nfa.scan_chunk(tables, chunk, lens, state, off)),
+            want)
+        got = nfa_scan.scan_chunk_plain(
+            port_t, t(chunk), t(lens), bits(state),
+            off if isinstance(off, int) else t(off))
+        np.testing.assert_array_equal(words(got), want)
+        state = want
+    assert np.asarray(ref_nfa.extract_slots(tables, state, lens)).any()
 
 
 # -- bitsplit DFA ---------------------------------------------------------
@@ -278,6 +340,93 @@ def test_dfa_corpus_banks(seeded):
             dfa.dfa_finalize(port, ps, pH, t(lens)).numpy(),
             np.asarray(ref_dfa.dfa_finalize(tables, rs, rH, lens)))
     assert seen >= 2
+
+
+# The CUDA kernel reads each DFA table in its own layout (kernel_layout),
+# made once per table: entries round-trip to trans_flat and step_accept,
+# and each corpus table is given the path chip_smoke.py measured it on.
+
+CORPUS_DFA_PATHS = {"dfa_url": "smem", "dfa_path": "l2", "dfa_win_url": "l2",
+                    "dfa_win_path": "smem", "dfa_win_user_agent": "smem"}
+
+
+@pytest.fixture(scope="module")
+def crs500_port_tables():
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.utils.crs import generate_ruleset as port_ruleset
+
+    rules, lists = port_ruleset(500)
+    return compile_ruleset(rules, lists, device="cpu").np_tables
+
+
+def unpack_layout(layout, S, C, Wh):
+    """(next states [S * C], flags or None, step_accept [S, Wh] as int32
+    bits) from a DfaLayout; every pad byte must be zero."""
+    raw = layout.data
+    assert raw.dtype == torch.uint8 and raw.numel() == \
+        layout.trans_bytes + layout.accept_bytes
+    assert layout.trans_bytes % 16 == 0 and layout.accept_bytes % 16 == 0
+    entries = raw[:layout.trans_bytes].view(torch.int16).long() & 0xFFFF
+    assert not entries[S * C:].any()
+    entries = entries[:S * C]
+    acc = raw[layout.trans_bytes:].view(torch.int32)
+    assert not acc[S * Wh:].any()
+    flags = entries & 1 if layout.shift else None
+    return entries >> layout.shift, flags, acc[:S * Wh].view(S, Wh)
+
+
+def raw_bytes(layout):
+    return layout.trans_bytes + layout.accept_bytes
+
+
+def check_layout(tables):
+    layout = dfa.kernel_layout(tables)
+    assert dfa.kernel_layout(tables) is layout  # made once per table
+    S, C, Wh = tables.num_states, tables.num_classes, tables.num_words
+    # Staged whole where it fits in a block's shared memory.
+    assert layout.path == ("smem" if raw_bytes(layout) <=
+                           dfa.SMEM_LAYOUT_BYTES else "l2")
+    nxt, flags, acc = unpack_layout(layout, S, C, Wh)
+    np.testing.assert_array_equal(nxt.numpy(), tables.trans_flat.numpy())
+    np.testing.assert_array_equal(acc.numpy(), tables.step_accept.numpy())
+    if flags is not None:
+        has_accept = (tables.step_accept != 0).any(dim=1)
+        np.testing.assert_array_equal(flags.bool().numpy(),
+                                      has_accept[nxt].numpy())
+    return layout
+
+
+@pytest.mark.parametrize("key", sorted(CORPUS_DFA_PATHS))
+def test_dfa_kernel_layout_round_trip(crs500_port_tables, key):
+    layout = check_layout(crs500_port_tables[key])
+    assert layout.shift == 1
+
+
+def test_dfa_kernel_layout_paths(crs500_port_tables):
+    """Which corpus DFA tables the kernel stages into shared memory and
+    which it reads from L2."""
+    got = {k: dfa.kernel_layout(t).path
+           for k, t in crs500_port_tables.items() if k.startswith("dfa_")}
+    assert got == CORPUS_DFA_PATHS
+
+
+@pytest.mark.parametrize("S,C,Wh,shift,path", [
+    (300, 20, 12, 1, "smem"), (32768, 3, 1, 1, "l2"),
+    (32769, 2, 2, 0, "l2"), (65536, 2, 9, 0, "l2"),
+])
+def test_dfa_kernel_layout_synthetic(S, C, Wh, shift, path):
+    """Tables past the flag's reach (S > 32768) keep bare 16-bit states;
+    a small table is staged whatever Wh is."""
+    tables = chip_smoke.random_dfa_tables(np.random.default_rng(S), S, C, Wh)
+    layout = check_layout(tables)
+    assert (layout.shift, layout.path) == (shift, path)
+
+
+def test_dfa_kernel_layout_refuses_too_many_states():
+    tables = chip_smoke.random_dfa_tables(np.random.default_rng(1),
+                                          dfa.MAX_STATES + 1, 2, 1)
+    with pytest.raises(ValueError, match="65536-state"):
+        dfa.build_layout(tables)
 
 
 # -- prefilter ------------------------------------------------------------

@@ -9,7 +9,8 @@
   * The parity rule set with host-interpreted rules and service routes:
     lanes, host lanes and merged actions agree.
   * VerdictService.evaluate on device="cpu" answers with the reference's
-    Verdict fields and values.
+    Verdict fields and values, also under the knob values the port runs
+    as the JAX package does (PINGOO_PIPELINE=off, a strategy pin).
 
 All on CPU tensors (the kernels' plain versions); the tolerance is zero.
 """
@@ -205,6 +206,24 @@ def test_service_evaluate_on_cpu(small):
         assert v.action == want_act[i]
         assert v.verified_block == want_vb[i]
     assert any(v.block for v in verdicts)
+
+
+@pytest.mark.parametrize("name,value", [("PINGOO_PIPELINE", "off"),
+                                        ("PINGOO_SCAN_STRATEGY", "pair")])
+def test_ported_knob_values_serve(small, monkeypatch, name, value):
+    """Knob values the port runs as the JAX package does still serve,
+    bit-equal to it."""
+    ref, port, ref_lists, lists = small
+    monkeypatch.setenv(name, value)
+    reqs = ref_generate_traffic(48, attack_fraction=0.4, seed=7,
+                                lists=ref_lists)
+    want = ref_verdict.evaluate_batch(
+        ref, ref_verdict.make_verdict_fn(ref), ref.device_tables(),
+        ref_encode(reqs), ref_lists)
+    service = VerdictService(port, lists, max_batch=64, device="cpu")
+    got = np.stack([v.matched for v in service.evaluate_batch(as_port(reqs))])
+    np.testing.assert_array_equal(got, want)
+    assert got.any()
 
 
 def numeric_sources(rng):
