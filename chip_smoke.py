@@ -12,11 +12,21 @@
    PyTorch version on the card (the NFA at pair and single stepping and
    with per-row, partly negative offsets over an odd-width chunk; the
    DFA on every DFA table of the plan, also over a carried-state chunk
-   at per-row offsets), and timed (median of CUDA-event timings). The
-   NFA is also held bit-equal on synthetic banks that reach every
-   instantiation of its kernel (words per lane x passes x carry, and
-   banks wider than 512 words run in segments) and both table paths,
-   and on a 600-rule plan whose nfa_path is 600 words wide.
+   at per-row offsets; the prefilter's chunk contract per field, over a
+   carried-state chunk at per-row offsets, and its grouped Stage-A call
+   over 1, 2 and 3 fields), and timed (median of CUDA-event timings,
+   and queued behind a sleep). The NFA is also held bit-equal on
+   synthetic banks that reach every instantiation of its kernel (words
+   per lane x passes x carry, and banks wider than 512 words run in
+   segments) and both table paths, and on a 600-rule plan whose
+   nfa_path is 600 words wide; the prefilter on synthetic banks of 1 to
+   300 words (several units per warp, shared-memory and L2 tables, 256-
+   word slices) with 32-byte factors across its segment boundaries,
+   and timed at several segment lengths.
+   Stage A of one main-path batch (fresh state to hits, all three
+   fields) is timed issued and queued, as one grouped call and as one
+   call per field, and the profiler must show the grouped call running
+   one device kernel.
 3. Slice phase: a VerdictService(max_batch=2048) on the card answers
    8,192 CRS-style requests through `evaluate` under every
    PINGOO_DFA=off|auto|force x PINGOO_PREFILTER=off|banks mode; every
@@ -25,15 +35,23 @@
    main path: the kernels' launch counts are reset just before it and
    read just after, and each kernel must have launched.
 4. Main-path capture: one more main-path pass records the inputs of
-   every launch of each kernel (NFA, DFA, prefilter), keyed by table;
-   each kernel's launches are replayed through it and its plain version
-   (bit equality), and the replay is timed, issued by the host and
-   queued on the card, beside its bound (and the DFA's chain floor).
+   every call of each kernel's launcher (NFA, DFA, and the prefilter's
+   grouped Stage-A call), keyed by table (one key per field for the
+   grouped call), and must show one prefilter call and launch per
+   batch; each kernel's calls are replayed through it and its plain
+   version (bit equality), and the replay is timed, issued by the host
+   and queued on the card, beside its bound (and the DFA's chain floor).
 5. Prints one JSON line of per-kernel results, then, last,
    {"ok": true, "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
 Imports no JAX and nothing of the JAX package.
+
+    python3 chip_smoke.py --stage-a-of DIR
+
+times one batch's Stage A as the port in DIR issues it and prints it as
+a JSON line, but no result line: the smoke run uses it for its own
+tree, and it times an earlier tree beside this one in one chip call.
 """
 
 from __future__ import annotations
@@ -280,52 +298,16 @@ def kernel_phase(plan, dev, rng) -> dict:
     per-kernel measurements (launch counts are filled in later)."""
     import torch
 
-    from pingoo_tpu_torch.ops import bitsplit_dfa as dfa_ops
     from pingoo_tpu_torch.ops import nfa_scan
-    from pingoo_tpu_torch.ops import prefilter as pf_ops
 
     tables = plan.np_tables
     fields = {f: field_batch(rng, plan.field_specs[f], dev)
               for f in ("url", "path", "user_agent")}
     results = {}
 
-    # -- prefilter: Stage A over url, path and user_agent ------------------
-    pf_fields = [f for f in ("url", "path", "user_agent")
-                 if f in plan.prefilter.fields]
-
-    def pf_run(fn):
-        outs = []
-        for f in pf_fields:
-            t = tables[plan.prefilter.fields[f].table_key]
-            data, lens = fields[f]
-            S, H = pf_ops.prefilter_init_state(B, t.num_words, dev)
-            outs.extend(fn(t, data, lens, S, H, 0))
-        return outs
-
-    got = pf_run(pf_ops.fused_prefilter_chunk)
-    want = pf_run(pf_ops.prefilter_scan_chunk_plain)
-    err = max_abs_err(zip(got, want))
-    # Chunk contract: carried state, per-row offsets, odd width.
-    t = tables["pf_url"]
-    data, lens = fields["url"]
     toff = torch.from_numpy(rng.integers(-40, 40, size=B).astype("int32")) \
         .to(dev)
-    S0, H0 = got[0], got[1]
-    chunk = data[:, 101:101 + 511]
-    err = max(err, max_abs_err(zip(
-        pf_ops.fused_prefilter_chunk(t, chunk, lens, S0, H0, toff),
-        pf_ops.prefilter_scan_chunk_plain(t, chunk, lens, S0, H0, toff))))
-    ms = cuda_ms(lambda: pf_run(pf_ops.fused_prefilter_chunk), 15)
-    plain_ms = cuda_ms(lambda: pf_run(pf_ops.prefilter_scan_chunk_plain), 2)
-    work = add_work(pf_work(tables[plan.prefilter.fields[f].table_key],
-                            *fields[f], 0) for f in pf_fields)
-    results["prefilter"] = dict(
-        route="cuda", source="pingoo_tpu_torch/csrc/prefilter.cu",
-        replaces="pingoo_tpu/ops/prefilter.py:246", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, work=work)
-    print(f"prefilter: {len(pf_fields)} fields, max_abs_err {err}, "
-          f"{ms:.4f} ms (plain {plain_ms:.1f} ms)", flush=True)
-
+    results["prefilter"] = prefilter_phase(plan, fields, toff, dev, rng)
     results["bitsplit_dfa"] = dfa_phase(plan, fields, toff, dev)
 
     # -- NFA: the exact banks behind the url/path DFAs ----------------------
@@ -375,6 +357,159 @@ def kernel_phase(plan, dev, rng) -> dict:
             fail(f"{name} kernel disagrees with its plain version "
                  f"(max_abs_err {r['max_abs_err']})")
     return results
+
+
+# Synthetic prefilter banks: Wp words each (1 and 3 run several units per
+# warp; 202 is the widest table staged in shared memory, 240 is read from
+# L2, 300 runs in two slices of 256 words, from L2; 4500 has 18 slices, a
+# row's 16 in one block and 2 in another).
+PF_SYNTHETIC_WORDS = (1, 3, 25, 52, 202, 240, 300, 4500)
+
+
+def pf_synthetic_bank(words: int, rng):
+    """A port PrefilterTables of exactly `words` words over the bytes
+    "abcd": words - 1 factors of 32 bytes (one word each), then factors of
+    1, 3, 5, 9 and 14 bytes that fill the last word. Returns (tables, the
+    factors' bytes)."""
+    import numpy as np
+
+    from pingoo_tpu_torch.ops import prefilter as pf_ops
+
+    lens = [32] * (words - 1) + [1, 3, 5, 9, 14]
+    facs = [rng.integers(97, 101, size=m).astype(np.uint8) for m in lens]
+    bank = pf_ops.build_prefilter_bank(
+        [tuple(frozenset([int(c)]) for c in f) for f in facs])
+    if bank.num_words != words:
+        raise RuntimeError(f"prefilter bank of {words} words came out with "
+                           f"{bank.num_words}")
+    return pf_ops.bank_to_prefilter_tables(bank), facs
+
+
+def pf_synthetic_phase(dev, rng) -> int:
+    """The prefilter kernel against its plain version on
+    PF_SYNTHETIC_WORDS banks over B=300 rows of 1100 columns, all banks in
+    one grouped call (two launches of at most 4 fields), then each bank's
+    chunk contract from that carried state over 427 columns at per-row
+    offsets in -40..40. Each row plants 32-byte factors across every
+    boundary of the kernel's segments (ending at it, or straddling it),
+    and rows have 0, 1, 31, 32, 33 or all 1100 columns live. Returns the
+    max_abs_err."""
+    import numpy as np
+    import torch
+
+    from pingoo_tpu_torch.ops import prefilter as pf_ops
+
+    Bs, L, L2 = 300, 1100, 427
+    banks, datas, lenss, labels = [], [], [], []
+    for words in PF_SYNTHETIC_WORDS:
+        tables, facs = pf_synthetic_bank(words, rng)
+        seg = pf_ops.segment_length(L, Bs, words)
+        data = rng.integers(97, 101, size=(Bs, L + L2)).astype(np.uint8)
+        lens = rng.integers(0, L + L2 + 1, size=Bs).astype(np.int32)
+        lens[:60] = np.repeat([0, 1, 31, 32, 33, L], 10)
+        for b in range(Bs):
+            for s in list(range(seg, L, seg)) + [L]:
+                f = facs[rng.integers(len(facs))]
+                at = s - len(f) + 1 - (rng.integers(len(f)) if b % 2 else 0)
+                data[b, max(at, 0):at + len(f)] = f[max(-at, 0):]
+        banks.append(tables.to(dev))
+        datas.append(torch.from_numpy(data).to(dev))
+        lenss.append(torch.from_numpy(lens).to(dev))
+        slices = -(-words // pf_ops.SLICE_WORDS)
+        units = pf_ops.KERNEL_WARPS * 32 // pf_ops.lanes_per_unit(words)
+        rows = max(1, units // (max(1, -(-L // seg)) * slices))
+        smem = slices == 1 and (256 * words + pf_ops.TABLE_PAD) * 4 \
+            + rows * words * 4 + 16 <= 227 * 1024
+        labels.append(f"{words}w:seg{seg}{'smem' if smem else 'L2'}")
+    first = [d[:, :L] for d in datas]
+    hits = pf_ops.fused_prefilter_fields(banks, first, lenss)
+    want = pf_ops.prefilter_scan_fields_plain(banks, first, lenss)
+    if not all(w.any() for w in want):
+        fail("a synthetic prefilter bank had no hit")
+    err = max_abs_err(zip(hits, want))
+    toff = torch.from_numpy((L + rng.integers(-40, 40, size=Bs))
+                            .astype("int32")).to(dev)
+    for tables, data, lens in zip(banks, datas, lenss):
+        S, H = pf_ops.prefilter_init_state(Bs, tables.num_words, dev)
+        got = pf_ops.fused_prefilter_chunk(tables, data[:, :L], lens, S, H, 0)
+        plain = pf_ops.prefilter_scan_chunk_plain(tables, data[:, :L], lens,
+                                                  S, H, 0)
+        err = max(err, max_abs_err(zip(got, plain)))
+        err = max(err, max_abs_err(zip(
+            pf_ops.fused_prefilter_chunk(tables, data[:, L:], lens, *plain,
+                                         toff),
+            pf_ops.prefilter_scan_chunk_plain(tables, data[:, L:], lens,
+                                              *plain, toff))))
+    print(f"prefilter synthetic: {' '.join(labels)}; "
+          f"{sum(int(w.sum()) for w in want)} hits; max_abs_err {err}",
+          flush=True)
+    return err
+
+
+def prefilter_phase(plan, fields, toff, dev, rng) -> dict:
+    """The prefilter kernel against its plain version on the plan's three
+    Stage-A banks at B=2048 and full width: each field's chunk scan from a
+    fresh state (S and H), a carried-state chunk of odd width at per-row
+    offsets, the grouped call over 1, 2 and 3 fields (hits; with int64
+    lengths too, which the wrapper casts), and the synthetic banks. Times
+    the grouped call (all three fields, one launch, at the segment length
+    `segment_length` picks), issued and queued, and the three chunk scans
+    from a fresh state (one chunk call per field, its zero state
+    included)."""
+    from pingoo_tpu_torch.ops import prefilter as pf_ops
+
+    tables = plan.np_tables
+    names = [f for f in ("url", "path", "user_agent")
+             if f in plan.prefilter.fields]
+    tabs = [tables[plan.prefilter.fields[f].table_key] for f in names]
+    datas = [fields[f][0] for f in names]
+    lenss = [fields[f][1] for f in names]
+
+    def chunk_run(fn):
+        outs = []
+        for t, data, lens in zip(tabs, datas, lenss):
+            S, H = pf_ops.prefilter_init_state(B, t.num_words, dev)
+            outs.extend(fn(t, data, lens, S, H, 0))
+        return outs
+
+    got = chunk_run(pf_ops.fused_prefilter_chunk)
+    err = max_abs_err(zip(got, chunk_run(pf_ops.prefilter_scan_chunk_plain)))
+    # Chunk contract: carried state, per-row offsets, odd width.
+    chunk = datas[0][:, 101:101 + 511]
+    err = max(err, max_abs_err(zip(
+        pf_ops.fused_prefilter_chunk(tabs[0], chunk, lenss[0], got[0],
+                                     got[1], toff),
+        pf_ops.prefilter_scan_chunk_plain(tabs[0], chunk, lenss[0], got[0],
+                                          got[1], toff))))
+    wide = [lens.long() for lens in lenss]
+    for n, lens in ((1, lenss), (2, lenss), (3, lenss), (2, wide), (3, wide)):
+        err = max(err, max_abs_err(zip(
+            pf_ops.fused_prefilter_fields(tabs[:n], datas[:n], lens[:n]),
+            pf_ops.prefilter_scan_fields_plain(tabs[:n], datas[:n],
+                                               lens[:n]))))
+    err = max(err, pf_synthetic_phase(dev, rng))
+
+    def grouped():
+        return pf_ops.fused_prefilter_fields(tabs, datas, lenss)
+
+    ms = cuda_ms(grouped, 15)
+    device_ms = queued_ms(grouped, 64)
+    chunk_ms = cuda_ms(lambda: chunk_run(pf_ops.fused_prefilter_chunk), 15)
+    plain_ms = cuda_ms(lambda: pf_ops.prefilter_scan_fields_plain(
+        tabs, datas, lenss), 2)
+    picked = [pf_ops.segment_length(d.shape[1], B, t.num_words)
+              for t, d in zip(tabs, datas)]
+    work = pf_fields_work(tabs, datas, lenss)
+    print(f"prefilter: {names} at full width, max_abs_err {err}; grouped "
+          f"call {ms:.4f} ms issued, {device_ms:.4f} ms queued (bound "
+          f"{bound_ms(work)[0]:.4f} ms), segments {picked} columns; three "
+          f"chunk scans {chunk_ms:.4f} ms (plain {plain_ms:.1f} ms)",
+          flush=True)
+    return dict(
+        route="cuda", source="pingoo_tpu_torch/csrc/prefilter.cu",
+        replaces="pingoo_tpu/ops/prefilter.py:246", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, work=work, device_ms=device_ms,
+        chunk_ms=chunk_ms, segments=picked)
 
 
 # Synthetic DFAs that reach the kernel's other paths: (states, classes,
@@ -739,37 +874,63 @@ def wide_plan_phase(dev, rng) -> int:
     return err
 
 
+def pf_fields_work(tabs, datas, lenss) -> dict:
+    """Bytes and operations of one grouped prefilter call: each field's
+    chunk shift-AND from offset 0 (`pf_work`, the same yardstick as one
+    chunk call per field)."""
+    return add_work(pf_work(t, data, lens, 0)
+                    for t, data, lens in zip(tabs, datas, lenss))
+
+
 def launchers():
     """Each kernel's module, launcher name (the dispatcher looks it up at
-    call time), plain version and work counter."""
+    call time), plain version and the work of a call (its tables and
+    positional arguments)."""
     from pingoo_tpu_torch.ops import bitsplit_dfa as dfa_ops
     from pingoo_tpu_torch.ops import nfa_scan
     from pingoo_tpu_torch.ops import prefilter as pf_ops
 
     return {
         "nfa_scan": (nfa_scan, "fused_scan_chunk", nfa_scan.scan_chunk_plain,
-                     nfa_work),
+                     lambda tt, a: nfa_work(tt, a[0], a[1], a[-1])),
         "bitsplit_dfa": (dfa_ops, "fused_dfa_chunk",
-                         dfa_ops.dfa_scan_chunk_plain, dfa_work),
-        "prefilter": (pf_ops, "fused_prefilter_chunk",
-                      pf_ops.prefilter_scan_chunk_plain, pf_work),
+                         dfa_ops.dfa_scan_chunk_plain,
+                         lambda tt, a: dfa_work(tt, a[0], a[1], a[-1])),
+        "prefilter": (pf_ops, "fused_prefilter_fields",
+                      pf_ops.prefilter_scan_fields_plain,
+                      lambda tt, a: pf_fields_work(tt, *a)),
     }
+
+
+def call_tables(plan, key):
+    """A captured call's tables: one table, or a list for the grouped
+    prefilter call (one key per field)."""
+    if isinstance(key, list):
+        return [plan.np_tables[k] for k in key]
+    return plan.np_tables[key]
 
 
 def capture_main_path(plan, lists, reqs, dev):
     """Serve `reqs` once on the main path with every kernel's launcher
-    wrapped; returns {kernel: its calls' inputs, by table key} and
-    {kernel: its own launch count over that pass}."""
+    wrapped; returns {kernel: its calls' inputs, by table key (a list of
+    keys for a grouped call)} and {kernel: its own launch count over that
+    pass}."""
     from pingoo_tpu_torch.engine.service import VerdictService
 
     keys = {id(t): k for k, t in plan.np_tables.items()}
     calls = {name: [] for name in launchers()}
 
+    def copy(a):
+        if isinstance(a, list):
+            return [copy(x) for x in a]
+        return a.clone() if hasattr(a, "clone") else a
+
     def wrap(name, real):
         def wrapped(tables, *args, **kwargs):
-            calls[name].append(dict(key=keys[id(tables)], args=tuple(
-                a.clone() if hasattr(a, "clone") else a for a in args),
-                kwargs=kwargs))
+            key = [keys[id(t)] for t in tables] \
+                if isinstance(tables, list) else keys[id(tables)]
+            calls[name].append(dict(key=key, args=copy(args),
+                                    kwargs=kwargs))
             return real(tables, *args, **kwargs)
         return wrapped
 
@@ -793,9 +954,18 @@ def capture_main_path(plan, lists, reqs, dev):
 
 
 def flat(outs):
-    """A kernel's outputs (a tensor or a tuple of them per call) as one
-    list of tensors."""
-    return [t for o in outs for t in (o if isinstance(o, tuple) else (o,))]
+    """A kernel's outputs (a tensor, or a tuple or list of them per call)
+    as one list of tensors."""
+    return [t for o in outs
+            for t in (o if isinstance(o, (tuple, list)) else (o,))]
+
+
+def call_shape(plan, c) -> str:
+    data = c["args"][0]
+    if isinstance(c["key"], list):
+        return "+".join(c["key"]) + f":{data[0].shape[0]}x" \
+            + "/".join(str(d.shape[1]) for d in data)
+    return f"{c['key']}:{data.shape[0]}x{data.shape[1]}"
 
 
 def main_path_phase(plan, name, calls, n_launched) -> dict:
@@ -812,7 +982,7 @@ def main_path_phase(plan, name, calls, n_launched) -> dict:
         fail(f"the main path launched no {name} kernel to capture")
 
     def replay(fn):
-        return [fn(plan.np_tables[c["key"]], *c["args"], **c["kwargs"])
+        return [fn(call_tables(plan, c["key"]), *c["args"], **c["kwargs"])
                 for c in calls]
 
     err = max_abs_err(zip(flat(replay(fused)), flat(replay(plain))))
@@ -820,11 +990,10 @@ def main_path_phase(plan, name, calls, n_launched) -> dict:
     q1, med, q3 = np.percentile(times, [25, 50, 75])
     reps = max(8, QUEUED_CALLS // len(calls))
     dev_ms = queued_ms(lambda: replay(fused), reps)
-    work = add_work(work_fn(plan.np_tables[c["key"]], *c["args"][:2],
-                            c["args"][-1]) for c in calls)
+    work = add_work(work_fn(call_tables(plan, c["key"]), c["args"])
+                    for c in calls)
     bound = bound_ms(work)[0]
-    shapes = [f"{c['key']}:{c['args'][0].shape[0]}x{c['args'][0].shape[1]}"
-              for c in calls]
+    shapes = [call_shape(plan, c) for c in calls]
     floor = f", chain floor {chain_floor_ms(work) * 1e3:.1f} us" \
         if "chain" in work else ""
     print(f"{name} main path: {len(calls)} calls, {n_launched} launches "
@@ -836,6 +1005,70 @@ def main_path_phase(plan, name, calls, n_launched) -> dict:
                 main_path_us=med * 1e3, main_path_us_q1=q1 * 1e3,
                 main_path_us_q3=q3 * 1e3, main_path_device_us=dev_ms * 1e3,
                 max_abs_err=err)
+
+
+def stage_a_inputs(plan, reqs, dev):
+    """One main-path batch's Stage-A inputs: the first B requests encoded
+    and bucketed as the service does, on the card; returns (field names,
+    tables, data, lengths)."""
+    from pingoo_tpu_torch.engine.batch import (batch_tensors, bucket_arrays,
+                                               encode_requests)
+
+    arrays = batch_tensors(bucket_arrays(encode_requests(
+        reqs[:B], plan.field_specs).arrays), dev)
+    names = list(plan.prefilter.fields)
+    return (names, [plan.np_tables[plan.prefilter.fields[f].table_key]
+                    for f in names],
+            [arrays[f"{f}_bytes"] for f in names],
+            [arrays[f"{f}_len"] for f in names])
+
+
+def device_kernels(fn) -> dict:
+    """{device kernel name: launches} of one run of `fn()` under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def stage_a_phase(pf_ops, plan, reqs, dev, grouped: bool = True) -> dict:
+    """One batch's whole Stage A (fresh state, scan and hits for every
+    field), timed issued (median of 40) and queued on the card: as one
+    `prefilter_scan` call per field (how earlier trees' verdict issued
+    Stage A) and, with `grouped`, as one `prefilter_scan_fields` call (how
+    the verdict issues it now). Lists the device kernels each runs."""
+    names, tabs, datas, lenss = stage_a_inputs(plan, reqs, dev)
+    runs = {"per_field": lambda: [pf_ops.prefilter_scan(t, d, n)
+                                  for t, d, n in zip(tabs, datas, lenss)]}
+    if grouped:
+        runs["grouped"] = lambda: pf_ops.prefilter_scan_fields(tabs, datas,
+                                                               lenss)
+    out = {}
+    for label, fn in runs.items():
+        kernels = device_kernels(fn)
+        n = sum(kernels.values())
+        issued = cuda_ms(fn, 40)
+        # At most QUEUED_CALLS launches queued behind the sleep.
+        queued = queued_ms(fn, max(4, QUEUED_CALLS // max(n, 1)))
+        out[label] = dict(issued_us=issued * 1e3, queued_us=queued * 1e3,
+                          device_kernels=n)
+        print(f"stage A ({label}, {'+'.join(names)} "
+              f"{datas[0].shape[0]}x{'/'.join(str(d.shape[1]) for d in datas)}"
+              f"): {issued * 1e3:.1f} us issued, {queued * 1e3:.1f} us "
+              f"queued; device kernels {kernels}", flush=True)
+    if grouped:
+        k = out["grouped"]["device_kernels"]
+        if k != 1:
+            fail(f"the grouped Stage A ran {k} device kernels, not 1")
+    return out
 
 
 async def serve(service, reqs):
@@ -963,6 +1196,45 @@ def slice_phase(plan, rules, lists, reqs, dev) -> dict:
     return main_counts
 
 
+def stage_a_of(tree: str) -> int:
+    """Time one batch's Stage A as the port in `tree` issues it (one
+    `prefilter_scan` call per field, and the grouped call where that tree
+    has it), to set an earlier tree's Stage A beside this one's in one
+    chip call. Prints no result line."""
+    import torch
+
+    sys.path.insert(0, tree)
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.ops import prefilter as pf_ops
+    from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+
+    print(f"{card_line()}; Stage A of the port in {tree}", flush=True)
+    dev = torch.device("cuda")
+    rules, lists = generate_ruleset(500)
+    plan = compile_ruleset(rules, lists, device=dev)
+    reqs = generate_traffic(B, attack_fraction=0.3, seed=SEED, lists=lists)
+    out = stage_a_phase(pf_ops, plan, reqs, dev,
+                        grouped=hasattr(pf_ops, "prefilter_scan_fields"))
+    print(json.dumps({"stage_a": out}), flush=True)
+    return 0
+
+
+def stage_a_child() -> dict:
+    """This tree's Stage A, timed by `--stage-a-of` in a process of its
+    own: in this process, torch.profiler sessions opened after the
+    main-path profile recorded no device kernels on the H100, and ones
+    opened before the slice phase may slow the host's issue of the modes
+    it serves."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--stage-a-of", REPO],
+        capture_output=True, text=True, timeout=900)
+    print(proc.stdout.rstrip(), flush=True)
+    if proc.returncode != 0:
+        fail(f"the Stage-A phase exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])["stage_a"]
+
+
 def main() -> int:
     try:
         import torch
@@ -970,6 +1242,8 @@ def main() -> int:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's smoke run needs one card")
+    if len(sys.argv) == 3 and sys.argv[1] == "--stage-a-of":
+        return stage_a_of(os.path.abspath(sys.argv[2]))
     if not os.path.isdir(os.path.join(REPO, "pingoo_tpu_torch")):
         fail("pingoo_tpu_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, REPO)
@@ -1002,6 +1276,10 @@ def main() -> int:
             t = re.search(r"dfa_chunk_kernelILi(\d+)ELb([01])E", fn)
             if t:
                 label = f"Wh{t[1]}{'smem' if t[2] == '1' else 'l2'}:"
+            # pf_kernel<KMAX>: the most words per lane it serves.
+            t = re.search(r"pf_kernelILi(\d+)E", fn)
+            if t:
+                label = f"Kmax{t[1]}:"
             parts.append(f"{label}{regs[1] if regs else '?'}/{spill}")
         print(f"  ptxas {name}: registers/spill bytes per instantiation "
               f"{' '.join(parts)}", flush=True)
@@ -1014,8 +1292,14 @@ def main() -> int:
     results = kernel_phase(plan, dev, rng)
     reqs = generate_traffic(N_REQUESTS, attack_fraction=0.3, seed=SEED,
                             lists=lists)
+    results["prefilter"]["stage_a"] = stage_a_child()
     counts = slice_phase(plan, rules, lists, reqs, dev)
     calls, launched = capture_main_path(plan, lists, reqs, dev)
+    batches = -(-N_REQUESTS // B)
+    if not len(calls["prefilter"]) == launched["prefilter"] == batches:
+        fail(f"the main path's Stage A made {len(calls['prefilter'])} calls "
+             f"and {launched['prefilter']} prefilter launches over "
+             f"{batches} batches, not one each per batch")
     for name in ("nfa_scan", "bitsplit_dfa", "prefilter"):
         main = main_path_phase(plan, name, calls[name], launched[name])
         if main.pop("max_abs_err") != 0:

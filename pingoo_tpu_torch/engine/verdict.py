@@ -3,7 +3,8 @@
 `make_verdict_fn(plan)` returns a function of (tables, batch arrays) ->
 [B, R_device] bool, evaluated on the plan's device:
 
-  * Stage A: one literal-prefilter scan per field (ops/prefilter.py);
+  * Stage A: the literal prefilter over every field, one call
+    (ops/prefilter.py; one kernel launch on the card);
   * Stage B: a bank whose every slot is factor-gated is skipped when no
     request of the batch holds any of its factors. The JAX package makes
     this choice per bank on the device (`lax.cond`); here the batch takes
@@ -58,7 +59,7 @@ from ..ops.cidr import (cidr_contains, int_set_contains, ip_one_matrix,
                         v4_buckets_contains)
 from ..ops.match_ops import eq_match, prefix_match, suffix_match
 from ..ops.nfa_scan import extract_slots, init_scan_state, scan_chunk
-from ..ops.prefilter import prefilter_scan
+from ..ops.prefilter import prefilter_scan_fields
 from ..ops.window_match import window_hits
 from .batch import batch_tensors
 
@@ -195,12 +196,14 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict):
     def field_data(field):
         return arrays[f"{field}_bytes"], arrays[f"{field}_len"]
 
-    # -- Stage A: one prefilter scan per field ------------------------------
+    # -- Stage A: every field's prefilter scan in one call ------------------
     pf_hits: dict[str, torch.Tensor] = {}
     if pf is not None and pf_mode == "banks":
-        for field, ff in pf.fields.items():
-            pf_hits[field] = prefilter_scan(tables[ff.table_key],
-                                            *field_data(field))
+        names = list(pf.fields)
+        pf_hits = dict(zip(names, prefilter_scan_fields(
+            [tables[pf.fields[f].table_key] for f in names],
+            [arrays[f"{f}_bytes"] for f in names],
+            [arrays[f"{f}_len"] for f in names])))
 
     def bank_candidates(key):
         """[B] candidate rows of bank `key`, or None when it is ungated."""

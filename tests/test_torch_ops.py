@@ -460,6 +460,120 @@ def test_prefilter_corpus_banks(seeded):
         np.testing.assert_array_equal(words(gH), np.asarray(wH))
 
 
+def test_prefilter_fields_corpus(seeded):
+    """The grouped Stage-A entry on CPU tensors == the JAX package's
+    Pallas kernel (interpret mode) then `prefilter_extract`, per field."""
+    plan, arrays = seeded
+    names = list(plan.prefilter.fields)
+    refs = [plan.np_tables[plan.prefilter.fields[f].table_key]
+            for f in names]
+    got = pf.prefilter_scan_fields(
+        [carry(r) for r in refs], [t(arrays[f"{f}_bytes"]) for f in names],
+        [t(arrays[f"{f}_len"]) for f in names])
+    assert len(got) == len(names) == 3
+    for field, ref, hits in zip(names, refs, got):
+        data, lens = arrays[f"{field}_bytes"], arrays[f"{field}_len"]
+        want = ref_pf.prefilter_extract(
+            ref, ref_pf._fused_prefilter(ref, data, lens))
+        np.testing.assert_array_equal(hits.numpy(), np.asarray(want),
+                                      err_msg=field)
+
+
+@pytest.mark.parametrize("Lc,B,Wp,want", [
+    (64, 2048, 52, 64), (32, 2048, 25, 32), (128, 2048, 3, 128),
+    (0, 8, 3, 16), (2048, 2048, 52, 1024), (2048, 2048, 25, 1024),
+    (256, 2048, 3, 256), (511, 2048, 52, 256), (2048, 2048, 202, 1024),
+    (2048, 2048, 300, 2048), (2048, 75, 1, 256), (4096, 64, 52, 256),
+    (2048, 2048, 4500, 2048), (64, 2048, 4500, 64),
+])
+def test_prefilter_segment_length(Lc, B, Wp, want):
+    """Columns per segment of the CUDA kernel's walk: one segment for the
+    main path's short rows, two for a 2048-row batch at full width; a
+    row's segments and 256-word slices fit one block of 16 warps, but for
+    a bank of more than 4096 words, whose slices alone spread over
+    blocks, which keeps one segment."""
+    seg = pf.segment_length(Lc, B, Wp)
+    assert seg == want and seg % 16 == 0
+    nseg = max(1, -(-Lc // seg))
+    slices = -(-Wp // pf.SLICE_WORDS)
+    units = pf.KERNEL_WARPS * 32 // pf.lanes_per_unit(Wp)
+    assert nseg * slices <= units or (nseg == 1 and slices > units)
+
+
+# Columns a segment of csrc/prefilter.cu walks before its first own one.
+PF_WARM = 32
+
+
+def segmented_chunk(port, data, lens, S, H, toff, seg):
+    """The CUDA kernel's segmented walk of one chunk, from the plain chunk
+    scan: segment k (columns [k*seg, k*seg + seg)) starts PF_WARM columns
+    early from S = 0, or at column 0 from S_in, and ORs all it walks into
+    H; H_in joins, and S is the segment's that holds the row's last live
+    column (segment 0's when none is live)."""
+    Lc = data.shape[1]
+    steps = np.clip(lens.astype(np.int64) - toff, 0, Lc)
+    owner = t(np.maximum(steps - 1, 0) // seg)
+    zero = torch.zeros_like(S)
+    S_out, H_out = S.clone(), H.clone()
+    for k, s in enumerate(range(0, Lc, seg)):
+        w = s - PF_WARM if s > PF_WARM else 0
+        S_k, H_k = pf.prefilter_scan_chunk_plain(
+            port, t(data[:, w:s + seg]), t(lens), S if w == 0 else zero,
+            zero, t((toff + w).astype(np.int32)))
+        H_out |= H_k
+        S_out = torch.where((owner == k)[:, None], S_k, S_out)
+    return S_out, H_out
+
+
+@pytest.mark.parametrize("seg", [16, 32, 48, 64, 112])
+def test_prefilter_segments_warm_up(seg):
+    """Rows cut into segments with a PF_WARM-column warm-up give the JAX
+    package's chunk scan exactly: 32-byte factors straddle every segment
+    boundary, rows have 0, 1, 31, 32, 33 and all live columns, and the
+    chunk starts from a carried (S, H) at per-row, partly negative
+    offsets."""
+    rng = np.random.default_rng(seg)
+    facs = [rng.integers(97, 123, size=m).astype(np.uint8)
+            for m in (32, 32, 32, 31, 17, 5, 1, 32, 24, 32)]
+    bank = ref_pf.build_prefilter_bank(
+        [tuple(frozenset([int(c)]) for c in f) for f in facs])
+    ref_tables = ref_pf.bank_to_prefilter_tables(bank)
+    port = carry(ref_tables)
+    # Row b: factor b // 7 (b % 10 for the last 4 rows, of random length),
+    # live columns of the chunk [0, 1, 31, 32, 33, all, none][b % 7].
+    B, first, Lc = 74, 37, 123
+    data = rng.integers(97, 123, size=(B, first + Lc)).astype(np.uint8)
+    toff = (first + rng.integers(-40, 8, size=B)).astype(np.int32)
+    live = np.array([0, 1, 31, 32, 33, Lc, -5] * 11)[:B]
+    lens = np.clip(toff + live, 0, None).astype(np.int32)
+    lens[-4:] = rng.integers(0, first + Lc, size=4)
+    for b in range(B):
+        f = facs[b // 7 if b < 70 else b % 10]
+        for s in range(seg, Lc, seg):  # ends at s, or starts there
+            at = first + s - len(f) + 1
+            if b % 2 and first + s + len(f) <= first + Lc:
+                at = first + s
+            data[b, at:at + len(f)] = f
+    S0, H0 = ref_pf.prefilter_init_state(B, bank.num_words)
+    rS, rH = ref_pf.prefilter_scan_chunk(ref_tables, data[:, :first], lens,
+                                         S0, H0, 0)
+    assert np.asarray(rH).any()
+    wS, wH = ref_pf.prefilter_scan_chunk(ref_tables, data[:, first:], lens,
+                                         rS, rH, toff)
+    gS, gH = segmented_chunk(port, data[:, first:], lens, bits(rS),
+                             bits(rH), toff, seg)
+    np.testing.assert_array_equal(words(gS), np.asarray(wS))
+    np.testing.assert_array_equal(words(gH), np.asarray(wH))
+    assert (np.asarray(ref_pf.prefilter_extract(ref_tables, wH)).sum(0)
+            > 0).all()
+    # From a fresh state, over the whole row at offset 0.
+    zero = bits(np.zeros((B, bank.num_words), np.uint32))
+    _, want = ref_pf.prefilter_scan_chunk(ref_tables, data, lens, S0, H0, 0)
+    _, got = segmented_chunk(port, data, lens, zero, zero,
+                             np.zeros(B, np.int64), seg)
+    np.testing.assert_array_equal(words(got), np.asarray(want))
+
+
 def test_cpu_wrappers_launch_no_kernel(seeded):
     """On CPU tensors every scan runs its plain version: no launch is
     counted."""
@@ -471,6 +585,11 @@ def test_cpu_wrappers_launch_no_kernel(seeded):
         field = field_of(key)
         scan(carry(plan.np_tables[key]), t(arrays[f"{field}_bytes"]),
              t(arrays[f"{field}_len"]))
+    names = list(plan.prefilter.fields)
+    pf.prefilter_scan_fields(
+        [carry(plan.np_tables[plan.prefilter.fields[f].table_key])
+         for f in names], [t(arrays[f"{f}_bytes"]) for f in names],
+        [t(arrays[f"{f}_len"]) for f in names])
     assert {k: v.launches for k, v in _build.KERNELS.items()} == \
         {"nfa_scan": 0, "bitsplit_dfa": 0, "prefilter": 0}
 
@@ -499,8 +618,59 @@ def test_kernel_launchers_refuse_cpu_tensors(seeded):
                 pf.fused_prefilter_chunk(port, data, lens,
                                          *pf.prefilter_init_state(
                                              B, port.num_words, "cpu"), 0)
+        if prefix == "pf_":
+            with pytest.raises(ValueError, match="CUDA"):
+                pf.fused_prefilter_fields([port], [data], [lens])
     assert {k: v.launches for k, v in _build.KERNELS.items()} == \
         {"nfa_scan": 0, "bitsplit_dfa": 0, "prefilter": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_prefilter_descriptors_outlive_their_launch(seeded, monkeypatch,
+                                                    dtype):
+    """Every field descriptor of a prefilter launch points at live memory
+    when the launch is issued: the int32 lengths and unit-stride rows the
+    wrapper makes are still held then, over three fields and for the
+    chunk call. Runs on CPU tensors with the CUDA checks and the launch
+    stubbed out; the stub reads each descriptor's rows and lengths after
+    making tensors of the same sizes, which would take freed memory."""
+    import ctypes
+
+    plan, arrays = seeded
+    names = list(plan.prefilter.fields)
+    tabs = [carry(plan.np_tables[plan.prefilter.fields[f].table_key])
+            for f in names]
+    # Column-major rows: the wrapper copies them to unit stride.
+    datas = [t(np.asfortranarray(arrays[f"{f}_bytes"])) for f in names]
+    lenss = [t(arrays[f"{f}_len"]).to(dtype) for f in names]
+    B = datas[0].shape[0]
+    seen = []
+
+    def launch(descs, nf, nrows, stream):
+        descs = ctypes.cast(descs, ctypes.POINTER(pf._Field))
+        for i in range(nf):
+            d = descs[i]
+            churn = [torch.full((nrows, n), -7, dtype=torch.int32)
+                     for n in (1, 2, d.Lc // 4 + 1) for _ in range(4)]
+            lens = np.ctypeslib.as_array(
+                (ctypes.c_int32 * nrows).from_address(d.lens)).copy()
+            rows = np.ctypeslib.as_array(
+                (ctypes.c_uint8 * (nrows * d.stride)).from_address(d.data))
+            seen.append((lens, rows.reshape(nrows, d.stride)[:, :d.Lc].copy()))
+            del churn
+
+    monkeypatch.setattr(pf, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(pf, "stream_of", lambda x: None)
+    monkeypatch.setattr(pf.KERNEL, "launch", launch)
+    pf.fused_prefilter_fields(tabs, datas, lenss)
+    pf.fused_prefilter_chunk(tabs[0], datas[0], lenss[0],
+                             *pf.prefilter_init_state(B, tabs[0].num_words,
+                                                      "cpu"), 0)
+    assert len(seen) == len(names) + 1 == 4
+    for (lens, rows), data, want in zip(seen, datas + datas[:1],
+                                        lenss + lenss[:1]):
+        np.testing.assert_array_equal(lens, want.numpy())
+        np.testing.assert_array_equal(rows, data.numpy())
 
 
 # -- match_ops / cidr / window --------------------------------------------
