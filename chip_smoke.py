@@ -41,8 +41,21 @@
    batch; each kernel's calls are replayed through it and its plain
    version (bit equality), and the replay is timed, issued by the host
    and queued on the card, beside its bound (and the DFA's chain floor).
-5. Prints one JSON line of per-kernel results, then, last,
-   {"ok": true, "device": {...}}.
+5. Ring phase, in a process of its own: the native plane. The ring
+   library is built from the port's copy (pingoo_tpu_torch/native), a
+   RingSidecar(max_batch=2048) in a thread serves a ring of 16,384 slots
+   on the 500-rule plan with its lists. A producer in a child process,
+   as the httpd is, drives a warm stream, then the measured stream
+   (generate_traffic(16384, seed=11)) twice, the second under
+   torch.profiler. Each measured drive must give checksum 4032806221
+   (the JAX package's value on this stream), VerdictService's verdict on
+   the card for every request, every ticket answered once, a heartbeat
+   age under 500 ms and launches of all three kernels (counts set to 0
+   just before the drive, read just after). Prints {"ring": ...}: req/s, wait
+   p50/p99, batches, the stage split, launches per batch and the
+   device's busy share.
+6. Prints one JSON line of per-kernel results (with each kernel's
+   launches on the ring drive), then, last, {"ok": true, "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
 Imports no JAX and nothing of the JAX package.
@@ -52,6 +65,9 @@ Imports no JAX and nothing of the JAX package.
 times one batch's Stage A as the port in DIR issues it and prints it as
 a JSON line, but no result line: the smoke run uses it for its own
 tree, and it times an earlier tree beside this one in one chip call.
+`python3 chip_smoke.py --ring-phase` runs the ring phase alone (and
+`--ring-producer PATH` is its producer, which drives one stream for each
+seed it reads from stdin).
 """
 
 from __future__ import annotations
@@ -73,6 +89,15 @@ B = 2048
 N_REQUESTS = 8192
 MODES = [(dfa, pf) for dfa in ("auto", "off", "force")
          for pf in ("banks", "off")]  # (auto, banks) first: the main path
+# The ring phase: the JAX package's PINGOO_PIPELINE=off drive of the
+# same stream (bench.py's pipeline bench: 16,384 requests of
+# generate_traffic(seed=11), 500 rules, max_batch 2048) gives this crc32
+# over the verdict bytes in stream order (BENCH_pipeline.json).
+RING_REQUESTS = 16384
+RING_CAPACITY = 16384
+RING_CHECKSUM = 4032806221
+# The httpd fails a request open when the sidecar's heartbeat is older.
+HEARTBEAT_LIMIT_MS = 500
 # Calls of a kernel's wrapper queued behind one sleep when its main-path
 # launches are timed; with the wrapper's own small launches (a fill, a
 # cast) that stays within the stream's launch queue.
@@ -1082,6 +1107,21 @@ async def serve(service, reqs):
     return verdicts, wall
 
 
+def device_time_us(prof) -> dict:
+    """{device kernel name: device time in µs} of a torch.profiler run."""
+    import torch
+
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t_us = getattr(e, "self_device_time_total", None)
+        if t_us is None:
+            t_us = e.self_cuda_time_total
+        kernels[e.key] = kernels.get(e.key, 0.0) + t_us
+    return kernels
+
+
 def profile_main_path(plan, lists, reqs, dev) -> None:
     """One more main-path run under torch.profiler: the device's busy
     share of the wall time and the device time by kernel name (printed
@@ -1096,14 +1136,7 @@ def profile_main_path(plan, lists, reqs, dev) -> None:
                              ProfilerActivity.CUDA]) as prof:
         _, wall = asyncio.run(serve(service, reqs))
         torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t_us = getattr(e, "self_device_time_total", None)
-        if t_us is None:
-            t_us = e.self_cuda_time_total
-        kernels[e.key] = kernels.get(e.key, 0.0) + t_us
+    kernels = device_time_us(prof)
     busy_ms = sum(kernels.values()) / 1e3
     if busy_ms <= 0:
         print("profile: device time not measured (the profiler recorded "
@@ -1235,6 +1268,217 @@ def stage_a_child() -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])["stage_a"]
 
 
+def ring_producer(path: str) -> int:
+    """The data plane's side, in a process of its own as the httpd is:
+    attach the ring at `path`; for each seed read from stdin, drive that
+    seed's stream of the ring phase through the ring and write the drive
+    as one JSON line. Ends at the end of stdin."""
+    from pingoo_tpu_torch import native_ring as nr
+    from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+
+    _, lists = generate_ruleset(500, with_lists=True, list_sizes=(4096, 512))
+    ring = nr.Ring(path, capacity=RING_CAPACITY)
+    try:
+        for line in sys.stdin:
+            stream = nr.pack_requests(generate_traffic(
+                RING_REQUESTS, lists=lists, seed=int(line)))
+            r = nr.drive_stream(ring, stream)
+            print(json.dumps(dict(seconds=r.seconds, actions=r.actions.hex(),
+                                  waits_ms=r.waits_ms,
+                                  max_heartbeat_age_ms=r.max_heartbeat_age_ms)),
+                  flush=True)
+    finally:
+        ring.close()
+    return 0
+
+
+class ChildProducer:
+    """`ring_producer` in a child process; `drive(seed)` runs one drive
+    there and returns its DriveResult."""
+
+    def __init__(self, path: str):
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ring-producer",
+             path], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def drive(self, seed: int):
+        from pingoo_tpu_torch import native_ring as nr
+
+        self.proc.stdin.write(f"{seed}\n")
+        self.proc.stdin.flush()
+        line = self.proc.stdout.readline()
+        if not line:
+            self.proc.kill()
+            fail(f"the ring producer exited {self.proc.wait()}: "
+                 f"{self.proc.stderr.read()[-3000:]}")
+        d = json.loads(line)
+        return nr.DriveResult(seconds=d["seconds"],
+                              actions=bytes.fromhex(d["actions"]),
+                              waits_ms=d["waits_ms"],
+                              max_heartbeat_age_ms=d["max_heartbeat_age_ms"])
+
+    def close(self) -> None:
+        self.proc.stdin.close()
+        try:
+            rc = self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        if rc != 0:
+            fail(f"the ring producer exited {rc}: "
+                 f"{self.proc.stderr.read()[-3000:]}")
+
+
+def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
+    """Run `drive()` (-> DriveResult) with the kernels' launch counts set
+    to 0 just before and read just after; hold the verdicts to the
+    checksum, to `want` (byte for byte, in stream order) and the
+    heartbeat's age to the data plane's limit. Returns the drive's
+    numbers."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pingoo_tpu_torch.ops import _build
+
+    b0 = sidecar.batches
+    s0 = {k: len(v) for k, v in sidecar.stage_ms.items()}
+    _build.reset_launch_counts()
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r = drive()
+            torch.cuda.synchronize()
+    else:
+        r = drive()
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    batches = sidecar.batches - b0
+    if r.checksum != RING_CHECKSUM:
+        fail(f"ring drive checksum {r.checksum}, not {RING_CHECKSUM}")
+    if r.actions != want:
+        bad = sum(a != b for a, b in zip(r.actions, want))
+        fail(f"{bad} ring verdict bytes differ from VerdictService's")
+    if r.max_heartbeat_age_ms >= HEARTBEAT_LIMIT_MS:
+        fail(f"the heartbeat aged {r.max_heartbeat_age_ms} ms during a "
+             f"drive (the data plane fails open at {HEARTBEAT_LIMIT_MS})")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"the ring drive launched no {missing} kernel")
+    waits = np.array(r.waits_ms)
+    out = dict(
+        req_per_s=len(want) / r.seconds, seconds=r.seconds,
+        wait_p50_ms=float(np.percentile(waits, 50)),
+        wait_p99_ms=float(np.percentile(waits, 99)), batches=batches,
+        rows_per_batch=len(want) / batches,
+        stage_p50_ms={k: float(np.percentile(v[s0[k]:], 50))
+                      for k, v in sidecar.stage_ms.items()},
+        max_heartbeat_age_ms=r.max_heartbeat_age_ms, checksum=r.checksum,
+        launches=launches,
+        launches_per_batch={k: n / batches for k, n in launches.items()})
+    if profiled:
+        busy_ms = sum(device_time_us(prof).values()) / 1e3
+        out["device_busy_ms"] = busy_ms if busy_ms > 0 else "not measured"
+        out["device_busy_pct"] = 100 * busy_ms / (r.seconds * 1e3) \
+            if busy_ms > 0 else "not measured"
+    return out
+
+
+def ring_phase() -> int:
+    """The native plane on the card: the ring library built from the
+    port's copy, the 500-rule plan with its lists, a ring of
+    RING_CAPACITY slots and `RingSidecar(max_batch=B)` in a thread. The
+    producer runs in a child process, as the httpd does: a warm stream
+    (`generate_traffic(seed=12)`), then the measured stream (seed=11)
+    twice, the second under torch.profiler. Each measured drive must
+    give the JAX package's checksum, VerdictService's verdict on the card
+    for every request, a heartbeat younger than the data plane's limit, and
+    launches of all three kernels. Prints one JSON line {"ring": ...},
+    but no result line (it runs in a process of its own, so its profiler
+    session is the process's first)."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from pingoo_tpu_torch import native_ring as nr
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.engine.service import VerdictService
+    from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+
+    dev = torch.device("cuda")
+    build_s = nr.build_ring_lib()
+    print(f"ring library {nr.ring_lib_path().name}: built in {build_s:.2f} s",
+          flush=True)
+    rules, lists = generate_ruleset(500, with_lists=True,
+                                    list_sizes=(4096, 512))
+    plan = compile_ruleset(rules, lists, device=dev)
+    reqs = generate_traffic(RING_REQUESTS, lists=lists, seed=11)
+    service = VerdictService(plan, lists, max_batch=B, device=dev)
+    want = bytes(v.action | (v.verified_block << 2)
+                 for lo in range(0, RING_REQUESTS, B)
+                 for v in service.evaluate_batch(reqs[lo:lo + B]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ring")
+        ring = nr.Ring(path, capacity=RING_CAPACITY, create=True)
+        try:
+            sidecar = nr.RingSidecar(ring, plan, lists, max_batch=B,
+                                     device=dev)
+            thread = threading.Thread(target=sidecar.run, daemon=True)
+            thread.start()
+            producer = ChildProducer(path)
+            try:
+                t0 = time.monotonic()
+                producer.drive(12)
+                warm_s = time.monotonic() - t0
+                drives = [ring_drive(sidecar, lambda: producer.drive(11),
+                                     want, profiled)
+                          for profiled in (False, True)]
+                producer.close()
+                time.sleep(0.2)
+                if ring.poll_verdict() is not None:
+                    fail("a verdict arrived after every request had its own")
+            finally:
+                if producer.proc.poll() is None:
+                    producer.proc.kill()
+                    producer.proc.wait()
+                sidecar.stop()
+                thread.join(timeout=30)
+            if thread.is_alive():
+                fail("the sidecar's drain loop did not stop")
+        finally:
+            ring.close()
+    for label, d in zip(("measured", "profiled"), drives):
+        print(f"ring drive ({label}): {RING_REQUESTS} requests, checksum "
+              f"{d['checksum']}, {d['req_per_s']:.0f} req/s, wait p50 "
+              f"{d['wait_p50_ms']:.2f} ms p99 {d['wait_p99_ms']:.2f} ms, "
+              f"{d['batches']} batches of {d['rows_per_batch']:.1f} rows, "
+              f"stage p50 ms {d['stage_p50_ms']}, heartbeat age max "
+              f"{d['max_heartbeat_age_ms']} ms, launches {d['launches']}"
+              + (f", device busy {d['device_busy_ms']} ms = "
+                 f"{d['device_busy_pct']}% of the wall" if "device_busy_pct"
+                 in d else ""), flush=True)
+    print(json.dumps({"ring": dict(
+        requests=RING_REQUESTS, max_batch=B, capacity=RING_CAPACITY,
+        rules=500, build_s=build_s, warm_s=warm_s,
+        processed=sidecar.processed, drives=drives)}), flush=True)
+    return 0
+
+
+def ring_child() -> dict:
+    """`ring_phase` in a process of its own; returns its JSON."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--ring-phase"],
+        capture_output=True, text=True, timeout=600)
+    print(proc.stdout.rstrip(), flush=True)
+    if proc.returncode != 0:
+        fail(f"the ring phase exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    print(f"ring phase: {time.monotonic() - t0:.1f} s", flush=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])["ring"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1247,6 +1491,10 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pingoo_tpu_torch")):
         fail("pingoo_tpu_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, REPO)
+    if sys.argv[1:] == ["--ring-phase"]:
+        return ring_phase()
+    if len(sys.argv) == 3 and sys.argv[1] == "--ring-producer":
+        return ring_producer(sys.argv[2])
     import numpy as np
 
     from pingoo_tpu_torch.compiler.plan import compile_ruleset
@@ -1293,6 +1541,7 @@ def main() -> int:
     reqs = generate_traffic(N_REQUESTS, attack_fraction=0.3, seed=SEED,
                             lists=lists)
     results["prefilter"]["stage_a"] = stage_a_child()
+    ring = ring_child()
     counts = slice_phase(plan, rules, lists, reqs, dev)
     calls, launched = capture_main_path(plan, lists, reqs, dev)
     batches = -(-N_REQUESTS // B)
@@ -1316,6 +1565,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None,
+            "ring_launches": ring["drives"][0]["launches"][name],
             **{k: v for k, v in r.items() if k not in (
                 "route", "source", "replaces", "max_abs_err", "ms",
                 "plain_ms", "work")}})

@@ -36,6 +36,13 @@ _UNPORTED = (
      "port queue item 6, body inspection"),
     ("PINGOO_MESH", lambda v: v.strip() not in ("", "1", "1x1", "1x1x1"),
      "port queue item 9, the mesh"),
+    # The port's sidecar dispatches whatever one drain pass returns (the
+    # JAX package's "fixed" window); "allow" there answers rows that
+    # would miss their deadline with allow, a different verdict.
+    ("PINGOO_SCHED_MODE", lambda v: v not in ("", "fixed"),
+     "port queue item 9, the scheduler"),
+    ("PINGOO_SCHED_FAILOPEN", lambda v: v == "allow",
+     "port queue item 9, the scheduler"),
 )
 
 

@@ -2,7 +2,8 @@
 
   * With `jax` and `pingoo_tpu` blocked in sys.modules, a fresh
     interpreter imports the port, compiles a plan and evaluates a batch
-    on the CPU (the card's machine has no JAX).
+    on the CPU (the card's machine has no JAX), and builds the ring
+    library and serves the batch through `RingSidecar` on a ring.
   * No source file of the port, nor chip_smoke.py, imports jax or the
     JAX package (`pingoo_tpu` not followed by `_torch`).
   * Without a card, an entry point called without device="cpu" raises,
@@ -49,9 +50,28 @@ arrays = bucket_arrays(encode_requests(reqs).arrays)
 m = make_verdict_fn(plan)(plan.np_tables, arrays)
 lanes = make_lane_fn(plan)(plan.np_tables, arrays)
 assert m.shape == (64, 60) and lanes.shape == (4, 64) and bool(m.any())
+# The native plane: the ring library built from the port's copy, and the
+# port's sidecar answering the same 64 requests on a temporary ring.
+import tempfile, threading
+from pingoo_tpu_torch import native_ring
+from pingoo_tpu_torch.engine.service import VerdictService
+native_ring.build_ring_lib()
+with tempfile.TemporaryDirectory() as tmp:
+    ring = native_ring.Ring(tmp + "/ring", capacity=128, create=True)
+    sidecar = native_ring.RingSidecar(ring, plan, lists, max_batch=64,
+                                      device="cpu")
+    t = threading.Thread(target=sidecar.run, daemon=True)
+    t.start()
+    got = native_ring.drive_stream(ring, native_ring.pack_requests(reqs))
+    sidecar.stop()
+    t.join(30)
+    ring.close()
+want = bytes(v.action | (v.verified_block << 2) for v in
+             VerdictService(plan, lists, device="cpu").evaluate_batch(reqs))
+assert got.actions == want and any(a & 3 for a in want), (got.actions, want)
 assert not any(k == "jax" or k.startswith(("jax.", "pingoo_tpu."))
                for k, v in sys.modules.items() if v is not None)
-print("ISOLATED-OK", int(m.sum()))
+print("ISOLATED-OK", int(m.sum()), sidecar.processed)
 """
 
 
@@ -94,6 +114,7 @@ def test_import_scan_catches_reference_imports():
 def test_no_source_imports_jax_or_the_jax_package():
     files = port_sources()
     assert len(files) > 20
+    assert REPO / "pingoo_tpu_torch" / "native_ring.py" in files
     offenders = []
     for path in files:
         for m in IMPORT_RE.finditer(path.read_text()):
@@ -133,6 +154,9 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_PIPELINE", "on"),
     ("PINGOO_PIPELINE_DEPTH", "3"),
     ("PINGOO_SCAN_STRATEGY", "halo"),
+    ("PINGOO_SCHED_MODE", "continuous"),
+    ("PINGOO_SCHED_MODE", "deadline"),
+    ("PINGOO_SCHED_FAILOPEN", "allow"),
 ])
 def test_unported_knobs_raise(monkeypatch, name, value):
     rules, lists = generate_ruleset(20, with_lists=False, seed=3)
@@ -151,6 +175,8 @@ def test_unported_knobs_raise(monkeypatch, name, value):
     ("PINGOO_PIPELINE", "1", "item 1c, the pipelined executor"),
     ("PINGOO_PIPELINE_DEPTH", "3", "item 1c, the pipelined executor"),
     ("PINGOO_SCAN_STRATEGY", "halo", "item 4, halo split"),
+    ("PINGOO_SCHED_MODE", "continuous", "item 9, the scheduler"),
+    ("PINGOO_SCHED_FAILOPEN", "allow", "item 9, the scheduler"),
 ])
 def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     monkeypatch.setenv(name, value)
@@ -164,6 +190,7 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     ("PINGOO_BODY_INSPECT", "off"), ("PINGOO_MESH", "1x1x1"),
     ("PINGOO_NFA_SPLIT", "0"), ("PINGOO_PIPELINE", "off"),
     ("PINGOO_SCAN_STRATEGY", "pair"), ("PINGOO_SCAN_STRATEGY", "pallas"),
+    ("PINGOO_SCHED_MODE", "fixed"), ("PINGOO_SCHED_FAILOPEN", "serve"),
 ])
 def test_ported_knob_values_pass(monkeypatch, name, value):
     monkeypatch.setenv(name, value)
