@@ -54,8 +54,29 @@
    just before the drive, read just after). Prints {"ring": ...}: req/s, wait
    p50/p99, batches, the stage split, launches per batch and the
    device's busy share.
-6. Prints one JSON line of per-kernel results (with each kernel's
-   launches on the ring drive), then, last, {"ok": true, "device": {...}}.
+6. Body phase, in a process of its own: streaming body inspection
+   (engine/bodyscan.py). (a) bench.py's body stream at the scanner's
+   defaults (1,024 flows of 256-12,288 bytes, a payload planted in every
+   third, windows of 4,096 bytes interleaved round-robin) through a
+   BodyScanner in four configurations: the seed rule set under
+   PINGOO_BODY_SCAN=auto (prefilter + DFA) and nfa with lazy starts on
+   and off, and the CRS payload cores as 53 regex rules (prefilter + a
+   41-word NFA). Every flow's streamed and contiguous verdict must equal
+   the oracle, none degraded, the action bytes' crc32 the JAX package's,
+   each configuration must launch its kernels (counts set to 0 just
+   before the streamed pass, read just after), and every launch of a
+   captured pass is replayed through kernel and plain version, bit for
+   bit, and timed queued beside its bound. One more pass of each runs
+   under torch.profiler (the device's busy share). (b) The native plane
+   with PINGOO_BODY_INSPECT=on: the ring phase's set-up, a producer child
+   driving generate_traffic(4096, seed=13) with a seed-set body on every
+   fourth request; every ticket answered once on each lane, the merged
+   bytes' crc32 the JAX package's sidecar's, each merged byte
+   merge_actions(VerdictService's byte, the body oracle), no flow
+   degraded, the heartbeat under 500 ms. Prints {"body": ...}.
+7. Prints one JSON line of per-kernel results (with each kernel's
+   launches on the ring drive and on the body phase's streamed passes),
+   then, last, {"ok": true, "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
 Imports no JAX and nothing of the JAX package.
@@ -67,7 +88,8 @@ a JSON line, but no result line: the smoke run uses it for its own
 tree, and it times an earlier tree beside this one in one chip call.
 `python3 chip_smoke.py --ring-phase` runs the ring phase alone (and
 `--ring-producer PATH` is its producer, which drives one stream for each
-seed it reads from stdin).
+line "seed requests every" it reads from stdin), and `--body-phase` the
+body phase alone.
 """
 
 from __future__ import annotations
@@ -82,7 +104,9 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
+T_START = time.monotonic()
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20260417
 B = 2048
@@ -1270,9 +1294,11 @@ def stage_a_child() -> dict:
 
 def ring_producer(path: str) -> int:
     """The data plane's side, in a process of its own as the httpd is:
-    attach the ring at `path`; for each seed read from stdin, drive that
-    seed's stream of the ring phase through the ring and write the drive
-    as one JSON line. Ends at the end of stdin."""
+    attach the ring at `path`; for each line "seed requests every" read
+    from stdin, drive generate_traffic(requests, seed) of the ring
+    phase's set-up through the ring, every `every`-th request with a body
+    of `body_ring_bodies` (none when 0), and write the drive as one JSON
+    line. Ends at the end of stdin."""
     from pingoo_tpu_torch import native_ring as nr
     from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
 
@@ -1280,13 +1306,16 @@ def ring_producer(path: str) -> int:
     ring = nr.Ring(path, capacity=RING_CAPACITY)
     try:
         for line in sys.stdin:
-            stream = nr.pack_requests(generate_traffic(
-                RING_REQUESTS, lists=lists, seed=int(line)))
-            r = nr.drive_stream(ring, stream)
-            print(json.dumps(dict(seconds=r.seconds, actions=r.actions.hex(),
-                                  waits_ms=r.waits_ms,
-                                  max_heartbeat_age_ms=r.max_heartbeat_age_ms)),
-                  flush=True)
+            seed, n, every = map(int, line.split())
+            reqs = generate_traffic(n, lists=lists, seed=seed)
+            r = nr.drive_stream(ring, nr.pack_requests(reqs),
+                                body_ring_bodies(n) if every else None)
+            print(json.dumps(dict(
+                seconds=r.seconds, actions=r.actions.hex(),
+                waits_ms=r.waits_ms,
+                max_heartbeat_age_ms=r.max_heartbeat_age_ms,
+                meta_actions=r.meta_actions.hex(),
+                body_actions=sorted(r.body_actions.items()))), flush=True)
     finally:
         ring.close()
     return 0
@@ -1302,10 +1331,10 @@ class ChildProducer:
              path], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)
 
-    def drive(self, seed: int):
+    def drive(self, seed: int, n: int = RING_REQUESTS, every: int = 0):
         from pingoo_tpu_torch import native_ring as nr
 
-        self.proc.stdin.write(f"{seed}\n")
+        self.proc.stdin.write(f"{seed} {n} {every}\n")
         self.proc.stdin.flush()
         line = self.proc.stdout.readline()
         if not line:
@@ -1316,7 +1345,9 @@ class ChildProducer:
         return nr.DriveResult(seconds=d["seconds"],
                               actions=bytes.fromhex(d["actions"]),
                               waits_ms=d["waits_ms"],
-                              max_heartbeat_age_ms=d["max_heartbeat_age_ms"])
+                              max_heartbeat_age_ms=d["max_heartbeat_age_ms"],
+                              meta_actions=bytes.fromhex(d["meta_actions"]),
+                              body_actions=dict(d["body_actions"]))
 
     def close(self) -> None:
         self.proc.stdin.close()
@@ -1479,6 +1510,494 @@ def ring_child() -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])["ring"]
 
 
+# -- the body phase: streaming body inspection (engine/bodyscan.py) ----------
+
+# bench.py's body stream at the scanner's default table size: 1,024 flows
+# (PINGOO_BODY_MAX_FLOWS), bodies of 256 to 3 windows of bytes over a
+# filler alphabet free of rule bytes, one flow in three with a planted
+# payload at a random offset, windows of 4,096 bytes.
+BODY_FLOWS = 1024
+BODY_WINDOW = 4096
+BODY_SEED = 1306
+BODY_ALPHABET = b"abcdefghijklmnop0123456789=&"
+# Streamed passes timed per configuration (MB/s: their median).
+BODY_TIMED_PASSES = 3
+# A body reaches 16 MiB (the listener's PINGOO_MAX_BODY_BYTES default):
+# each kernel's captured calls are also replayed with their offsets and
+# lengths moved this far on, kernel against plain version.
+BODY_FAR_OFFSET = 16 << 20
+# (rule set, PINGOO_BODY_SCAN, PINGOO_BODY_LAZY) and the kernels each runs.
+BODY_CONFIGS = (
+    ("seed", "auto", "auto", ("prefilter", "bitsplit_dfa")),
+    ("seed", "nfa", "auto", ("prefilter", "nfa_scan")),
+    ("seed", "nfa", "off", ("prefilter", "nfa_scan")),
+    ("crs", "auto", "auto", ("prefilter", "nfa_scan")),
+)
+# crc32 of the streamed action bytes in flow order: the JAX package's
+# BodyScanner on the same stream, on the CPU. tests/test_torch_body_pins.py
+# recomputes both pins below with the JAX package.
+BODY_CHECKSUMS = {"seed": 2834130049, "crs": 2713547712}
+# The native plane with bodies: generate_traffic(4096, seed=13) of the
+# ring phase's set-up, every fourth request with the next body of the
+# seed set's stream (1,024 flows); crc32 of the merged verdict bytes of
+# the JAX package's sidecar (PINGOO_BODY_INSPECT=on) on this drive, on
+# the CPU.
+BODY_RING_REQUESTS = 4096
+BODY_RING_SEED = 13
+BODY_RING_EVERY = 4
+BODY_RING_CHECKSUM = 2340204361
+
+
+def body_rules(mod, name: str):
+    """A body rule set of `mod` (a bodyscan module): "seed", the default
+    six literals, or "crs", utils/crs.py's payload cores as 53 regex rules
+    (every fourth a captcha)."""
+    from pingoo_tpu_torch.utils.crs import LFI_RCE_CORES, SQLI_CORES, XSS_CORES
+
+    if name == "seed":
+        return mod.DEFAULT_BODY_RULES
+    return tuple(mod.BodyRule(f"crs-{i}", p, "regex", False,
+                              ("captcha",) if i % 4 == 3 else ("block",))
+                 for i, p in enumerate(SQLI_CORES + XSS_CORES
+                                       + LFI_RCE_CORES))
+
+
+def body_payloads(name: str, n: int | None = None) -> list[bytes]:
+    """bench.py's body stream (`bench_body`, seed 1306): n bodies of 256 to
+    3 x BODY_WINDOW filler bytes; every third one gets a payload planted at
+    a random offset, each of the seed set's literals in turn or, for
+    "crs", each of utils/crs.py's ATTACK_URLS."""
+    from pingoo_tpu_torch.engine.bodyscan import DEFAULT_BODY_RULES
+    from pingoo_tpu_torch.utils.crs import ATTACK_URLS
+
+    plants = [r.pattern.encode() for r in DEFAULT_BODY_RULES] \
+        if name == "seed" else [u.encode() for u in ATTACK_URLS]
+    rng = random.Random(BODY_SEED)
+    payloads = []
+    for i in range(BODY_FLOWS if n is None else n):
+        body = bytes(rng.choices(BODY_ALPHABET,
+                                 k=rng.randint(256, 3 * BODY_WINDOW)))
+        # bench.py plants lits[i % 6], which reaches 2 of the 6 literals.
+        if i % 3 == 0:
+            at = rng.randint(0, len(body))
+            body = body[:at] + plants[i // 3 % len(plants)] + body[at:]
+        payloads.append(body)
+    return payloads
+
+
+def body_rounds(mod, payloads) -> list[list]:
+    """The flows' windows of BODY_WINDOW bytes interleaved round-robin
+    (bench.py's arrival order): round r holds window r of every flow that
+    has one."""
+    per_flow = []
+    for fid, payload in enumerate(payloads):
+        parts = mod.split_payload(payload, BODY_WINDOW)
+        per_flow.append([mod.BodyWindow(fid, s, d, final=s == len(parts) - 1)
+                         for s, d in enumerate(parts)])
+    return [[w[r] for w in per_flow if len(w) > r]
+            for r in range(max(map(len, per_flow)))]
+
+
+def body_ring_bodies(n: int) -> list:
+    """One entry for each of `n` requests of the body ring drive: every
+    BODY_RING_EVERY-th request gets the next seed-set body, the rest
+    None."""
+    payloads = body_payloads("seed", -(-n // BODY_RING_EVERY))
+    return [payloads[k // BODY_RING_EVERY] if k % BODY_RING_EVERY == 0
+            else None for k in range(n)]
+
+
+def stream_pass(scanner, rounds) -> dict:
+    """Every round through `scanner`: {flow: its verdict}."""
+    out = {}
+    for rnd in rounds:
+        for v in scanner.scan_windows(rnd):
+            out[v.flow_id] = v
+    return out
+
+
+def body_launchers():
+    """Each kernel's chunk launcher on the body path: module, launcher
+    name (looked up at call time), plain version, work of a call."""
+    from pingoo_tpu_torch.ops import bitsplit_dfa as dfa_ops
+    from pingoo_tpu_torch.ops import nfa_scan
+    from pingoo_tpu_torch.ops import prefilter as pf_ops
+
+    return {
+        "nfa_scan": (nfa_scan, "fused_scan_chunk", nfa_scan.scan_chunk_plain,
+                     nfa_work),
+        "bitsplit_dfa": (dfa_ops, "fused_dfa_chunk",
+                         dfa_ops.dfa_scan_chunk_plain, dfa_work),
+        "prefilter": (pf_ops, "fused_prefilter_chunk",
+                      pf_ops.prefilter_scan_chunk_plain, pf_work),
+    }
+
+
+def capture_body(fn) -> dict:
+    """Run `fn()` with every body-path launcher wrapped; returns {kernel:
+    [(tables, inputs cloned)]}."""
+    calls = {name: [] for name in body_launchers()}
+    reals = {name: getattr(mod, attr)
+             for name, (mod, attr, _, _) in body_launchers().items()}
+
+    def wrap(name, real):
+        def wrapped(tables, *args, **kwargs):  # `pair` changes no bits
+            calls[name].append((tables, [a.clone() for a in args]))
+            return real(tables, *args, **kwargs)
+        return wrapped
+
+    for name, (mod, attr, _, _) in body_launchers().items():
+        setattr(mod, attr, wrap(name, reals[name]))
+    try:
+        fn()
+    finally:
+        for name, (mod, attr, _, _) in body_launchers().items():
+            setattr(mod, attr, reals[name])
+    return calls
+
+
+def body_replay(name: str, calls, far: bool = False) -> dict:
+    """Replay one kernel's captured body-path calls through the kernel
+    and the plain version (every call's rows at once, per table and
+    width: rows are independent), bit for bit, and with `far` those rows
+    once more at BODY_FAR_OFFSET further on; time the kernel's replay
+    queued on the card, per launch, beside its bound per launch."""
+    import torch
+
+    mod, attr, plain, work_fn = body_launchers()[name]
+    fused = getattr(mod, attr)
+    got = [fused(t, *a) for t, a in calls]
+    groups: dict = {}
+    for j, (t, a) in enumerate(calls):
+        groups.setdefault((id(t), a[0].shape[1]), []).append(j)
+    err = 0
+    for js in groups.values():
+        t = calls[js[0]][0]
+        args = [torch.cat([calls[j][1][k] for j in js])
+                for k in range(len(calls[js[0]][1]))]
+        want = plain(t, *args)
+        want = want if isinstance(want, tuple) else (want,)
+        sizes = [calls[j][1][0].shape[0] for j in js]
+        for k, w in enumerate(want):
+            for j, part in zip(js, w.split(sizes)):
+                g = got[j] if isinstance(got[j], tuple) else (got[j],)
+                err = max(err, max_abs_err([(g[k], part)]))
+        if far:  # (data, lens, *carries, t_offset): both ends move on
+            args[1] = args[1] + BODY_FAR_OFFSET
+            args[-1] = args[-1] + BODY_FAR_OFFSET
+            err = max(err, max_abs_err(zip(flat([fused(t, *args)]),
+                                           flat([plain(t, *args)]))))
+    reps = max(8, QUEUED_CALLS // len(calls))
+    per_launch_us = queued_ms(lambda: [fused(t, *a) for t, a in calls],
+                              reps) * 1e3 / len(calls)
+    work = add_work(work_fn(t, a[0], a[1], a[-1]) for t, a in calls)
+    bound, by = bound_ms(work)
+    shapes = sorted({f"{a[0].shape[0]}x{a[0].shape[1]}" for _, a in calls})
+    offs = max(int(a[-1].max()) for _, a in calls)
+    return dict(calls=len(calls), shapes=shapes, max_t_offset=offs,
+                far_offset=BODY_FAR_OFFSET if far else 0,
+                max_abs_err=err, queued_us_per_launch=per_launch_us,
+                bound_us_per_launch=bound * 1e3 / len(calls), bound_by=by)
+
+
+def body_config(bs, plans, name, scan, lazy, want_kernels, dev,
+                far_done: set) -> dict:
+    """One configuration of the body stream: a captured streamed pass
+    (replayed through kernel and plain version), a timed one with the
+    launch counts set to 0 just before and read just after, and the
+    contiguous scan of each body (`scan_buffered`). Every flow's streamed
+    and contiguous verdict must equal `body_lanes_oracle`, none degraded,
+    and the streamed action bytes' crc32 the JAX package's."""
+    import numpy as np
+    import torch
+
+    from pingoo_tpu_torch.ops import _build
+
+    os.environ["PINGOO_BODY_SCAN"], os.environ["PINGOO_BODY_LAZY"] = scan, lazy
+    plan, payloads, rounds, oracle = plans[name]
+    label = f"{name}/{scan}/lazy={lazy}"
+    t_config = time.monotonic()
+    calls = capture_body(lambda: stream_pass(bs.BodyScanner(
+        plan, device=dev), rounds))
+    scanner = bs.BodyScanner(plan, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.monotonic()
+    streamed = stream_pass(scanner, rounds)
+    pass_s = [time.monotonic() - t0]
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    for _ in range(BODY_TIMED_PASSES - 1):
+        t0 = time.monotonic()
+        stream_pass(bs.BodyScanner(plan, device=dev), rounds)
+        pass_s.append(time.monotonic() - t0)
+    stream_s = statistics.median(pass_s)
+    contig_scanner = bs.BodyScanner(plan, device=dev)
+    t0 = time.monotonic()
+    contig = [contig_scanner.scan_buffered(p, fid)
+              for fid, p in enumerate(payloads)]
+    contig_s = time.monotonic() - t0
+    bad = [fid for fid in range(len(payloads))
+           if fid not in streamed or streamed[fid].degraded
+           or contig[fid].degraded
+           or (streamed[fid].unverified, streamed[fid].verified_block)
+           != oracle[fid] or (contig[fid].unverified,
+                              contig[fid].verified_block) != oracle[fid]]
+    if bad:
+        fail(f"body {label}: {len(bad)} flows differ from the oracle or the "
+             f"contiguous scan, or were degraded (first {bad[:5]})")
+    acts = bytes(streamed[fid].action_byte() for fid in range(len(payloads)))
+    crc = zlib.crc32(acts)
+    if crc != BODY_CHECKSUMS[name]:
+        fail(f"body {label}: checksum {crc}, not {BODY_CHECKSUMS[name]}")
+    ran = sorted(k for k, n in launches.items() if n)
+    if ran != sorted(want_kernels):
+        fail(f"body {label}: launched {launches}, not {want_kernels}")
+    # Each kernel is also held at far offsets in the first configuration
+    # that launches it (the NFA: the lazy one, with warm-up rows).
+    replays = {k: body_replay(k, c, far=k not in far_done)
+               for k, c in calls.items() if c}
+    far_done.update(replays)
+    for k, r in replays.items():
+        if r["max_abs_err"] != 0:
+            fail(f"body {label}: the {k} kernel disagrees with its plain "
+                 f"version on a body-path launch")
+    total = sum(map(len, payloads))
+    stages = {k: float(np.percentile(np.asarray(v), 50))
+              for k, v in scanner.stage_ms.items()}
+    out = dict(mode=scanner.mode, lazy=scanner.lazy, flows=len(payloads),
+               bytes=total, rounds=len(rounds), checksum=crc,
+               mb_per_s_streamed=total / stream_s / 1e6,
+               pass_ms=[t * 1e3 for t in pass_s],
+               mb_per_s_contiguous=total / contig_s / 1e6,
+               round_p50_ms=stages, launches=launches, kernels=replays,
+               lazy_skips=scanner.stats.lazy_skips,
+               blocked=sum(a & 3 == 1 for a in acts),
+               seconds=time.monotonic() - t_config)
+    print(f"body {label} ({out['seconds']:.1f} s): {len(payloads)} flows, "
+          f"{total} bytes, checksum "
+          f"{crc}; {out['mb_per_s_streamed']:.2f} MB/s streamed (passes "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in pass_s)} ms), "
+          f"{out['mb_per_s_contiguous']:.2f} MB/s contiguous; round p50 ms "
+          f"{ {k: round(v, 3) for k, v in stages.items()} }; launches "
+          f"{launches}; "
+          + "; ".join(f"{k} {r['calls']} calls {r['shapes']} max t_offset "
+                      f"{r['max_t_offset']} (+{r['far_offset']}): "
+                      f"{r['queued_us_per_launch']:.1f} "
+                      f"us queued per launch (bound "
+                      f"{r['bound_us_per_launch']:.2f} us)"
+                      for k, r in replays.items()), flush=True)
+    return out
+
+
+def body_busy(bs, plans, dev) -> dict:
+    """One more streamed pass of each configuration, all in one
+    torch.profiler session (the process's only one): the device's busy
+    share of each pass's wall time (the union of the device events that
+    start inside its annotated range, so overlapping copies and kernels
+    count once), and the device time by event name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, scan, lazy, _ in BODY_CONFIGS:
+            os.environ["PINGOO_BODY_SCAN"] = scan
+            os.environ["PINGOO_BODY_LAZY"] = lazy
+            plan, _, rounds, _ = plans[name]
+            with record_function(f"body:{name}/{scan}/lazy={lazy}"):
+                stream_pass(bs.BodyScanner(plan, device=dev), rounds)
+                torch.cuda.synchronize()
+    events = prof.events()
+    # The annotations show on the device's timeline too: not device work.
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("body:")]
+    out = {}
+    for e in events:
+        if not e.name.startswith("body:"):
+            continue
+        lo, hi = e.time_range.start, e.time_range.end
+        inside = sorted((k.time_range.start, k.time_range.end, k.name)
+                        for k in kernels if lo <= k.time_range.start < hi)
+        busy, end, by_name = 0.0, lo, {}
+        for a, b, name in inside:
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+            by_name[name[:48]] = by_name.get(name[:48], 0.0) + (b - a) / 1e3
+        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+        out[e.name[5:]] = dict(
+            wall_ms=(hi - lo) / 1e3, device_ms=busy / 1e3,
+            busy_pct=100 * busy / (hi - lo), top_ms=top) if busy \
+            else "not measured"
+    return out
+
+
+def body_ring(dev) -> dict:
+    """The native plane with PINGOO_BODY_INSPECT=on (the seed set, auto):
+    the ring phase's plan and ring, a producer child driving
+    generate_traffic(4096, seed=13) with a body on every fourth request.
+    Every ticket must be answered once on each lane, the merged bytes'
+    crc32 must be the JAX package's, each merged byte
+    merge_actions(VerdictService's byte, the body oracle), no flow
+    degraded and the heartbeat younger than the data plane's limit."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from pingoo_tpu_torch import native_ring as nr
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.engine import bodyscan as bs
+    from pingoo_tpu_torch.engine.service import VerdictService
+    from pingoo_tpu_torch.ops import _build
+    from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+
+    for knob in ("PINGOO_BODY_SCAN", "PINGOO_BODY_LAZY"):
+        os.environ.pop(knob, None)
+    os.environ["PINGOO_BODY_INSPECT"] = "on"
+    rules, lists = generate_ruleset(500, with_lists=True,
+                                    list_sizes=(4096, 512))
+    plan = compile_ruleset(rules, lists, device=dev)
+    reqs = generate_traffic(BODY_RING_REQUESTS, lists=lists,
+                            seed=BODY_RING_SEED)
+    bodies = body_ring_bodies(BODY_RING_REQUESTS)
+    service = VerdictService(plan, lists, max_batch=B, device=dev)
+    meta = bytes(v.action | (v.verified_block << 2)
+                 for lo in range(0, BODY_RING_REQUESTS, B)
+                 for v in service.evaluate_batch(reqs[lo:lo + B]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ring")
+        ring = nr.Ring(path, capacity=RING_CAPACITY, create=True)
+        try:
+            sidecar = nr.RingSidecar(ring, plan, lists, max_batch=B,
+                                     device=dev)
+            body_plan = sidecar.body_scanner.plan
+            want = bytearray(meta)
+            for k, body in enumerate(bodies):
+                if body is not None:
+                    unv, vb, _ = bs.body_lanes_oracle(body_plan, body)
+                    want[k] = bs.merge_actions(meta[k], unv, vb)
+            thread = threading.Thread(target=sidecar.run, daemon=True)
+            thread.start()
+            producer = ChildProducer(path)
+            try:
+                producer.drive(12, 1024, BODY_RING_EVERY)  # warm
+                d0 = len(sidecar.stage_ms["body"])
+                v0, b0 = sidecar.body_verdicts, sidecar.batches
+                _build.reset_launch_counts()
+                r = producer.drive(BODY_RING_SEED, BODY_RING_REQUESTS,
+                                   BODY_RING_EVERY)
+                launches = {k: v.launches for k, v in _build.KERNELS.items()}
+                producer.close()
+                time.sleep(0.2)
+                if ring.poll_verdict() is not None:
+                    fail("a verdict arrived after every request had its own")
+            finally:
+                if producer.proc.poll() is None:
+                    producer.proc.kill()
+                    producer.proc.wait()
+                sidecar.stop()
+                thread.join(timeout=30)
+            if thread.is_alive():
+                fail("the sidecar's drain loop did not stop")
+        finally:
+            ring.close()
+    os.environ.pop("PINGOO_BODY_INSPECT")
+    flows = sum(b is not None for b in bodies)
+    if sorted(r.body_actions) != [k for k, b in enumerate(bodies)
+                                  if b is not None]:
+        fail(f"{len(r.body_actions)} body verdicts for {flows} bodies")
+    if r.checksum != BODY_RING_CHECKSUM:
+        fail(f"body ring checksum {r.checksum}, not {BODY_RING_CHECKSUM}")
+    if r.actions != bytes(want) or r.meta_actions != meta:
+        fail(f"{sum(a != b for a, b in zip(r.actions, want))} merged and "
+             f"{sum(a != b for a, b in zip(r.meta_actions, meta))} metadata "
+             f"verdict bytes differ from VerdictService's and the oracle")
+    stats = sidecar.body_scanner.stats
+    if stats.degrade_total:
+        fail(f"the body drain degraded {stats.degrade_reasons}")
+    if r.max_heartbeat_age_ms >= HEARTBEAT_LIMIT_MS:
+        fail(f"the heartbeat aged {r.max_heartbeat_age_ms} ms during the "
+             f"body drive (the data plane fails open at "
+             f"{HEARTBEAT_LIMIT_MS})")
+    drains = list(sidecar.stage_ms["body"])[d0:]
+    out = dict(requests=BODY_RING_REQUESTS, flows=flows,
+               req_per_s=BODY_RING_REQUESTS / r.seconds, seconds=r.seconds,
+               checksum=r.checksum, body_drain_p50_ms=float(
+                   np.percentile(drains, 50)), drains=len(drains),
+               body_verdicts_per_drain=(sidecar.body_verdicts - v0)
+               / len(drains), batches=sidecar.batches - b0,
+               max_heartbeat_age_ms=r.max_heartbeat_age_ms,
+               wait_p50_ms=float(np.percentile(r.waits_ms, 50)),
+               wait_p99_ms=float(np.percentile(r.waits_ms, 99)),
+               launches=launches)
+    print(f"body ring: {BODY_RING_REQUESTS} requests, {flows} with bodies, "
+          f"checksum {r.checksum}; {out['req_per_s']:.0f} req/s, body drain "
+          f"p50 {out['body_drain_p50_ms']:.2f} ms over {len(drains)} drains "
+          f"({out['body_verdicts_per_drain']:.1f} body verdicts each), "
+          f"heartbeat age max {r.max_heartbeat_age_ms} ms, launches "
+          f"{launches}", flush=True)
+    return out
+
+
+def body_phase() -> int:
+    """The body phase in a process of its own: (a) the scanner over
+    bench.py's body stream in the four BODY_CONFIGS, then the device's
+    busy share under torch.profiler, and (b) the native plane with body
+    inspection on. Prints one JSON line {"body": ...}, but no result
+    line."""
+    import torch
+
+    from pingoo_tpu_torch.engine import bodyscan as bs
+    from pingoo_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    _build.build()  # run alone, the phase builds the kernels here
+    print(f"body phase: set-up {t0 - T_START:.1f} s, build "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    plans = {}
+    for name in ("seed", "crs"):
+        plan = bs.compile_body_plan(body_rules(bs, name), BODY_WINDOW,
+                                    device=dev)
+        payloads = body_payloads(name)
+        oracle = [bs.body_lanes_oracle(plan, p)[:2] for p in payloads]
+        plans[name] = (plan, payloads, body_rounds(bs, payloads), oracle)
+        print(f"body plan {name}: {len(plan.rules)} rules, NFA W="
+              f"{plan.tables.num_words}, exact DFA "
+              f"{plan.dfa_tables is not None}, prefilter "
+              f"{plan.pf_tables.num_words} words, lazy_ok {plan.lazy_ok} "
+              f"(tail_cap {plan.tail_cap}); {sum(map(len, payloads))} bytes "
+              f"in {sum(map(len, plans[name][2]))} windows", flush=True)
+    far_done: set = set()
+    configs = {f"{n}/{s}/lazy={z}": body_config(bs, plans, n, s, z, k, dev,
+                                                far_done)
+               for n, s, z, k in BODY_CONFIGS}
+    busy = body_busy(bs, plans, dev)
+    print(f"body device busy: {busy}", flush=True)
+    t_ring = time.monotonic()
+    ring = body_ring(dev)
+    ring["phase_s"] = time.monotonic() - t_ring
+    print(json.dumps({"body": dict(
+        window=BODY_WINDOW, configs=configs, busy=busy, ring=ring,
+        seconds=time.monotonic() - t0)}), flush=True)
+    return 0
+
+
+def body_child() -> dict:
+    """`body_phase` in a process of its own; returns its JSON."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--body-phase"],
+        capture_output=True, text=True, timeout=600)
+    print(proc.stdout.rstrip(), flush=True)
+    if proc.returncode != 0:
+        fail(f"the body phase exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    print(f"body phase: {time.monotonic() - t0:.1f} s", flush=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])["body"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1493,6 +2012,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["--ring-phase"]:
         return ring_phase()
+    if sys.argv[1:] == ["--body-phase"]:
+        return body_phase()
     if len(sys.argv) == 3 and sys.argv[1] == "--ring-producer":
         return ring_producer(sys.argv[2])
     import numpy as np
@@ -1542,6 +2063,7 @@ def main() -> int:
                             lists=lists)
     results["prefilter"]["stage_a"] = stage_a_child()
     ring = ring_child()
+    body = body_child()
     counts = slice_phase(plan, rules, lists, reqs, dev)
     calls, launched = capture_main_path(plan, lists, reqs, dev)
     batches = -(-N_REQUESTS // B)
@@ -1566,6 +2088,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None,
             "ring_launches": ring["drives"][0]["launches"][name],
+            "body_launches": sum(c["launches"][name]
+                                 for c in body["configs"].values()),
             **{k: v for k, v in r.items() if k not in (
                 "route", "source", "replaces", "max_abs_err", "ms",
                 "plain_ms", "work")}})

@@ -32,8 +32,6 @@ _UNPORTED = (
      "port queue item 4, halo split"),
     ("PINGOO_MEGASTEP", lambda v: v not in ("", "off"),
      "port queue item 5, megastep and DeviceInputQueue"),
-    ("PINGOO_BODY_INSPECT", lambda v: v == "on",
-     "port queue item 6, body inspection"),
     ("PINGOO_MESH", lambda v: v.strip() not in ("", "1", "1x1", "1x1x1"),
      "port queue item 9, the mesh"),
     # The port's sidecar dispatches whatever one drain pass returns (the

@@ -13,10 +13,12 @@ same ring. This module holds the port's side of that ring:
   * `RingSidecar`: the drain loop. It dequeues one merged batch across
     the rings, runs the lane function of `engine/verdict.py` on the
     plan's device, and posts the verdict bytes back on each request's
-    own ring, one batch at a time;
+    own ring, one batch at a time. With PINGOO_BODY_INSPECT=on it also
+    drains the request-body windows through `engine/bodyscan.py` and
+    posts one body verdict per flow;
   * `pack_requests` / `drive_stream`: a producer that drives a seeded
-    request stream through a ring and checks that every request gets
-    exactly one verdict.
+    request stream (and request bodies, as body windows) through a ring
+    and checks that every request gets exactly one verdict on each lane.
 
 The verdict byte: bits 0-1 the unverified-client action (0 none,
 1 block, 2 captcha), bit 2 the verified-client block, bits 3-7 the first
@@ -46,6 +48,9 @@ from typing import Optional
 import numpy as np
 
 from .device import check_env, resolve_device
+from .engine.bodyscan import (BodyScanner, BodyWindow, body_inspect_enabled,
+                              body_max_flows, body_window_bytes,
+                              merge_actions, split_payload)
 from .engine.batch import (RequestBatch, RequestTuple, batch_to_contexts,
                            bucket_arrays, pad_batch, pow2_batch_size,
                            tuple_to_context)
@@ -454,7 +459,7 @@ class Ring:
         self.lib.pingoo_ring_record_waits(
             self.addr, enq.ctypes.data_as(ctypes.c_void_p), len(enq))
 
-    # -- request-body windows (ABI only: the sidecar does not drain them) ------
+    # -- request-body windows ---------------------------------------------------
 
     def enqueue_body(self, flow: int, win_seq: int, data: bytes,
                      total_len: int, flags: int = 0) -> bool:
@@ -550,12 +555,17 @@ class RingSidecar:
     `.lookup(ip) -> record with .asn and .country`, fills in rows the
     producer left at asn 0 / country "XX".
 
+    With PINGOO_BODY_INSPECT=on, each pass first drains the rings'
+    body-window rings through a `BodyScanner` on the same device and
+    posts each finished flow's body verdict on its ring, the ticket
+    tagged with BODY_VERDICT_BIT (0 for a flow the scanner degraded).
+
     `device=None` means the CUDA card (raises without one). A device
-    error propagates out of `run()`: the heartbeat stops and the data
-    plane's liveness detector fails requests open, as for a dead
-    sidecar. Orphans of an earlier sidecar and rows whose url/path went
-    past the slot caps are evaluated by the interpreter over their full
-    strings.
+    error, in a batch or in a body scan, propagates out of `run()`: the
+    heartbeat stops and the data plane's liveness detector fails
+    requests open, as for a dead sidecar. Orphans of an earlier sidecar
+    and rows whose url/path went past the slot caps are evaluated by the
+    interpreter over their full strings.
     """
 
     # A blocking window longer than this is treated as wedged: the
@@ -626,6 +636,13 @@ class RingSidecar:
         self._ring_rr = -1  # rotating drain start
         self._thread = None
         self._stop = False
+        # Body inspection: the scanner's tables are built here, on the
+        # sidecar's device; "body" (ms) is one drain that had windows.
+        self.body_scanner = BodyScanner(device=dev) \
+            if body_inspect_enabled() else None
+        self.body_verdicts = 0
+        if self.body_scanner is not None:
+            self.stage_ms["body"] = []
         if dev.type == "cuda":
             # A first-use kernel build takes seconds: never in a batch.
             _build.build()
@@ -675,6 +692,10 @@ class RingSidecar:
         while not self._stop:
             for r in self.rings:
                 r.heartbeat()
+            # Bodies before requests: a flow's body verdict never waits
+            # a batch behind the metadata batch that admitted it.
+            if self.body_scanner is not None:
+                self._drain_bodies()
             parts = self._dequeue()
             if parts:
                 self._complete(*self._dispatch(parts))
@@ -682,7 +703,42 @@ class RingSidecar:
                 time.sleep(self.IDLE_SLEEP_S)
             if max_requests is not None and self.processed >= max_requests:
                 break
+        # FINAL windows already in the ring still get their verdicts.
+        if self.body_scanner is not None:
+            self._drain_bodies()
         return self.processed
+
+    def _drain_bodies(self) -> None:
+        """Drain each ring's body-window ring through the scanner and post
+        the body verdict of every flow whose FINAL window came, on that
+        ring, ticket-tagged with BODY_VERDICT_BIT; then drop flows idle
+        past the TTL. A scan error propagates (no fallback)."""
+        t0 = time.monotonic()
+        drained = 0
+        for r in self.rings:
+            slots = r.dequeue_bodies()
+            if not len(slots):
+                continue
+            drained += len(slots)
+            windows = [BodyWindow(
+                flow_id=int(s["flow"]), win_seq=int(s["win_seq"]),
+                data=s["data"][:int(s["win_len"])].tobytes(),
+                final=bool(s["flags"] & BODY_FLAG_FINAL),
+                abort=bool(s["flags"] & BODY_FLAG_ABORT))
+                for s in slots]
+            with self._hb_busy():
+                verdicts = self.body_scanner.scan_windows(windows)
+            for v in verdicts:
+                ticket = v.flow_id | BODY_VERDICT_BIT
+                action = 0 if v.degraded else v.action_byte()
+                while not r.post_verdict(ticket, action):
+                    if self._stop:
+                        return
+                    time.sleep(self.IDLE_SLEEP_S)
+                self.body_verdicts += 1
+        self.body_scanner.evict_stale()
+        if drained:
+            self.stage_ms["body"].append((time.monotonic() - t0) * 1e3)
 
     def _dequeue(self) -> list[tuple[Ring, np.ndarray]]:
         budget = self.max_batch
@@ -942,6 +998,10 @@ class RingSidecar:
 # -- a producer: drive a request stream through a ring ------------------------
 
 DRIVE_BURST = 64  # requests enqueued between two polls
+# A drive in the sidecar's own process (the CPU tests) passes this as
+# `idle_s`, so that a pass that enqueued and polled nothing leaves the
+# sidecar the interpreter lock.
+DRIVE_IDLE_S = 0.0001
 
 
 def pack_requests(reqs) -> list[tuple]:
@@ -963,9 +1023,13 @@ def pack_requests(reqs) -> list[tuple]:
 @dataclass
 class DriveResult:
     seconds: float  # first enqueue to last verdict
-    actions: bytes  # the verdict byte of each request, in stream order
-    waits_ms: list[float]  # enqueue -> verdict polled, per request
+    # The verdict byte of each request, in stream order: for a request
+    # with a body, its metadata byte merged with its body byte.
+    actions: bytes
+    waits_ms: list[float]  # enqueue -> last verdict polled, per request
     max_heartbeat_age_ms: int  # largest now_ms - heartbeat_ms seen
+    meta_actions: bytes = b""  # the metadata lane's bytes, stream order
+    body_actions: Optional[dict] = None  # {stream index: body byte}
 
     @property
     def checksum(self) -> int:
@@ -973,51 +1037,107 @@ class DriveResult:
         return zlib.crc32(self.actions)
 
 
-def drive_stream(ring: Ring, stream: list[tuple],
-                 timeout_s: float = 600.0) -> DriveResult:
+def drive_stream(ring: Ring, stream: list[tuple], bodies=None,
+                 timeout_s: float = 600.0, idle_s: float = 0.0) -> DriveResult:
     """Enqueue `stream` (from `pack_requests`) in bursts of up to
     DRIVE_BURST requests, polling verdicts between bursts (both rings
     are finite: enqueueing the whole stream first could wedge against a
     full verdict ring), until every request has its verdict. Reads the
-    ring's liveness block at every poll. Raises on a verdict for a
-    ticket it did not issue or already has a verdict for, and
-    TimeoutError after `timeout_s`."""
+    ring's liveness block at every poll.
+
+    `bodies`, where given, has one entry per request: the body's bytes,
+    or None for a request without one. A request with a body is a flow:
+    its windows of at most PINGOO_BODY_WINDOW bytes (and the slot cap)
+    are enqueued on the body ring after it, in order, the last one
+    FINAL, and it waits for two verdicts, its ticket's and the one
+    tagged BODY_VERDICT_BIT, which merge as `merge_actions` (httpd.cc's
+    `merge_body_action`). At most
+    PINGOO_BODY_MAX_FLOWS flows are open at once, so the scanner never
+    evicts one. A pass that enqueued and polled nothing sleeps `idle_s`.
+    Raises on a verdict, on either lane, for a ticket it did not issue
+    or already has that verdict for, and TimeoutError after
+    `timeout_s`."""
+    window = min(body_window_bytes(), BODY_WINDOW_CAP)
+    max_flows = body_max_flows()
     idx_of: dict[int, int] = {}
     t_enq: dict[int, float] = {}
     answered: set[int] = set()
-    actions = bytearray(len(stream))
+    flow_of: dict[int, int] = {}  # ticket -> stream index, body pending
+    body_answered: set[int] = set()
+    body_acts: dict[int, int] = {}
+    body_q: list[tuple] = []  # windows not yet on the body ring
+    bq = 0
+    meta = bytearray(len(stream))
     waits: list[float] = []
     max_age = 0
     i = 0
     t0 = time.monotonic()
-    while len(answered) < len(stream):
+
+    def lane_in(ticket: int) -> None:
+        """One lane of `ticket` is in; its wait ends with the last."""
+        if ticket not in idx_of and ticket not in flow_of:
+            waits.append((time.monotonic() - t_enq.pop(ticket)) * 1e3)
+
+    while len(answered) < len(stream) or flow_of:
         burst = 0
         while i < len(stream) and burst < DRIVE_BURST:
             m, h, p, u, ua, ip, port, asn, cc = stream[i]
+            body = None if bodies is None else bodies[i]
+            if body is not None and len(flow_of) >= max_flows:
+                break
             t = ring.enqueue(method=m, host=h, path=p, url=u, user_agent=ua,
                              ip=ip, port=port, asn=asn, country=cc)
             if t is None:
                 break
             idx_of[t] = i
             t_enq[t] = time.monotonic()
+            if body is not None:
+                flow_of[t] = i
+                parts = split_payload(body, window)
+                body_q.extend(
+                    (t, s, d, len(body),
+                     BODY_FLAG_FINAL if s == len(parts) - 1 else 0)
+                    for s, d in enumerate(parts))
             i += 1
             burst += 1
+        pushed = bq
+        while bq < len(body_q) and ring.enqueue_body(*body_q[bq]):
+            bq += 1
         lv = ring.liveness()
         max_age = max(max_age, lv["now_ms"] - lv["heartbeat_ms"])
         v = ring.poll_verdict()
+        if idle_s and v is None and not burst and bq == pushed:
+            time.sleep(idle_s)
         while v is not None:
             ticket, action, _score = v
-            if ticket in answered:
-                raise RuntimeError(f"ticket {ticket} was answered twice")
-            if ticket not in idx_of:
-                raise RuntimeError(f"verdict for unknown ticket {ticket}")
-            answered.add(ticket)
-            waits.append((time.monotonic() - t_enq.pop(ticket)) * 1e3)
-            actions[idx_of.pop(ticket)] = action
+            if ticket & BODY_VERDICT_BIT:
+                flow = ticket & ~BODY_VERDICT_BIT
+                if flow in body_answered:
+                    raise RuntimeError(
+                        f"the body of ticket {flow} was answered twice")
+                if flow not in flow_of:
+                    raise RuntimeError(
+                        f"body verdict for unknown ticket {flow}")
+                body_answered.add(flow)
+                body_acts[flow_of.pop(flow)] = action
+            else:
+                if ticket in answered:
+                    raise RuntimeError(f"ticket {ticket} was answered twice")
+                if ticket not in idx_of:
+                    raise RuntimeError(f"verdict for unknown ticket {ticket}")
+                answered.add(ticket)
+                meta[idx_of.pop(ticket)] = action
+                flow = ticket
+            lane_in(flow)
             v = ring.poll_verdict()
         if time.monotonic() - t0 > timeout_s:
             raise TimeoutError(
                 f"{len(stream) - len(answered)} of {len(stream)} requests "
-                f"had no verdict after {timeout_s} s")
+                f"had no verdict and {len(flow_of)} bodies none after "
+                f"{timeout_s} s")
+    actions = bytearray(meta)
+    for idx, b in body_acts.items():
+        actions[idx] = merge_actions(meta[idx], b & 3, bool(b & 4))
     return DriveResult(seconds=time.monotonic() - t0, actions=bytes(actions),
-                       waits_ms=waits, max_heartbeat_age_ms=max_age)
+                       waits_ms=waits, max_heartbeat_age_ms=max_age,
+                       meta_actions=bytes(meta), body_actions=body_acts)

@@ -2,8 +2,9 @@
 
   * With `jax` and `pingoo_tpu` blocked in sys.modules, a fresh
     interpreter imports the port, compiles a plan and evaluates a batch
-    on the CPU (the card's machine has no JAX), and builds the ring
-    library and serves the batch through `RingSidecar` on a ring.
+    on the CPU (the card's machine has no JAX), builds the ring library
+    and serves the batch through `RingSidecar` on a ring, and scans one
+    request body in three windows.
   * No source file of the port, nor chip_smoke.py, imports jax or the
     JAX package (`pingoo_tpu` not followed by `_torch`).
   * Without a card, an entry point called without device="cpu" raises,
@@ -69,6 +70,18 @@ with tempfile.TemporaryDirectory() as tmp:
 want = bytes(v.action | (v.verified_block << 2) for v in
              VerdictService(plan, lists, device="cpu").evaluate_batch(reqs))
 assert got.actions == want and any(a & 3 for a in want), (got.actions, want)
+# Body inspection: one flow of three windows through the streaming scanner.
+from pingoo_tpu_torch.engine import bodyscan
+scanner = bodyscan.BodyScanner(bodyscan.compile_body_plan(window=16,
+                                                          device="cpu"),
+                               device="cpu")
+body = b"a=1&b=" + b"x" * 20 + b"UNION SELECT 1"
+verdicts = []
+for i, piece in enumerate(bodyscan.split_payload(body, 16)):
+    verdicts += scanner.scan_windows([bodyscan.BodyWindow(
+        5, i, piece, final=i == 2)])
+assert [(v.flow_id, v.unverified, v.verified_block) for v in verdicts] \
+    == [(5, 1, True)], verdicts
 assert not any(k == "jax" or k.startswith(("jax.", "pingoo_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ISOLATED-OK", int(m.sum()), sidecar.processed)
@@ -115,6 +128,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     files = port_sources()
     assert len(files) > 20
     assert REPO / "pingoo_tpu_torch" / "native_ring.py" in files
+    assert REPO / "pingoo_tpu_torch" / "engine" / "bodyscan.py" in files
     offenders = []
     for path in files:
         for m in IMPORT_RE.finditer(path.read_text()):
@@ -149,7 +163,6 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_NFA_SPLIT", "1"),
     ("PINGOO_MEGASTEP", "auto"),
     ("PINGOO_MEGASTEP", "force"),
-    ("PINGOO_BODY_INSPECT", "on"),
     ("PINGOO_MESH", "2x1x1"),
     ("PINGOO_PIPELINE", "on"),
     ("PINGOO_PIPELINE_DEPTH", "3"),
@@ -187,7 +200,8 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
 @pytest.mark.parametrize("name,value", [
     ("PINGOO_PREFILTER", "banks"), ("PINGOO_PREFILTER", "off"),
     ("PINGOO_STAGING", "full"), ("PINGOO_MEGASTEP", "off"),
-    ("PINGOO_BODY_INSPECT", "off"), ("PINGOO_MESH", "1x1x1"),
+    ("PINGOO_BODY_INSPECT", "off"), ("PINGOO_BODY_INSPECT", "on"),
+    ("PINGOO_MESH", "1x1x1"),
     ("PINGOO_NFA_SPLIT", "0"), ("PINGOO_PIPELINE", "off"),
     ("PINGOO_SCAN_STRATEGY", "pair"), ("PINGOO_SCAN_STRATEGY", "pallas"),
     ("PINGOO_SCHED_MODE", "fixed"), ("PINGOO_SCHED_FAILOPEN", "serve"),
