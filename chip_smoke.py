@@ -34,14 +34,26 @@
    oracle and the port's CPU path. The default mode (auto, banks) is the
    main path: the kernels' launch counts are reset just before it and
    read just after, and each kernel must have launched.
-4. Main-path capture: one more main-path pass records the inputs of
+4. Config phase: the port booted from a deployment, as a server does.
+   The same corpus is written as a pingoo deployment (its lists as CSV
+   files, the rules as pingoo.yml's mapping, two services with `route:`
+   predicates), parsed by load_and_validate (or parse_config on the
+   mapping where PyYAML is missing), its lists loaded by load_lists and
+   compiled with the services' routes on the card. The same stream
+   through VerdictService (auto, banks) must give every rule column and
+   both lanes of the main path and the oracle, each route column
+   match_route's; explain() on 64 requests (list hits, attacks, clean)
+   must agree with the interpreter, rule by rule, with tuple_digest's
+   digest; stats.snapshot() must count the batches and requests served.
+   The phase's launches per kernel are its `config_launches`.
+5. Main-path capture: one more main-path pass records the inputs of
    every call of each kernel's launcher (NFA, DFA, and the prefilter's
    grouped Stage-A call), keyed by table (one key per field for the
    grouped call), and must show one prefilter call and launch per
    batch; each kernel's calls are replayed through it and its plain
    version (bit equality), and the replay is timed, issued by the host
    and queued on the card, beside its bound (and the DFA's chain floor).
-5. Ring phase, in a process of its own: the native plane. The ring
+6. Ring phase, in a process of its own: the native plane. The ring
    library is built from the port's copy (pingoo_tpu_torch/native), a
    RingSidecar(max_batch=2048) in a thread serves a ring of 16,384 slots
    on the 500-rule plan with its lists. A producer in a child process,
@@ -54,7 +66,7 @@
    just before the drive, read just after). Prints {"ring": ...}: req/s, wait
    p50/p99, batches, the stage split, launches per batch and the
    device's busy share.
-6. Body phase, in a process of its own: streaming body inspection
+7. Body phase, in a process of its own: streaming body inspection
    (engine/bodyscan.py). (a) bench.py's body stream at the scanner's
    defaults (1,024 flows of 256-12,288 bytes, a payload planted in every
    third, windows of 4,096 bytes interleaved round-robin) through a
@@ -74,8 +86,9 @@
    bytes' crc32 the JAX package's sidecar's, each merged byte
    merge_actions(VerdictService's byte, the body oracle), no flow
    degraded, the heartbeat under 500 ms. Prints {"body": ...}.
-7. Prints one JSON line of per-kernel results (with each kernel's
-   launches on the ring drive and on the body phase's streamed passes),
+8. Prints one JSON line of per-kernel results (with each kernel's
+   launches in the config phase, on the ring drive and on the body
+   phase's streamed passes),
    then, last, {"ok": true, "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
@@ -1072,20 +1085,38 @@ def stage_a_inputs(plan, reqs, dev):
             [arrays[f"{f}_len"] for f in names])
 
 
-def device_kernels(fn) -> dict:
-    """{device kernel name: launches} of one run of `fn()` under
-    torch.profiler."""
+def device_kernels(fns: dict) -> dict:
+    """{label: {device kernel name: launches}} of one run of each `fn`,
+    all in one torch.profiler session (a second session in one process
+    can record no device events), each run under its own annotation; a
+    kernel counts for the annotated range its start falls in."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+        for label, fn in fns.items():
+            with record_function(f"run:{label}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda
+               and not e.name.startswith("run:")]
+    out = {}
+    for e in events:
+        if not e.name.startswith("run:") or e.device_type == cuda:
+            continue
+        lo, hi = e.time_range.start, e.time_range.end
+        counts = {}
+        for k in kernels:
+            if lo <= k.time_range.start < hi:
+                counts[k.name] = counts.get(k.name, 0) + 1
+        out[e.name[4:]] = counts
+    return out
 
 
 def stage_a_phase(pf_ops, plan, reqs, dev, grouped: bool = True) -> dict:
@@ -1101,8 +1132,9 @@ def stage_a_phase(pf_ops, plan, reqs, dev, grouped: bool = True) -> dict:
         runs["grouped"] = lambda: pf_ops.prefilter_scan_fields(tabs, datas,
                                                                lenss)
     out = {}
+    by_run = device_kernels(runs)
     for label, fn in runs.items():
-        kernels = device_kernels(fn)
+        kernels = by_run[label]
         n = sum(kernels.values())
         issued = cuda_ms(fn, 40)
         # At most QUEUED_CALLS launches queued behind the sleep.
@@ -1174,9 +1206,10 @@ def profile_main_path(plan, lists, reqs, dev) -> None:
           flush=True)
 
 
-def slice_phase(plan, rules, lists, reqs, dev) -> dict:
+def slice_phase(plan, rules, lists, reqs, dev):
     """Serve the traffic in every mode; returns the main path's launch
-    counts."""
+    counts, the interpreter oracle's rows and the main path's (matched,
+    actions, verified_block)."""
     import numpy as np
 
     from pingoo_tpu_torch.compiler.plan import compile_ruleset
@@ -1217,6 +1250,8 @@ def slice_phase(plan, rules, lists, reqs, dev) -> dict:
         matched = np.stack([v.matched for v in verdicts])
         act = np.array([v.action for v in verdicts])
         vb = np.array([v.verified_block for v in verdicts])
+        if (dfa_mode, pf_mode) == ("auto", "banks"):
+            main = (matched, act, vb)
         # The port's CPU path on the same batches.
         cpu = []
         for lo in range(0, N_REQUESTS, B):
@@ -1234,9 +1269,9 @@ def slice_phase(plan, rules, lists, reqs, dev) -> dict:
                  f"{bad_cpu} on the CPU path; actions differ "
                  f"{int((act != o_act).sum())}, verified_block "
                  f"{int((vb != o_vb).sum())}")
-        ms = np.array(service.batch_ms)
-        stages = ", ".join(f"{k} {np.percentile(v, 50):.2f}"
-                           for k, v in service.stage_ms.items())
+        ms = np.array(list(service.stats.batch))
+        stages = ", ".join(f"{k} {v.percentile(50):.2f}"
+                           for k, v in service.stats.stages.items())
         print(f"{label}: {N_REQUESTS} verdicts equal the oracle and the CPU "
               f"path; {N_REQUESTS / wall:.0f} req/s, batch p50 "
               f"{np.percentile(ms, 50):.2f} ms p99 "
@@ -1250,7 +1285,175 @@ def slice_phase(plan, rules, lists, reqs, dev) -> dict:
                if main_counts.get(k, 0) == 0]
     if missing:
         fail(f"the main path launched no {missing} kernel")
-    return main_counts
+    return main_counts, oracle, main
+
+
+EXPLAIN_REQUESTS = 64
+
+
+def config_phase(rules, lists, reqs, oracle, main, dev) -> dict:
+    """Boot the port from a deployment, as a server does: the corpus
+    written as pingoo.yml's mapping with its lists as CSV files and two
+    services with `route:` predicates; parse (load_and_validate where
+    PyYAML imports, else parse_config on the same mapping), load_lists,
+    compile_ruleset(routes=) on the card, then the same stream through
+    VerdictService (auto, banks) and `explain` on EXPLAIN_REQUESTS of
+    it. Every rule column and both lanes must equal the plan built
+    straight from the corpus and the oracle, each route column
+    match_route in the interpreter, every explain the interpreter's
+    rows and tuple_digest, and stats.snapshot() the batches and
+    requests served. Returns the phase's launches per kernel."""
+    import tempfile
+
+    import numpy as np
+
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.config import load_and_validate, parse_config
+    from pingoo_tpu_torch.engine.batch import tuple_to_context
+    from pingoo_tpu_torch.engine.service import VerdictService
+    from pingoo_tpu_torch.engine.verdict import interpret_rules_row
+    from pingoo_tpu_torch.host.services import match_route
+    from pingoo_tpu_torch.lists import load_lists
+    from pingoo_tpu_torch.obs.trace import tuple_digest
+    from pingoo_tpu_torch.ops import _build
+    from pingoo_tpu_torch.utils.crs import deployment
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = deployment(rules, lists, tmp)
+        t0 = time.monotonic()
+        try:
+            import yaml
+        except ImportError:
+            how = "parse_config (PyYAML is not installed)"
+            config = parse_config(raw)
+        else:
+            how = "load_and_validate (pingoo.yml written with PyYAML)"
+            path = os.path.join(tmp, "pingoo.yml")
+            with open(path, "w") as f:
+                yaml.safe_dump(raw, f, sort_keys=False)
+            config = load_and_validate(path)
+        t1 = time.monotonic()
+        loaded = load_lists(config.lists)
+        t2 = time.monotonic()
+    print(f"config: {how}: {len(config.rules)} rules, "
+          f"{len(config.services)} services, lists "
+          f"{ {k: len(v) for k, v in loaded.items()} }", flush=True)
+    if [(r.name, r.expression.source) for r in config.rules] != \
+            [(r.name, r.expression.source) for r in rules]:
+        fail("the deployment's rules are not the corpus's")
+    routes = [(svc.name, svc.route) for svc in config.services]
+    plan = compile_ruleset(config.rules, loaded, routes=routes, device=dev)
+    t3 = time.monotonic()
+    print(f"config: parse {t1 - t0:.2f} s, load_lists {t2 - t1:.2f} s, "
+          f"compile_ruleset(routes={[n for n, _ in routes]}) on {dev} "
+          f"{t3 - t2:.2f} s", flush=True)
+
+    os.environ["PINGOO_DFA"], os.environ["PINGOO_PREFILTER"] = MODES[0]
+    service = VerdictService(plan, loaded, max_batch=B, device=dev)
+    served = {"batches": 0, "requests": 0}
+    evaluate_batch = service.evaluate_batch
+
+    def counted(batch):
+        served["batches"] += 1
+        served["requests"] += len(batch)
+        return evaluate_batch(batch)
+
+    service.evaluate_batch = counted
+    contexts = [tuple_to_context(r, loaded) for r in reqs]
+    _build.reset_launch_counts()
+    verdicts, wall = asyncio.run(serve(service, reqs))
+    R = len(rules)
+    matched = np.stack([v.matched for v in verdicts])
+    act = np.array([v.action for v in verdicts])
+    vb = np.array([v.verified_block for v in verdicts])
+    # The main path's lanes equal the oracle's (slice_phase holds them).
+    d_matched, d_act, d_vb = main
+    bad = int((matched[:, :R] != d_matched).any(axis=1).sum())
+    bad_oracle = int((matched[:, :R] != oracle).any(axis=1).sum())
+    if bad or bad_oracle or (act != d_act).any() or (vb != d_vb).any():
+        fail(f"config: {bad} rows differ from the plan built straight from "
+             f"the corpus, {bad_oracle} from the oracle; actions differ "
+             f"{int((act != d_act).sum())}, verified_block "
+             f"{int((vb != d_vb).sum())}")
+    for svc in config.services:
+        col = plan.route_index[svc.name]
+        want = np.array([match_route(svc.route, c) for c in contexts])
+        if (matched[:, col] != want).any():
+            fail(f"config: route {svc.name!r} differs from match_route on "
+                 f"{int((matched[:, col] != want).sum())} requests")
+        print(f"config: route {svc.name!r} column {col} matches "
+              f"{int(want.sum())} of {len(reqs)} requests, as match_route "
+              f"does", flush=True)
+    batch_ms = np.array(list(service.stats.batch))
+
+    # explain: list hits, attacks and clean requests, one a batch.
+    names = {r.name: r.index for r in plan.rules}
+    list_cols = [i for n, i in names.items() if n.startswith("list_")]
+    hit = oracle.any(axis=1)
+    picks = list(dict.fromkeys(
+        [*np.nonzero(oracle[:, list_cols].any(axis=1))[0][:16],
+         *np.nonzero(hit)[0][:24], *np.nonzero(~hit)[0][:24]]))
+    for i in range(len(reqs)):
+        if len(picks) >= EXPLAIN_REQUESTS:
+            break
+        if i not in picks:
+            picks.append(i)
+    picks = picks[:EXPLAIN_REQUESTS]
+
+    async def explain_all():
+        await service.start()
+        try:
+            out = []
+            for i in picks:
+                te = time.monotonic()
+                out.append((await service.explain(reqs[i]),
+                            (time.monotonic() - te) * 1e3))
+            return out
+        finally:
+            await service.stop()
+
+    explained = asyncio.run(explain_all())
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    os.environ.pop("PINGOO_DFA")
+    os.environ.pop("PINGOO_PREFILTER")
+    for i, (e, _) in zip(picks, explained):
+        r = reqs[i]
+        row = interpret_rules_row(plan, contexts[i])
+        want_rules = [rule.name for rule in plan.rules if row[rule.index]]
+        digest = tuple_digest(r.method, r.host, r.path, r.url,
+                              r.user_agent, r.ip)
+        if not e["parity"]["consistent"] or e["matched_rules"] != \
+                want_rules or e["digest"] != digest or \
+                e["action"] != int(act[i]):
+            fail(f"config: explain of request {i} disagrees with the "
+                 f"interpreter: {e['parity']}, {e['matched_rules']} != "
+                 f"{want_rules}, digest {e['digest']} != {digest}")
+    snap = service.stats.snapshot()
+    if (snap["batches"], snap["requests"]) != (served["batches"],
+                                               served["requests"]):
+        fail(f"config: stats.snapshot() counts {snap['batches']} batches "
+             f"and {snap['requests']} requests, the service served "
+             f"{served['batches']} and {served['requests']}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"the config phase launched no {missing} kernel")
+    ex_ms = np.array([ms for _, ms in explained])
+    kinds = (int(oracle[picks][:, list_cols].any(axis=1).sum()),
+             int(hit[picks].sum()), int((~hit[picks]).sum()))
+    print(f"config: {len(reqs)} verdicts of the deployment's plan equal the "
+          f"plan built from the corpus and the oracle; "
+          f"{len(reqs) / wall:.0f} req/s, batch p50 "
+          f"{np.percentile(batch_ms, 50):.2f} ms over {len(batch_ms)} "
+          f"batches", flush=True)
+    print(f"config: {len(picks)} explain() calls ({kinds[0]} list hits, "
+          f"{kinds[1]} matching a rule, {kinds[2]} clean) consistent with "
+          f"the interpreter; explain ms p50 "
+          f"{np.percentile(ex_ms, 50):.2f} p99 {np.percentile(ex_ms, 99):.2f}"
+          f"; stats.snapshot() {snap['batches']} batches, "
+          f"{snap['requests']} requests; pipeline_snapshot() "
+          f"{service.pipeline_snapshot()['batches']}; launches {launches}",
+          flush=True)
+    return launches
 
 
 def stage_a_of(tree: str) -> int:
@@ -1374,7 +1577,7 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
     from pingoo_tpu_torch.ops import _build
 
     b0 = sidecar.batches
-    s0 = {k: len(v) for k, v in sidecar.stage_ms.items()}
+    s0 = {k: v.count for k, v in sidecar.stage_ms.items()}
     _build.reset_launch_counts()
     if profiled:
         with profile(activities=[ProfilerActivity.CPU,
@@ -1402,7 +1605,7 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
         wait_p50_ms=float(np.percentile(waits, 50)),
         wait_p99_ms=float(np.percentile(waits, 99)), batches=batches,
         rows_per_batch=len(want) / batches,
-        stage_p50_ms={k: float(np.percentile(v[s0[k]:], 50))
+        stage_p50_ms={k: float(np.percentile(v.since(s0[k]), 50))
                       for k, v in sidecar.stage_ms.items()},
         max_heartbeat_age_ms=r.max_heartbeat_age_ms, checksum=r.checksum,
         launches=launches,
@@ -1762,8 +1965,7 @@ def body_config(bs, plans, name, scan, lazy, want_kernels, dev,
             fail(f"body {label}: the {k} kernel disagrees with its plain "
                  f"version on a body-path launch")
     total = sum(map(len, payloads))
-    stages = {k: float(np.percentile(np.asarray(v), 50))
-              for k, v in scanner.stage_ms.items()}
+    stages = {k: v.percentile(50) for k, v in scanner.stage_ms.items()}
     out = dict(mode=scanner.mode, lazy=scanner.lazy, flows=len(payloads),
                bytes=total, rounds=len(rounds), checksum=crc,
                mb_per_s_streamed=total / stream_s / 1e6,
@@ -1882,7 +2084,7 @@ def body_ring(dev) -> dict:
             producer = ChildProducer(path)
             try:
                 producer.drive(12, 1024, BODY_RING_EVERY)  # warm
-                d0 = len(sidecar.stage_ms["body"])
+                d0 = sidecar.stage_ms["body"].count
                 v0, b0 = sidecar.body_verdicts, sidecar.batches
                 _build.reset_launch_counts()
                 r = producer.drive(BODY_RING_SEED, BODY_RING_REQUESTS,
@@ -1920,7 +2122,7 @@ def body_ring(dev) -> dict:
         fail(f"the heartbeat aged {r.max_heartbeat_age_ms} ms during the "
              f"body drive (the data plane fails open at "
              f"{HEARTBEAT_LIMIT_MS})")
-    drains = list(sidecar.stage_ms["body"])[d0:]
+    drains = sidecar.stage_ms["body"].since(d0)
     out = dict(requests=BODY_RING_REQUESTS, flows=flows,
                req_per_s=BODY_RING_REQUESTS / r.seconds, seconds=r.seconds,
                checksum=r.checksum, body_drain_p50_ms=float(
@@ -2064,7 +2266,8 @@ def main() -> int:
     results["prefilter"]["stage_a"] = stage_a_child()
     ring = ring_child()
     body = body_child()
-    counts = slice_phase(plan, rules, lists, reqs, dev)
+    counts, oracle, main_path = slice_phase(plan, rules, lists, reqs, dev)
+    config_counts = config_phase(rules, lists, reqs, oracle, main_path, dev)
     calls, launched = capture_main_path(plan, lists, reqs, dev)
     batches = -(-N_REQUESTS // B)
     if not len(calls["prefilter"]) == launched["prefilter"] == batches:
@@ -2087,6 +2290,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None,
+            "config_launches": config_counts[name],
             "ring_launches": ring["drives"][0]["launches"][name],
             "body_launches": sum(c["launches"][name]
                                  for c in body["configs"].values()),

@@ -12,11 +12,17 @@ tensors.
 
 Layout (module names follow the JAX package):
   expr/      — the rule expression language and its interpreter (oracle)
-  config/    — rule configuration types
+  config/    — configuration types and the pingoo.yml loader; lists.py
+               loads the CSV lists
   compiler/  — rule AST -> predicate IR -> tables (plan.py)
   ops/       — device ops on tensors; the kernels' Python wrappers
   csrc/      — the CUDA kernel sources
-  engine/    — request encoding, the verdict, the batching service
+  engine/    — request encoding, the verdict, the batching service, body
+               inspection
+  native_ring.py — the native plane's shared-memory ring and sidecar
+  host/      — the listener's host modules: services and routes,
+               discovery, TLS and ACME, captcha and JWT, GeoIP, h2
+  obs/       — trace ids, the access log, bounded timing windows
   utils/     — the CRS-style rule corpus and traffic generators
 
 Entry points run on the CUDA card unless given device="cpu".

@@ -40,6 +40,11 @@ class RequestTuple:
     remote_port: int = 0
     asn: int = 0
     country: str = "XX"
+    # Correlation id (obs/trace.py), assigned at the edge so engine-side
+    # logs can join a request to its response header and access-log
+    # line. Never encoded, never packed onto the ring, never read by a
+    # rule.
+    trace_id: str = ""
 
 
 @dataclass

@@ -66,7 +66,6 @@ import logging
 import os
 import re
 import time
-from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -76,6 +75,7 @@ import torch
 from ..compiler import repat
 from ..compiler.nfa import build_bank, lower_bank_to_dfa
 from ..device import check_env, resolve_device
+from ..obs.window import WINDOW, TimingWindow
 from ..ops.bitsplit_dfa import dfa_finalize, dfa_scan_chunk, dfa_to_tables
 from ..ops.nfa_scan import bank_to_tables, extract_slots, scan_chunk
 from ..ops.prefilter import (bank_to_prefilter_tables, build_prefilter_bank,
@@ -389,12 +389,13 @@ class BodyScanner:
     `device=None` means the CUDA card and raises without one; a plan
     given must live on that device. A scan error propagates.
 
-    `stage_ms` keeps, for each of the last STAGE_ROUNDS rounds, the ms
-    it spent packing windows and carries (and sending them to the
+    `stage_ms` keeps, for each stage, a `TimingWindow` of the last
+    STAGE_ROUNDS rounds (plus their exact count and sum): the ms a round
+    spent packing windows and carries (and sending them to the
     device), in the prefilter pass and in the NFA/DFA pass (each up to
     its carries back on the host), and finishing flows."""
 
-    STAGE_ROUNDS = 65536
+    STAGE_ROUNDS = WINDOW
 
     def __init__(self, plan: Optional[BodyPlan] = None,
                  max_flows: Optional[int] = None,
@@ -421,7 +422,7 @@ class BodyScanner:
         if now_ms is None:
             now_ms = lambda: int(time.monotonic() * 1000)  # noqa: E731
         self._now_ms = now_ms
-        self.stage_ms = {k: deque(maxlen=self.STAGE_ROUNDS)
+        self.stage_ms = {k: TimingWindow(self.STAGE_ROUNDS)
                          for k in ("pack", "prefilter", "scan", "finish")}
 
     # -- flow lifecycle -------------------------------------------------------

@@ -57,6 +57,7 @@ from .engine.batch import (RequestBatch, RequestTuple, batch_to_contexts,
 from .engine.verdict import (LANE_NONE, action_lanes, host_rule_lanes,
                              interpret_rules_row, make_lane_fn, merge_lanes)
 from .expr import execute_as_bool
+from .obs.window import WINDOW, TimingWindow
 from .ops import _build
 
 PKG_DIR = Path(__file__).resolve().parent
@@ -572,6 +573,7 @@ class RingSidecar:
     # watchdog stops covering for it.
     _HB_BUSY_GRACE_S = 120.0
     IDLE_SLEEP_S = 0.0002  # between empty drain passes
+    WINDOW = WINDOW  # timing samples kept per stage (tests shrink it)
 
     def __init__(self, ring, plan, lists, max_batch: int = 1024,
                  services: Optional[list] = None, geoip=None,
@@ -627,12 +629,13 @@ class RingSidecar:
         self.batches = 0
         self.truncated_rows = 0
         self.spilled_rows = 0  # overflow rows re-evaluated untruncated
-        # Per batch (ms): slots to padded batch arrays ("decode"), the
-        # lane function's issue up to the returned device tensor
-        # ("verdict"), host rules, the device sync, routes, spill rows and
-        # the posts ("finish").
-        self.stage_ms: dict[str, list[float]] = {
-            "decode": [], "verdict": [], "finish": []}
+        # Per batch (ms), the newest WINDOW of each: slots to padded
+        # batch arrays ("decode"), the lane function's issue up to the
+        # returned device tensor ("verdict"), host rules, the device sync,
+        # routes, spill rows and the posts ("finish"). `count` counts all.
+        self.stage_ms: dict[str, TimingWindow] = {
+            k: TimingWindow(self.WINDOW)
+            for k in ("decode", "verdict", "finish")}
         self._ring_rr = -1  # rotating drain start
         self._thread = None
         self._stop = False
@@ -642,7 +645,7 @@ class RingSidecar:
             if body_inspect_enabled() else None
         self.body_verdicts = 0
         if self.body_scanner is not None:
-            self.stage_ms["body"] = []
+            self.stage_ms["body"] = TimingWindow(self.WINDOW)
         if dev.type == "cuda":
             # A first-use kernel build takes seconds: never in a batch.
             _build.build()

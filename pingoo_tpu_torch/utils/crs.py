@@ -17,6 +17,7 @@ Everything is seeded and pure so benches are reproducible.
 
 from __future__ import annotations
 
+import os
 import random
 
 from ..config.schema import Action, ListConfig, ListType, RuleConfig
@@ -157,6 +158,48 @@ def generate_ruleset(
         for name, src in sources
     ]
     return rules, lists
+
+
+# Two services with route predicates, for a deployment of the corpus:
+# `api` takes the traffic's /api paths, `assets` its static files.
+DEPLOYMENT_SERVICES = {
+    "api": {"route": 'http_request.path.starts_with("/api")',
+            "http_proxy": ["http://127.0.0.1:9001"]},
+    "assets": {"route": 'http_request.host == "www.example.com" && '
+                        '(http_request.path.starts_with("/static/") || '
+                        'http_request.path.ends_with(".png"))',
+               "http_proxy": ["http://127.0.0.1:9002"]},
+}
+
+
+def deployment(rules: list[RuleConfig], lists: dict[str, list],
+               list_dir: str, services: dict | None = None) -> dict:
+    """A rule set and its lists as a pingoo deployment. Each list is
+    written to `<list_dir>/<name>.csv`, one value per row; the return
+    value is the mapping a pingoo.yml of the deployment parses to: one
+    listener, `services` (DEPLOYMENT_SERVICES by default) with their
+    `route:` predicates, the `lists:` stanza, and the rules in order,
+    `expression` from each Program's source and `actions` from each
+    rule."""
+    stanza = {}
+    for name, values in lists.items():
+        kind = ("Ip" if values and isinstance(values[0], Ip)
+                else "Int" if values and isinstance(values[0], int)
+                else "String")
+        path = os.path.join(list_dir, f"{name}.csv")
+        with open(path, "w") as f:
+            f.writelines(f"{v}\n" for v in values)
+        stanza[name] = {"type": kind, "file": path}
+    return {
+        "listeners": {"http": {"address": "http://0.0.0.0:8080"}},
+        "services": dict(services or DEPLOYMENT_SERVICES),
+        "lists": stanza,
+        "rules": {r.name: {
+            "expression": r.expression.source
+            if r.expression is not None else None,
+            "actions": [{"action": a.value} for a in r.actions]}
+            for r in rules},
+    }
 
 
 def _escape(pattern: str) -> str:

@@ -3,8 +3,9 @@
   * With `jax` and `pingoo_tpu` blocked in sys.modules, a fresh
     interpreter imports the port, compiles a plan and evaluates a batch
     on the CPU (the card's machine has no JAX), builds the ring library
-    and serves the batch through `RingSidecar` on a ring, and scans one
-    request body in three windows.
+    and serves the batch through `RingSidecar` on a ring, scans one
+    request body in three windows, imports the modules the listener
+    stands on, and boots a deployment through them to `explain()`.
   * No source file of the port, nor chip_smoke.py, imports jax or the
     JAX package (`pingoo_tpu` not followed by `_torch`).
   * Without a card, an entry point called without device="cpu" raises,
@@ -82,6 +83,34 @@ for i, piece in enumerate(bodyscan.split_payload(body, 16)):
         5, i, piece, final=i == 2)])
 assert [(v.flow_id, v.unverified, v.verified_block) for v in verdicts] \
     == [(5, 1, True)], verdicts
+# The modules the listener stands on, and a deployment booted through
+# them: parse_config -> load_lists -> compile_ruleset(routes) -> explain.
+import asyncio, importlib
+for mod in ("config.load", "lists", "logging_utils", "obs.trace",
+            "obs.window", "host.jwt", "host.captcha", "host.captcha_frontend",
+            "host.geoip", "host.services", "host.discovery", "host.tlsmgr",
+            "host.acme", "host.h2"):
+    importlib.import_module("pingoo_tpu_torch." + mod)
+from pingoo_tpu_torch.config import parse_config
+from pingoo_tpu_torch.lists import load_lists
+from pingoo_tpu_torch.utils.crs import deployment
+with tempfile.TemporaryDirectory() as tmp:
+    config = parse_config(deployment(rules, lists, tmp))
+    loaded = load_lists(config.lists)
+routes = [(s.name, s.route) for s in config.services]
+booted = compile_ruleset(config.rules, loaded, routes=routes, device="cpu")
+svc = VerdictService(booted, loaded, device="cpu")
+async def explain_all():
+    await svc.start()
+    try:
+        return [await svc.explain(r) for r in reqs[:8]]
+    finally:
+        await svc.stop()
+explained = asyncio.run(explain_all())
+assert all(e["parity"]["consistent"] for e in explained)
+assert any(e["action"] for e in explained), explained
+assert svc.stats.snapshot()["requests"] == 8
+assert svc.pipeline_snapshot()["depth"] == 1
 assert not any(k == "jax" or k.startswith(("jax.", "pingoo_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ISOLATED-OK", int(m.sum()), sidecar.processed)
@@ -170,6 +199,15 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_SCHED_MODE", "continuous"),
     ("PINGOO_SCHED_MODE", "deadline"),
     ("PINGOO_SCHED_FAILOPEN", "allow"),
+    ("PINGOO_HALO_SPLIT", "1"),
+    ("PINGOO_SCAN_PACK", "length"),
+    ("PINGOO_SCAN_PACK", "batch"),
+    ("PINGOO_PREFILTER_LEVELS", "4"),
+    ("PINGOO_STAGING_DEPTH", "2"),
+    ("PINGOO_MEGASTEP_K", "4"),
+    ("PINGOO_SCHED_PIPELINE", "2"),
+    ("PINGOO_SCHED_PIPELINE", "two"),
+    ("PINGOO_DEADLINE_MS", "2"),
 ])
 def test_unported_knobs_raise(monkeypatch, name, value):
     rules, lists = generate_ruleset(20, with_lists=False, seed=3)
@@ -190,6 +228,13 @@ def test_unported_knobs_raise(monkeypatch, name, value):
     ("PINGOO_SCAN_STRATEGY", "halo", "item 4, halo split"),
     ("PINGOO_SCHED_MODE", "continuous", "item 9, the scheduler"),
     ("PINGOO_SCHED_FAILOPEN", "allow", "item 9, the scheduler"),
+    ("PINGOO_HALO_SPLIT", "1", "item 4, halo split"),
+    ("PINGOO_SCAN_PACK", "fill", "kernel work item 1, lane packing"),
+    ("PINGOO_PREFILTER_LEVELS", "2", "item 2, prefilter compact mode"),
+    ("PINGOO_STAGING_DEPTH", "1", "item 3, compact staging"),
+    ("PINGOO_MEGASTEP_K", "2", "item 5, megastep and DeviceInputQueue"),
+    ("PINGOO_SCHED_PIPELINE", "3", "item 1c, the pipelined executor"),
+    ("PINGOO_DEADLINE_MS", "5", "item 9, the scheduler"),
 ])
 def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     monkeypatch.setenv(name, value)
@@ -205,6 +250,12 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     ("PINGOO_NFA_SPLIT", "0"), ("PINGOO_PIPELINE", "off"),
     ("PINGOO_SCAN_STRATEGY", "pair"), ("PINGOO_SCAN_STRATEGY", "pallas"),
     ("PINGOO_SCHED_MODE", "fixed"), ("PINGOO_SCHED_FAILOPEN", "serve"),
+    ("PINGOO_HALO_SPLIT", "0"), ("PINGOO_SCAN_PACK", "field"),
+    ("PINGOO_STAGING_DEPTH", "0"), ("PINGOO_SCHED_PIPELINE", "1"),
+    ("PINGOO_SCHED_PIPELINE", "0"),
+    # Knobs that pick among the JAX package's backends mean nothing here.
+    ("PINGOO_NFA_LOOKUP", "pair"), ("PINGOO_DFA_KERNEL", "pallas"),
+    ("PINGOO_PREFILTER_KERNEL", "pallas"),
 ])
 def test_ported_knob_values_pass(monkeypatch, name, value):
     monkeypatch.setenv(name, value)

@@ -663,4 +663,32 @@ def test_ring_verdict_bytes_equal_the_verdict_service(tmp_path):
     assert r.actions == bytes(v.action | (v.verified_block << 2)
                               for v in verdicts)
     assert sidecar.processed == 96 and sidecar.batches >= 2
-    assert all(len(v) == sidecar.batches for v in sidecar.stage_ms.values())
+    # One timing per batch, up to the window's bound.
+    assert all(len(v) == min(sidecar.batches, sidecar.WINDOW)
+               and v.count == sidecar.batches
+               for v in sidecar.stage_ms.values())
+
+
+def test_sidecar_timing_stays_bounded(tmp_path, monkeypatch):
+    """Past the window's bound the sidecar keeps WINDOW timings per stage
+    and its counts stay exact: its memory does not grow with uptime."""
+    monkeypatch.setattr(nr.RingSidecar, "WINDOW", 4)
+    rules, lists = generate_ruleset(20, with_lists=False, seed=3)
+    plan = compile_ruleset(rules, lists, device="cpu")
+    reqs = generate_traffic(96, attack_fraction=0.5, seed=12)
+    ring = nr.Ring(str(tmp_path / "ring"), capacity=128, create=True)
+    try:
+        sidecar = nr.RingSidecar(ring, plan, lists, max_batch=8,
+                                 device="cpu")
+        with serving(sidecar):
+            stream = nr.pack_requests(reqs)
+            for k in range(0, len(stream), 8):  # one batch at a time
+                nr.drive_stream(ring, stream[k:k + 8])
+    finally:
+        ring.close()
+    assert sidecar.processed == 96 and sidecar.batches >= 12
+    for name, window in sidecar.stage_ms.items():
+        assert len(window) == 4, name
+        assert window.count == sidecar.batches, name
+        assert len(window.since(window.count - 2)) == 2
+        assert len(window.since(0)) == 4

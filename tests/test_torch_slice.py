@@ -40,7 +40,7 @@ from pingoo_tpu_torch.engine.batch import (RequestBatch, RequestTuple,
                                            batch_to_contexts, encode_requests)
 from pingoo_tpu_torch.engine.service import Verdict, VerdictService
 from pingoo_tpu_torch.expr import Ip, compile_expression, execute_as_bool
-from pingoo_tpu_torch.utils.crs import generate_ruleset
+from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
 from test_parity import HOST_FALLBACK_SOURCES, LISTS, RULE_SOURCES, \
     random_requests
 
@@ -206,6 +206,41 @@ def test_service_evaluate_on_cpu(small):
         assert v.action == want_act[i]
         assert v.verified_block == want_vb[i]
     assert any(v.block for v in verdicts)
+
+
+def test_service_timing_stays_bounded(small, monkeypatch):
+    """Past the window's bound VerdictService keeps WINDOW timings of each
+    kind, while its counts and its snapshot's counts stay exact: memory
+    and the snapshot's cost do not grow with uptime."""
+    _, port, _, lists = small
+    monkeypatch.setattr(VerdictService, "WINDOW", 4)
+    reqs = generate_traffic(40, attack_fraction=0.5, seed=7, lists=lists)
+
+    async def run():
+        service = VerdictService(port, lists, max_batch=4, max_wait_us=0,
+                                 device="cpu")
+        await service.start()
+        try:
+            for k in range(0, len(reqs), 4):  # ten batches of four
+                await asyncio.gather(*map(service.evaluate, reqs[k:k + 4]))
+        finally:
+            await service.stop()
+        return service
+
+    service = asyncio.run(run())
+    stats = service.stats
+    windows = {"wait": stats.wait, "batch": stats.batch, **stats.stages}
+    for name, window in windows.items():
+        assert len(window) == 4, name
+    assert stats.wait.count == 40
+    assert all(w.count == 10 for w in [stats.batch, *stats.stages.values()])
+    snap = stats.snapshot()
+    assert (snap["batches"], snap["requests"], snap["mean_occupancy"]) \
+        == (10, 40, 4.0)
+    assert {k: v["count"] for k, v in snap["stages"].items()} \
+        == {"encode": 10, "verdict": 10, "finish": 10}
+    assert snap["verdict_p99_ms"] >= snap["verdict_p50_ms"] > 0
+    assert service.pipeline_snapshot()["batches"] == {"off": 10}
 
 
 @pytest.mark.parametrize("name,value", [("PINGOO_PIPELINE", "off"),
