@@ -31,7 +31,8 @@
    8,192 CRS-style requests through `evaluate` under every
    PINGOO_DFA=off|auto|force x PINGOO_PREFILTER=off|banks mode; every
    matched row, action and verified_block must equal the interpreter
-   oracle and the port's CPU path. The default mode (auto, banks) is the
+   oracle (computed in processes of its own while the kernels build)
+   and the port's CPU path. The default mode (auto, banks) is the
    main path: the kernels' launch counts are reset just before it and
    read just after, and each kernel must have launched.
 4. Config phase: the port booted from a deployment, as a server does.
@@ -95,8 +96,9 @@
    connections (each with its tuple's method, target, Host and user
    agent, the token and x-forwarded-for: its IP): a warm-up pass, the
    measured pass, 256 of them over h2 by prior knowledge, and the
-   measured pass under torch.profiler; then a fresh Server with
-   PINGOO_BODY_INSPECT=on, a seed-set body on every fourth request.
+   first 2,048 under torch.profiler; then a fresh Server with
+   PINGOO_BODY_INSPECT=on, a seed-set body on every fourth of the first
+   2,048.
    Every response must be the interpreter oracle's outcome on the tuple
    the listener derives (403, the challenge page, pong's 200, or the
    static site's 200/404/405), every request answered once, no engine
@@ -108,10 +110,39 @@
    {"listener": ...}: req/s, client latency p50/p99, batches and rows a
    batch, the stage split, CPU shares, the device's busy share and
    launches per pass.
-9. Prints one JSON line of per-kernel results (with each kernel's
+9. Native phase, in a process of its own: the native-plane runner
+   (host/native_plane.py). It prints what `ldconfig -p` lists of libssl,
+   libcrypto and libnghttp2 and the build seconds of the httpd, pong
+   and loadgen_http (pingoo_tpu_torch/native), then serves the listener
+   phase's deployment (one more rule: the CRS `(?i)<script` signature
+   on the URL) through NativePlane(config, device=None): the C++ httpd
+   in front of RingSidecar on the card, `api` proxied to C++ pong. The
+   listener client sends the same 8,192 requests over 256 keep-alive
+   connections bound to addresses in 127.0.0.0/8, every eighth of them
+   in the deployment's IP list; every response must be the interpreter
+   oracle's outcome on the tuple the httpd derives (peer address, asn
+   0, country XX, 302 for a captcha), the httpd's counters must move as
+   the oracle says (no fail-open, no degraded entry) and the pass must
+   launch all three kernels. bench.py's end-to-end drive follows
+   (loadgen_http 8192 1024 100, then 100000 4096 100, then 16384 4096
+   100 under torch.profiler in sessions of 0.2 s, each session's stop
+   holding the sidecar well under the httpd's 500 ms liveness window):
+   loadgen_http's shapes are first held to the
+   oracle, and each measured run must block exactly the attacks it sent
+   with no error, fail-open or degraded entry. Then a fresh plane with
+   PINGOO_BODY_INSPECT=on and a seed-set body on every fourth of 2,048
+   requests (each response the merged oracle's, no body scan failed
+   open), and `python -m pingoo_tpu_torch --native-plane` answering a
+   blocked, a captcha and a proxied request and exiting 0 within 20 s
+   of SIGTERM with no httpd left. Prints {"native": ...}: req/s, client
+   and added latency p50/p99, the httpd's and the ring's verdict-wait
+   percentiles, the sidecar's stages and busy share, rows and launches
+   per batch, the largest heartbeat age and the device's busy share.
+10. Prints one JSON line of per-kernel results (with each kernel's
    launches in the config phase, on the ring drive, on the body
-   phase's streamed passes and on the listener's measured pass),
-   then, last, {"ok": true, "device": {...}}.
+   phase's streamed passes, on the listener's measured pass and on the
+   native phase's measured loadgen run), then, last, {"ok": true,
+   "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
 Imports no JAX and nothing of the JAX package.
@@ -124,8 +155,10 @@ tree, and it times an earlier tree beside this one in one chip call.
 `python3 chip_smoke.py --ring-phase` runs the ring phase alone (and
 `--ring-producer PATH` is its producer, which drives one stream for each
 line "seed requests every" it reads from stdin), `--body-phase` the
-body phase alone, and `--listener-phase` the listener phase alone
-(`--listener-client` and `--listener-pong` are its client and upstream).
+body phase alone, `--listener-phase` the listener phase alone
+(`--listener-client` and `--listener-pong` are its client and
+upstream; the native phase uses the same client), and `--native-phase`
+the native phase alone.
 """
 
 from __future__ import annotations
@@ -1201,6 +1234,25 @@ def device_time_us(prof) -> dict:
     return kernels
 
 
+# The port's kernels as the profiler names them on the device.
+PORT_KERNEL_NAMES = ("nfa_chunk_kernel", "dfa_chunk_kernel", "pf_kernel")
+
+
+def session_device(prof) -> tuple[float, int]:
+    """A stopped torch.profiler session's device time (µs: its kernels
+    and copies, summed from the trace's events without building the
+    per-name tables `device_time_us` reads) and the launches of the
+    port's kernels it recorded."""
+    import torch
+
+    us, ours = 0.0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us += e.duration_ns() / 1e3
+            ours += any(k in e.name() for k in PORT_KERNEL_NAMES)
+    return us, ours
+
+
 def profile_main_path(plan, lists, reqs, dev) -> None:
     """One more main-path run under torch.profiler: the device's busy
     share of the wall time and the device time by kernel name (printed
@@ -1229,28 +1281,47 @@ def profile_main_path(plan, lists, reqs, dev) -> None:
           flush=True)
 
 
-def slice_phase(plan, rules, lists, reqs, dev):
-    """Serve the traffic in every mode; returns the main path's launch
-    counts, the interpreter oracle's rows and the main path's (matched,
-    actions, verified_block)."""
+# The slice phase's interpreter oracle runs in processes of its own while
+# the kernels build.
+SLICE_ORACLE_WORKERS = 6
+_slice_oracle = None  # (the CPU plan, lists) of an oracle process
+
+
+def slice_oracle_init(rules, lists) -> None:
+    global _slice_oracle
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+
+    _slice_oracle = (compile_ruleset(rules, lists, device="cpu"), lists)
+
+
+def slice_oracle(reqs):
+    """The interpreter's match rows of `reqs`, in an oracle process."""
+    import numpy as np
+
+    from pingoo_tpu_torch.engine.batch import tuple_to_context
+    from pingoo_tpu_torch.engine.verdict import interpret_rules_row
+
+    plan, lists = _slice_oracle
+    return np.stack([interpret_rules_row(plan, tuple_to_context(r, lists))
+                     for r in reqs])
+
+
+def slice_phase(plan, rules, lists, reqs, dev, oracle):
+    """Serve the traffic in every mode, each verdict held to `oracle`
+    (the interpreter's rows of `reqs`); returns the main path's launch
+    counts and its (matched, actions, verified_block)."""
     import numpy as np
 
     from pingoo_tpu_torch.compiler.plan import compile_ruleset
     from pingoo_tpu_torch.engine.batch import (RequestBatch, bucket_arrays,
-                                               encode_requests,
-                                               tuple_to_context)
+                                               encode_requests)
     from pingoo_tpu_torch.engine.service import VerdictService
     from pingoo_tpu_torch.engine.verdict import (action_lanes, finish_batch,
-                                                 interpret_rules_row,
                                                  make_verdict_fn)
     from pingoo_tpu_torch.ops import _build
 
-    t0 = time.monotonic()
-    oracle = np.stack([interpret_rules_row(plan, tuple_to_context(r, lists))
-                       for r in reqs])
     o_act, o_vb = action_lanes(plan, oracle)
-    print(f"oracle: {N_REQUESTS} requests interpreted in "
-          f"{time.monotonic() - t0:.1f} s, {int(oracle.sum())} matches, "
+    print(f"oracle: {int(oracle.sum())} matches, "
           f"{int((o_act != 0).sum())} acted", flush=True)
     cpu_plan = compile_ruleset(rules, lists, device="cpu")
     cpu_fn = make_verdict_fn(cpu_plan)
@@ -1308,7 +1379,7 @@ def slice_phase(plan, rules, lists, reqs, dev):
                if main_counts.get(k, 0) == 0]
     if missing:
         fail(f"the main path launched no {missing} kernel")
-    return main_counts, oracle, main
+    return main_counts, main
 
 
 EXPLAIN_REQUESTS = 64
@@ -2230,6 +2301,11 @@ LISTENER_CONNS = 256  # keep-alive h1 connections of the client
 LISTENER_WARM = 1024  # the first requests of the stream, as a warm-up pass
 LISTENER_H2 = 256  # the stream's first requests again, over h2
 LISTENER_H2_CONNS = 8
+# The stream's first requests again under torch.profiler, and with a body
+# on every fourth (both cut from the whole stream to keep the script's
+# time as the native phase joined it).
+LISTENER_PROFILED = 2048
+LISTENER_BODIES = 2048
 LISTENER_ORACLE_WORKERS = 6
 LISTENER_DRAIN_S = 20  # the server's graceful-stop cap (host/server.py)
 LISTENER_WWW = {"index.html": b"<h1>welcome</h1>\n",
@@ -2306,17 +2382,21 @@ def quote_target(url: str) -> str:
                    for b in url.encode())
 
 
-def listener_client_h1(port: int, jobs: list, conns: int) -> dict:
+def listener_client_h1(port: int, jobs: list, conns: int,
+                       sources=None) -> dict:
     """Send jobs[i] = (method, raw request) on keep-alive connection
     i % conns, one request at a time per connection; each response read
-    whole (Content-Length framing, none for HEAD). Returns the per-request
-    (status, content-type, body, local port, latency ms) and the wall
-    time. Every connection is closed by its client after its last
-    response, and must then read EOF: no response was left over."""
+    whole (Content-Length framing, none for HEAD). Connection k binds
+    source address sources[k] where `sources` is given. Returns the
+    per-request (status, content-type, body, local port, latency ms) and
+    the wall time. Every connection is closed by its client after its
+    last response, and must then read EOF: no response was left over."""
     results = [None] * len(jobs)
 
     async def connection(k):
-        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        local_addr = (sources[k], 0) if sources else None
+        reader, writer = await asyncio.open_connection(
+            "127.0.0.1", port, local_addr=local_addr)
         local = writer.get_extra_info("sockname")[1]
         for i in range(k, len(jobs), conns):
             method, raw = jobs[i]
@@ -2336,8 +2416,8 @@ def listener_client_h1(port: int, jobs: list, conns: int) -> dict:
                           (time.perf_counter() - t0) * 1e3)
             if hdrs.get("connection", "").lower() == "close":
                 writer.close()
-                reader, writer = await asyncio.open_connection("127.0.0.1",
-                                                               port)
+                reader, writer = await asyncio.open_connection(
+                    "127.0.0.1", port, local_addr=local_addr)
                 local = writer.get_extra_info("sockname")[1]
         writer.write_eof()
         rest = await asyncio.wait_for(reader.read(), 30)
@@ -2416,14 +2496,15 @@ def write_frame(stream, obj) -> None:
 
 
 def listener_client() -> int:
-    """The client of the listener phase, in a process of its own as a
-    load generator is: for each frame (proto, port, jobs, conns) read from
-    stdin, send the jobs and write the results as a frame to stdout. Ends
-    at the end of stdin."""
+    """The client of the listener and native phases, in a process of its
+    own as a load generator is: for each frame (proto, port, jobs, conns,
+    sources) read from stdin, send the jobs and write the results as a
+    frame to stdout. Ends at the end of stdin."""
     while (frame := read_frame(sys.stdin.buffer)) is not None:
-        proto, port, jobs, conns = frame
-        run = listener_client_h1 if proto == "h1" else listener_client_h2
-        write_frame(sys.stdout.buffer, run(port, jobs, conns))
+        proto, port, jobs, conns, sources = frame
+        out = listener_client_h1(port, jobs, conns, sources) \
+            if proto == "h1" else listener_client_h2(port, jobs, conns)
+        write_frame(sys.stdout.buffer, out)
     return 0
 
 
@@ -2436,8 +2517,9 @@ class ListenerClient:
             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE)
 
-    def send(self, proto: str, port: int, jobs: list, conns: int) -> dict:
-        write_frame(self.proc.stdin, (proto, port, jobs, conns))
+    def send(self, proto: str, port: int, jobs: list, conns: int,
+             sources=None) -> dict:
+        write_frame(self.proc.stdin, (proto, port, jobs, conns, sources))
         out = read_frame(self.proc.stdout)
         if out is None:
             self.proc.kill()
@@ -2739,12 +2821,45 @@ def listener_stop(lt, server) -> None:
              f"{st.body_fail_open} body scans failed open")
 
 
-def listener_entry_point(raw: dict, tmp: str, probes, device=None) -> dict:
-    """`python -m pingoo_tpu_torch --config <tmp>/entry.yml --no-docker`
-    on the card: wait for its port, send `probes` [(label, method,
+def httpd_children(pid: int) -> list[int]:
+    """The pids of process `pid`'s children that run the port's httpd."""
+    from pingoo_tpu_torch import native_ring
+
+    httpd = str(native_ring.httpd_path()).encode()
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                argv0 = f.read().split(b"\0", 1)[0]
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == pid and argv0 == httpd:
+            out.append(int(d))
+    return out
+
+
+def proc_alive(pid: int) -> bool:
+    """Whether `pid` runs (a zombie has exited)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def listener_entry_point(raw: dict, tmp: str, probes, device=None,
+                         native: bool = False) -> dict:
+    """`python -m pingoo_tpu_torch --config <tmp>/<name>.yml --no-docker`
+    on the card, with `--native-plane --state-dir <tmp>/<name>-state`
+    where `native`: wait for its port, send `probes` [(label, method,
     target, user agent)] one connection each, then SIGTERM; it must exit
-    0 within the drain. Returns the answers, each (status, body class,
-    the probe's local port)."""
+    0 within the drain, and with `native` have run an httpd child and
+    left none. Returns the answers, each (status, body class, the
+    probe's local port)."""
     import signal
     import socket
 
@@ -2753,14 +2868,21 @@ def listener_entry_point(raw: dict, tmp: str, probes, device=None) -> dict:
         port = s.getsockname()[1]
     raw = dict(raw, listeners={"http": {"address":
                                         f"http://127.0.0.1:{port}"}})
-    path = os.path.join(tmp, "entry.yml")
+    name = "native" if native else "entry"
+    path = os.path.join(tmp, f"{name}.yml")
     with open(path, "w") as f:
         json.dump(raw, f)  # JSON is YAML: load_and_validate reads it
-    log = open(os.path.join(tmp, "entry.log"), "w+")
+    log = open(os.path.join(tmp, f"{name}.log"), "w+")
     cmd = [sys.executable, "-m", "pingoo_tpu_torch", "--config", path,
-           "--no-docker", "--captcha-jwks", os.path.join(tmp, "entry.jwks")]
+           "--no-docker", "--captcha-jwks", os.path.join(tmp, f"{name}.jwks")]
+    if native:
+        cmd += ["--native-plane", "--state-dir",
+                os.path.join(tmp, f"{name}-state")]
     if device == "cpu":
         cmd.append("--no-device")
+    what = "python -m pingoo_tpu_torch" + (" --native-plane" if native
+                                           else "")
+    classify = native_class if native else listener_class
     t0 = time.monotonic()
     proc = subprocess.Popen(cmd, cwd=tmp, stdout=log, stderr=log,
                             env=dict(os.environ, PYTHONPATH=REPO))
@@ -2768,16 +2890,17 @@ def listener_entry_point(raw: dict, tmp: str, probes, device=None) -> dict:
         while True:
             if proc.poll() is not None:
                 log.seek(0)
-                fail(f"python -m pingoo_tpu_torch exited {proc.returncode} "
-                     f"before serving: {log.read()[-3000:]}")
+                fail(f"{what} exited {proc.returncode} before serving: "
+                     f"{log.read()[-3000:]}")
             try:
                 socket.create_connection(("127.0.0.1", port), 0.5).close()
                 break
             except OSError:
                 if time.monotonic() - t0 > 300:
-                    fail("python -m pingoo_tpu_torch did not open its port")
+                    fail(f"{what} did not open its port")
                 time.sleep(0.1)
         boot_s = time.monotonic() - t0
+        children = httpd_children(proc.pid) if native else []
         answers = []
         for _, method, target, ua in probes:
             with socket.create_connection(("127.0.0.1", port), 60) as s:
@@ -2789,30 +2912,36 @@ def listener_entry_point(raw: dict, tmp: str, probes, device=None) -> dict:
                 while chunk := s.recv(65536):
                     resp += chunk
             head, _, body = resp.partition(b"\r\n\r\n")
-            answers.append((int(head.split(b" ", 2)[1]),
-                            listener_class(body), local))
+            answers.append((int(head.split(b" ", 2)[1]), classify(body),
+                            local))
         t1 = time.monotonic()
         proc.send_signal(signal.SIGTERM)
         try:
             rc = proc.wait(timeout=LISTENER_DRAIN_S + 5)
         except subprocess.TimeoutExpired:
-            fail(f"python -m pingoo_tpu_torch did not exit within "
-                 f"{LISTENER_DRAIN_S} s of SIGTERM")
+            fail(f"{what} did not exit within {LISTENER_DRAIN_S} s of "
+                 f"SIGTERM")
         drain_s = time.monotonic() - t1
-        if rc != 0:
+        if rc != 0 or drain_s > LISTENER_DRAIN_S:
             log.seek(0)
-            fail(f"python -m pingoo_tpu_torch exited {rc} on SIGTERM: "
+            fail(f"{what} exited {rc} {drain_s:.1f} s after SIGTERM: "
                  f"{log.read()[-3000:]}")
+        if native and (not children or any(map(proc_alive, children))):
+            fail(f"{what} ran httpd children {children}; alive after its "
+                 f"exit: {[p for p in children if proc_alive(p)]}")
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
         log.close()
-    print(f"listener entry point: python -m pingoo_tpu_torch served after "
-          f"{boot_s:.1f} s, answered {[p[0] for p in probes]} with "
+    print(f"{'native' if native else 'listener'} entry point: {what} "
+          f"served after {boot_s:.1f} s"
+          + (f" through {len(children)} httpd" if native else "")
+          + f", answered {[p[0] for p in probes]} with "
           f"{[a[:2] for a in answers]}, exited 0 {drain_s:.2f} s after "
-          f"SIGTERM", flush=True)
-    return dict(boot_s=boot_s, drain_s=drain_s, answers=answers)
+          f"SIGTERM" + (", no httpd left" if native else ""), flush=True)
+    return dict(boot_s=boot_s, drain_s=drain_s, answers=answers,
+                **(dict(httpd_children=len(children)) if native else {}))
 
 
 def listener_phase(device=None, n: int = N_REQUESTS) -> int:
@@ -2826,9 +2955,9 @@ def listener_phase(device=None, n: int = N_REQUESTS) -> int:
     target, Host and user agent, and the token with x-forwarded-for: its
     IP) over LISTENER_CONNS keep-alive connections: a warm-up pass of its
     first LISTENER_WARM, the measured pass, LISTENER_H2 of them over h2
-    by prior knowledge and the measured pass again under torch.profiler;
-    then a fresh Server with PINGOO_BODY_INSPECT=on and a seed-set body
-    on every fourth request. Every response must be the oracle's (the
+    by prior knowledge and its first LISTENER_PROFILED under
+    torch.profiler; then a fresh Server with PINGOO_BODY_INSPECT=on and a
+    seed-set body on every fourth of its first LISTENER_BODIES. Every response must be the oracle's (the
     interpreter on the tuple the listener derives, the action lanes, the
     body oracle merged in, the first matching route), every request
     answered once, each pass evaluated once per request needing a
@@ -2853,7 +2982,7 @@ def listener_phase(device=None, n: int = N_REQUESTS) -> int:
         _build.build()  # run alone, the phase builds the kernels here
     rules, lists = generate_ruleset(500)
     reqs = generate_traffic(n, attack_fraction=0.3, seed=SEED, lists=lists)
-    bodies = body_ring_bodies(n)
+    bodies = body_ring_bodies(min(n, LISTENER_BODIES))
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         pong = subprocess.Popen(
@@ -2896,7 +3025,8 @@ def listener_phase(device=None, n: int = N_REQUESTS) -> int:
                 ("h1", "h1", reqs, none, LISTENER_CONNS, False),
                 ("h2", "h2", reqs[:LISTENER_H2], none[:LISTENER_H2],
                  LISTENER_H2_CONNS, False),
-                ("profiled", "h1", reqs, none, LISTENER_CONNS, True)]
+                ("profiled", "h1", reqs[:LISTENER_PROFILED],
+                 none[:LISTENER_PROFILED], LISTENER_CONNS, True)]
             for label, proto, rq, bd, conns, prof in passes:
                 results[label] = listener_pass(label, client, server, proto,
                                                rq, bd, conns, prof)
@@ -2907,8 +3037,8 @@ def listener_phase(device=None, n: int = N_REQUESTS) -> int:
             try:
                 server = listener_server(lt, raw, tmp, device)
                 results["body"] = listener_pass(
-                    "body", client, server, "h1", reqs, bodies,
-                    LISTENER_CONNS)
+                    "body", client, server, "h1", reqs[:LISTENER_BODIES],
+                    bodies, LISTENER_CONNS)
                 body_snap = server.verdict.stats.snapshot()
                 listener_stop(lt, server)
             finally:
@@ -2988,6 +3118,713 @@ def listener_child() -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])["listener"]
 
 
+NATIVE_CONNS = 256  # keep-alive h1 connections of the correctness pass
+NATIVE_LISTED_EVERY = 8  # every 8th connection's source address is listed
+NATIVE_BODIES = 2048  # requests of the body pass
+# bench.py's end-to-end drive (bench_e2e): a warm-up run, then the
+# measured one; loadgen_http <port> <requests> <connections> <attack ‰>.
+NATIVE_LOADGEN_WARM = (8192, 1024, 100)
+NATIVE_LOADGEN = (100000, 4096, 100)
+# A shorter run at the measured run's load under torch.profiler, for the
+# device's busy share. Stopping a profiler session holds the interpreter
+# lock 29-41 ms for each sidecar batch it recorded (H100, PERF.md), and
+# the sidecar shares that interpreter: a stop over 500 ms stales its
+# heartbeat, and the httpd fails requests open (PINGOO_SIDECAR_TIMEOUT_MS).
+# So the run is recorded in sessions of NATIVE_PROFILE_SLICE_S, a few
+# batches each, and the httpd's counters are read after the last stop.
+NATIVE_LOADGEN_PROFILED = (16384, 4096, 100)
+NATIVE_PROFILE_SLICE_S = 0.2
+# loadgen_http.cc's request shapes (method GET, host bench.test, user
+# agent pingoo-bench/1.0, from 127.0.0.1): the attacks must be blocked,
+# the clean paths allowed.
+NATIVE_LOADGEN_ATTACKS = ("/page?x=<script>alert(1)</script>",
+                          "/?b=eval(atob('x'))")
+NATIVE_LOADGEN_CLEAN = ("/api/v1/users?page=2", "/index.html",
+                        "/static/app.9f3c2.js", "/blog/2026/07/scaling-wafs",
+                        "/products/widget-2000?sort=price")
+# The corpus puts its `(?i)<script` signature on the path only, so it
+# allows loadgen_http's first attack shape; the native deployment adds
+# that CRS signature on the URL, so that every attack the loadgen sends
+# is one the rules block.
+NATIVE_XSS_RULE = ("xss_url_script", 'http_request.url.matches("(?i)<script")')
+# The httpd's verdict-wait histogram (enqueue to the verdict applied):
+# its keys and upper bounds in ms.
+NATIVE_HIST_KEYS = ("le1", "le2", "le5", "le10", "le50", "le100", "inf")
+NATIVE_HIST_BOUNDS = (1, 2, 5, 10, 50, 100, None)
+
+
+def native_sources(conns: int) -> list[str]:
+    """A source address in 127.0.0.0/8 for each client connection; none
+    is 127.0.0.1, loadgen_http's address."""
+    return [f"127.1.{k // 250}.{k % 250 + 2}" for k in range(conns)]
+
+
+def native_fields(t, target: str, source: str, local_port: int) -> dict:
+    """The RequestTuple the httpd derives from what the client sent for
+    `t`: the target as sent and its path, the Host header, the trimmed
+    user agent, the connection's peer address and port (the httpd trusts
+    no x-forwarded-for), and no GeoIP record (asn 0, country XX)."""
+    return dict(host=t.host, url=target, path=target.split("?", 1)[0],
+                method=t.method, user_agent=t.user_agent.strip(),
+                ip=source, remote_port=local_port, asn=0, country="XX")
+
+
+def native_expect(method: str, user_agent: str, path: str, act: int,
+                  service) -> tuple:
+    """(status, content type, body class) the httpd must answer: 403 for
+    the user-agent gate and a block, the 302 to /__pingoo/captcha for a
+    captcha, C++ pong's 200 for `api`, and the static service (GET and
+    HEAD only) for the rest. A HEAD response has no body."""
+    if not user_agent or len(user_agent) >= 256 or act == 1:
+        status, ctype, kind = 403, "text/plain", "block"
+    elif act == 2:
+        status, ctype, kind = 302, "", "empty"
+    elif service == "api":
+        status, ctype, kind = 200, "text/plain", "pong"
+    elif method not in ("GET", "HEAD"):
+        status, ctype, kind = 405, "text/plain", "method"
+    elif path in LISTENER_STATIC:
+        name = LISTENER_STATIC[path]
+        status, ctype, kind = 200, "text/plain" if name.endswith(".txt") \
+            else "text/html", f"static {name}"
+    else:
+        status, ctype, kind = 404, "text/plain", "notfound"
+    return status, ctype, "empty" if method == "HEAD" else kind
+
+
+def native_class(body: bytes) -> str:
+    known = {b"Forbidden": "block", b"Not Found": "notfound",
+             b"Method Not Allowed": "method", b"": "empty", b"pong": "pong",
+             **{v: f"static {k}" for k, v in LISTENER_WWW.items()}}
+    return known.get(body, f"other {body[:80]!r}")
+
+
+def native_jobs(reqs, bodies) -> list:
+    """HTTP/1.1 requests with each tuple's method, target, Host and user
+    agent (no token, no x-forwarded-for: the httpd uses the peer)."""
+    jobs = []
+    for t, body in zip(reqs, bodies):
+        head = (f"{t.method} {quote_target(t.url)} HTTP/1.1\r\n"
+                f"host: {t.host}\r\nuser-agent: {t.user_agent}\r\n")
+        if body:
+            head += f"content-length: {len(body)}\r\n"
+        jobs.append((t.method, (head + "\r\n").encode("latin-1")
+                     + (body or b"")))
+    return jobs
+
+
+def native_metrics(port: int) -> dict:
+    """The httpd's /__pingoo/metrics JSON."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), 30) as c:
+        c.sendall(b"GET /__pingoo/metrics HTTP/1.1\r\nhost: m\r\n"
+                  b"user-agent: chip-smoke\r\naccept: application/json\r\n"
+                  b"connection: close\r\n\r\n")
+        raw = b""
+        while chunk := c.recv(65536):
+            raw += chunk
+    return json.loads(raw.partition(b"\r\n\r\n")[2])
+
+
+def native_delta(before: dict, after: dict) -> dict:
+    """after - before of the httpd's counters (the wait histogram and
+    the body block per key)."""
+    out = {}
+    for k, v in after.items():
+        if isinstance(v, dict):
+            out[k] = native_delta(before.get(k, {}), v)
+        elif isinstance(v, (int, float)):
+            out[k] = v - before.get(k, 0)
+    return out
+
+
+def hist_percentile(counts, bounds, q: float) -> str:
+    """The bucket of a wait histogram (counts per bucket, each bucket's
+    upper bound in ms, None for the last, open one) holding quantile q,
+    as "<= N ms" or "> N ms"."""
+    total = sum(counts)
+    seen = 0
+    for c, bound in zip(counts, bounds):
+        seen += c
+        if total and seen >= q * total:
+            return f"<= {bound} ms" if bound else f"> {bounds[-2]} ms"
+    return "no samples"
+
+
+class HeartbeatSampler:
+    """The largest age of a ring's sidecar heartbeat, sampled every 5 ms
+    by a thread while the `with` block runs."""
+
+    def __init__(self, ring):
+        self.ring = ring
+        self.max_age_ms = 0
+
+    def __enter__(self):
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            lv = self.ring.liveness()
+            self.max_age_ms = max(self.max_age_ms,
+                                  lv["now_ms"] - lv["heartbeat_ms"])
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+def native_plane_start(lt, raw: dict, tmp: str, label: str, device=None):
+    """NativePlane(config) on the card, started on the loop thread, as
+    `python -m pingoo_tpu_torch --native-plane` starts it."""
+    from pingoo_tpu_torch.config import parse_config
+    from pingoo_tpu_torch.host.native_plane import NativePlane
+
+    plane = NativePlane(parse_config(raw), os.path.join(tmp, label),
+                        device=device, enable_docker=False,
+                        geoip_paths=(os.path.join(tmp, "missing.mmdb"),),
+                        captcha_jwks_path=os.path.join(tmp, "jwks.json"),
+                        tls_dir=os.path.join(tmp, "tls"))
+
+    async def start():
+        await plane.start()
+        return asyncio.ensure_future(plane.serve_forever())
+
+    t0 = time.monotonic()
+    plane.task = lt.run(start())
+    plane.boot_s = time.monotonic() - t0
+    return plane
+
+
+def native_plane_stop(lt, plane) -> None:
+    async def stop():
+        plane.task.cancel()
+        await plane.stop()
+
+    lt.run(stop())
+    if plane.sidecar_error is not None:
+        fail(f"the ring sidecar died: {plane.sidecar_error!r}")
+
+
+def native_pass(label, client, plane, port, reqs, bodies, sources) -> dict:
+    """The client's requests through the httpd, with the kernels' launch
+    counts set to 0 just before and read just after, and the httpd's
+    counters read before and after."""
+    import numpy as np
+
+    from pingoo_tpu_torch.ops import _build
+
+    sidecar = plane.sidecar
+    m0 = native_metrics(port)
+    p0, b0 = sidecar.processed, sidecar.batches
+    with HeartbeatSampler(sidecar.rings[0]) as hb:
+        _build.reset_launch_counts()
+        out = client.send("h1", port, native_jobs(reqs, bodies),
+                          NATIVE_CONNS, sources)
+        launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    delta = native_delta(m0, native_metrics(port))
+    results = out["results"]
+    if any(r is None for r in results) or out["leftover"]:
+        fail(f"native {label}: {sum(r is None for r in results)} of "
+             f"{len(results)} requests unanswered, {out['leftover']} bytes "
+             f"after the last responses")
+    lat = np.array([r[4] for r in results])
+    batches = sidecar.batches - b0
+    res = dict(
+        requests=len(reqs), conns=NATIVE_CONNS,
+        bodies=sum(b is not None for b in bodies),
+        req_per_s=len(reqs) / out["wall_s"], wall_s=out["wall_s"],
+        latency_p50_ms=float(np.percentile(lat, 50)),
+        latency_p99_ms=float(np.percentile(lat, 99)),
+        batches=batches, rows_per_batch=(sidecar.processed - p0) / batches
+        if batches else 0.0, launches=launches,
+        max_heartbeat_age_ms=hb.max_age_ms,
+        httpd={k: delta[k] for k in ("requests", "verdicts", "blocked",
+                                     "captcha", "ua_rejected", "fail_open",
+                                     "degraded_entered")},
+        body=delta["body"])
+    res["check"] = [(native_fields(t, quote_target(t.url),
+                                   sources[i % NATIVE_CONNS], r[3]),
+                     body, r[:3])
+                    for i, (t, body, r) in enumerate(zip(reqs, bodies,
+                                                         results))]
+    print(f"native {label}: {len(reqs)} requests over {NATIVE_CONNS} "
+          f"connections, {res['req_per_s']:.0f} req/s, latency p50 "
+          f"{res['latency_p50_ms']:.2f} ms p99 {res['latency_p99_ms']:.2f} "
+          f"ms, {batches} batches of {res['rows_per_batch']:.1f} rows, "
+          f"heartbeat age at most {hb.max_age_ms} ms, httpd {res['httpd']}, "
+          f"body {res['body']}, launches {launches}", flush=True)
+    return res
+
+
+def native_check(label, res, oracle) -> dict:
+    """Hold every response of a pass to the oracle, and the httpd's
+    counters to what the oracle says it answered; returns the counts of
+    each outcome."""
+    bad, kinds = [], {}
+    gated = blocks = captchas = 0
+    for (fields, body, (status, ctype, got)), (act, _, service) in zip(
+            res.pop("check"), oracle):
+        ua = fields["user_agent"]
+        passes_gate = bool(ua) and len(ua) < 256
+        gated += passes_gate
+        blocks += passes_gate and act == 1
+        captchas += passes_gate and act == 2
+        want = native_expect(fields["method"], ua, fields["path"], act,
+                             service)
+        have = (status, ctype.split(";")[0].strip(), native_class(got))
+        kinds[want[2]] = kinds.get(want[2], 0) + 1
+        if have != want:
+            bad.append((fields["method"], fields["url"], fields["ip"], want,
+                        have))
+    if bad:
+        fail(f"native {label}: {len(bad)} of {res['requests']} responses "
+             f"differ from the oracle, e.g. {bad[:5]}")
+    h = res["httpd"]
+    want = dict(requests=res["requests"], verdicts=gated, blocked=blocks,
+                captcha=captchas, ua_rejected=res["requests"] - gated,
+                fail_open=0, degraded_entered=0)
+    if h != want:
+        fail(f"native {label}: the httpd's counters moved by {h}, the "
+             f"oracle says {want}")
+    if res["body"]["fail_open"]:
+        fail(f"native {label}: {res['body']['fail_open']} body scans "
+             f"failed open")
+    print(f"native {label}: every response as the oracle says: {kinds}; "
+          f"the httpd's counters moved as the oracle says: {want}",
+          flush=True)
+    return kinds
+
+
+def run_profiled(cmd, slice_s: float):
+    """Run `cmd` to its end under torch.profiler (device activity), in
+    one session per `slice_s` of wall time. Returns the completed
+    process, the seconds from its start to the card's last kernel, the
+    sessions, each one's stop seconds and the port's kernels' launches
+    counted in each (the wrappers' counts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pingoo_tpu_torch.ops import _build
+
+    def launched() -> int:
+        return sum(k.launches for k in _build.KERNELS.values())
+
+    def session():
+        p = profile(activities=[ProfilerActivity.CUDA])
+        p.start()
+        counted.append(-launched())
+        return p
+
+    def stop():
+        counted[-1] += launched()
+        t1 = time.monotonic()
+        sessions[-1].stop()
+        stops.append(time.monotonic() - t1)
+
+    counted, stops = [], []
+    sessions = [session()]  # the first start sets CUPTI up: off the clock
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    while True:
+        try:
+            out, err = proc.communicate(timeout=slice_s)
+            break
+        except subprocess.TimeoutExpired:
+            if time.monotonic() - t0 > 300:
+                proc.kill()
+                fail(f"{cmd[0]} ran past 300 s")
+            stop()
+            sessions.append(session())
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    stop()
+    return (subprocess.CompletedProcess(cmd, proc.returncode, out, err),
+            wall_s, sessions, stops, counted)
+
+
+def native_loadgen(label, plane, port: int, args, profiled=False) -> dict:
+    """One run of loadgen_http against the httpd (bench.py's bench_e2e),
+    with the kernels' launch counts set to 0 just before and read just
+    after, the httpd's counters, the sidecar's stages and the heartbeat
+    around it."""
+    import numpy as np
+
+    from pingoo_tpu_torch import native_ring
+    from pingoo_tpu_torch.ops import _build
+
+    sidecar = plane.sidecar
+    m0 = native_metrics(port)
+    w0 = sidecar.ring_telemetry()["wait_hist"]
+    p0, b0 = sidecar.processed, sidecar.batches
+    s0 = {k: w.count for k, w in sidecar.stage_ms.items()}
+    cmd = [str(native_ring.binary_path("loadgen_http")), str(port),
+           *map(str, args)]
+    with HeartbeatSampler(sidecar.rings[0]) as hb:
+        _build.reset_launch_counts()
+        if profiled:
+            proc, wall_s, sessions, stops, counted = run_profiled(
+                cmd, NATIVE_PROFILE_SLICE_S)
+        else:
+            t0 = time.monotonic()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+            wall_s = time.monotonic() - t0
+        # After the profiler's last stop: its cost to the heartbeat shows.
+        m1 = native_metrics(port)
+        launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    if proc.returncode != 0:
+        fail(f"native {label}: loadgen_http exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    delta = native_delta(m0, m1)
+    ring_waits = [b - a for a, b in zip(
+        w0, sidecar.ring_telemetry()["wait_hist"])]
+    stages = {k: w.since(s0[k]) for k, w in sidecar.stage_ms.items()
+              if w.count > s0[k]}
+    batches = sidecar.batches - b0
+    res = dict(
+        args=list(args), req_per_s=out["req_per_s"],
+        added_p50_ms=out["p50_ms"], added_p90_ms=out["p90_ms"],
+        added_p99_ms=out["p99_ms"], completed=out["completed"],
+        blocked=out["blocked"], errors=out["errors"],
+        elapsed_s=out["elapsed_s"],
+        httpd={k: delta[k] for k in ("requests", "verdicts", "blocked",
+                                     "fail_open", "degraded_entered")},
+        verdict_wait_hist=delta["verdict_wait_ms_hist"],
+        # Enqueue to the verdict applied (the httpd), and to the verdict
+        # posted (the sidecar, the ring's telemetry).
+        verdict_wait_p50=hist_percentile(
+            [delta["verdict_wait_ms_hist"][k] for k in NATIVE_HIST_KEYS],
+            NATIVE_HIST_BOUNDS, .5),
+        verdict_wait_p99=hist_percentile(
+            [delta["verdict_wait_ms_hist"][k] for k in NATIVE_HIST_KEYS],
+            NATIVE_HIST_BOUNDS, .99),
+        ring_wait_p50=hist_percentile(
+            ring_waits, native_ring.WAIT_BUCKET_BOUNDS_MS + (None,), .5),
+        ring_wait_p99=hist_percentile(
+            ring_waits, native_ring.WAIT_BUCKET_BOUNDS_MS + (None,), .99),
+        ring_wait_hist=ring_waits,
+        batches=batches,
+        rows_per_batch=(sidecar.processed - p0) / batches if batches else 0,
+        stage_ms={k: dict(p50=float(np.percentile(v, 50)),
+                          mean=float(np.mean(v)), max=float(np.max(v)))
+                  for k, v in stages.items()},
+        # The sidecar's stages' share of the pass's wall time.
+        sidecar_busy_pct=100 * sum(map(sum, stages.values())) / 1e3
+        / wall_s, wall_s=wall_s,
+        max_heartbeat_age_ms=hb.max_age_ms, launches=launches,
+        launches_per_batch={k: v / batches if batches else 0.0
+                            for k, v in launches.items()})
+    if profiled:
+        per = [session_device(p) for p in sessions]
+        busy_ms = sum(us for us, _ in per) / 1e3
+        res["device_busy_ms"] = busy_ms if busy_ms > 0 else "not measured"
+        res["device_busy_pct"] = 100 * busy_ms / (wall_s * 1e3) \
+            if busy_ms > 0 else "not measured"
+        # Launches of the port's kernels the sessions recorded, of those
+        # the wrappers counted: how much of the run the trace saw.
+        res["profiler"] = dict(
+            sessions=len(sessions), stop_s=sum(stops),
+            longest_stop_s=max(stops),
+            launches_recorded=sum(n for _, n in per),
+            launches_counted=sum(counted),
+            per_session=[(us / 1e3, n, c)
+                         for (us, n), c in zip(per, counted)])
+    print(f"native {label}: loadgen_http {' '.join(map(str, args))}: "
+          f"{res['req_per_s']:.0f} req/s, added p50 {res['added_p50_ms']:.2f}"
+          f" ms p99 {res['added_p99_ms']:.2f} ms, blocked {res['blocked']}, "
+          f"errors {res['errors']}, httpd {res['httpd']}, verdict wait "
+          f"(httpd) p50 {res['verdict_wait_p50']} p99 "
+          f"{res['verdict_wait_p99']}, (ring) p50 {res['ring_wait_p50']} p99 "
+          f"{res['ring_wait_p99']}, {batches} batches of "
+          f"{res['rows_per_batch']:.1f} rows, stage ms {res['stage_ms']}, "
+          f"sidecar busy {res['sidecar_busy_pct']:.1f}% of the wall, "
+          f"heartbeat age at most {hb.max_age_ms} ms, launches per batch "
+          f"{res['launches_per_batch']}"
+          + (f", device busy {res['device_busy_ms']} ms = "
+             f"{res['device_busy_pct']}% of the wall; the profiler's "
+             f"{len(sessions)} sessions stopped in {sum(stops):.3f} s, the "
+             f"longest stop {max(stops):.3f} s, and recorded "
+             f"{res['profiler']['launches_recorded']} of the "
+             f"{res['profiler']['launches_counted']} launches of the port's "
+             f"kernels" if profiled else ""),
+          flush=True)
+    return res
+
+
+def native_loadgen_check(label, res) -> None:
+    n, _, permille = res["args"]
+    want = sum(1 for seq in range(n) if seq % 1000 < permille)
+    h = res["httpd"]
+    if (res["completed"], res["errors"], res["blocked"]) != (n, 0, want) \
+            or h != dict(requests=n, verdicts=n, blocked=want, fail_open=0,
+                         degraded_entered=0):
+        fail(f"native {label}: loadgen_http completed {res['completed']} "
+             f"of {n} with {res['errors']} errors and {res['blocked']} "
+             f"blocked (want {want}); the httpd's counters moved by {h}")
+
+
+def native_phase(device=None, n: int = N_REQUESTS) -> int:
+    """The native plane, in a process of its own: the C++ httpd (built
+    from pingoo_tpu_torch/native) in front of the port's RingSidecar on
+    the card, through NativePlane as `python -m pingoo_tpu_torch
+    --native-plane` runs it. First a line with what `ldconfig -p` lists
+    of libssl, libcrypto and libnghttp2 and the builds' seconds.
+    The listener phase's deployment (its captcha rule, the static
+    service, `api` proxied to C++ pong), with the source addresses of
+    every NATIVE_LISTED_EVERY-th client connection added to its IP list:
+    (1) the listener client sends the slice phase's stream over
+    NATIVE_CONNS keep-alive connections bound to addresses in
+    127.0.0.0/8; every response must be the interpreter oracle's outcome
+    on the tuple the httpd derives (peer address, asn 0, country XX, the
+    302 captcha redirect), and the httpd's counters must move as the
+    oracle says (verdicts for every request past the user-agent gate,
+    blocks, captchas, no fail-open, no degraded entry), with all three
+    kernels launched; (2) bench.py's end-to-end drive: loadgen_http's
+    warm-up run, the measured run and a shorter one at its load under
+    torch.profiler in sessions of NATIVE_PROFILE_SLICE_S (the httpd's
+    counters read after the last stop), each blocking exactly the attacks
+    it sent, without error, fail-open or degraded entry; (3) a fresh
+    plane with PINGOO_BODY_INSPECT=on, a seed-set body on every fourth
+    of NATIVE_BODIES requests, each response the
+    merged oracle's, no body scan failed open; (4) `python -m
+    pingoo_tpu_torch --native-plane` answers a blocked, a captcha and a
+    proxied request and exits 0 within 20 s of SIGTERM with no httpd
+    left. Prints one JSON line {"native": ...}, but no result line."""
+    import multiprocessing
+    import resource
+    import socket
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from pingoo_tpu_torch import native_ring
+    from pingoo_tpu_torch.engine.batch import RequestTuple
+    from pingoo_tpu_torch.expr import Ip
+    from pingoo_tpu_torch.ops import _build
+    from pingoo_tpu_torch.utils.crs import (deployment, generate_ruleset,
+                                            generate_traffic)
+
+    t_phase = time.monotonic()
+    steps = {}  # seconds of each step of the phase, in order
+    t_step = [t_phase]
+
+    def step(name: str) -> None:
+        now = time.monotonic()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    listing = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                             text=True).stdout
+    sonames = sorted({line.strip().split(" ", 1)[0]
+                      for line in listing.splitlines()
+                      if re.search(r"libssl|libcrypto|libnghttp2", line)})
+    try:
+        took = native_ring.ensure_built()
+    except RuntimeError as exc:
+        fail(f"native: ldconfig -p lists {sonames}; {exc}")
+    print(f"native: ldconfig -p lists {sonames}; builds "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()),
+          flush=True)
+    step("builds")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        _build.build()  # run alone, the phase builds the kernels here
+    # loadgen_http holds 4,096 connections, and the httpd as many again
+    # with their upstream hops.
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if hard == resource.RLIM_INFINITY or hard > soft:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    nofile = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+
+    rules, lists = generate_ruleset(500)
+    reqs = generate_traffic(n, attack_fraction=0.3, seed=SEED, lists=lists)
+    sources = native_sources(NATIVE_CONNS)
+    listed = sources[::NATIVE_LISTED_EVERY]
+    lists = dict(lists, blocked_ips=list(lists["blocked_ips"])
+                 + [Ip(a) for a in listed])
+    bodies = body_ring_bodies(NATIVE_BODIES)
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pong = subprocess.Popen([str(native_ring.binary_path("pong")), "0"],
+                                stdout=subprocess.PIPE, text=True)
+        pong_port = json.loads(pong.stdout.readline())["listening"]
+        www = os.path.join(tmp, "www")
+        os.makedirs(www)
+        for name, content in LISTENER_WWW.items():
+            with open(os.path.join(www, name), "wb") as f:
+                f.write(content)
+        raw = deployment(rules, lists, tmp, services={
+            "api": {"route": LISTENER_API_ROUTE,
+                    "http_proxy": [f"http://127.0.0.1:{pong_port}"]},
+            "www": {"static": {"root": www}}})
+        for (name, expression), action in ((LISTENER_CAPTCHA_RULE,
+                                            "captcha"),
+                                           (NATIVE_XSS_RULE, "block")):
+            raw["rules"][name] = {"expression": expression,
+                                  "actions": [{"action": action}]}
+        pool = ProcessPoolExecutor(
+            LISTENER_ORACLE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=listener_oracle_init, initargs=(raw,))
+        ready = [pool.submit(listener_oracle, [])
+                 for _ in range(LISTENER_ORACLE_WORKERS)]
+        # The loadgen's shapes first: its attacks must be blocked and its
+        # clean paths allowed, or the blocked count proves nothing.
+        shapes = NATIVE_LOADGEN_ATTACKS + NATIVE_LOADGEN_CLEAN
+        shape_oracle = pool.submit(listener_oracle, [(dict(
+            host="bench.test", url=u, path=u.split("?", 1)[0],
+            method="GET", user_agent="pingoo-bench/1.0", ip="127.0.0.1",
+            remote_port=40000, asn=0, country="XX"), None)
+            for u in shapes])
+        step("set-up")
+        lt = LoopThread()
+        client = ListenerClient()
+        try:
+            port = free_port()
+            raw["listeners"] = {"http": {"address":
+                                         f"http://127.0.0.1:{port}"}}
+            # The oracle's processes start while the plane boots.
+            plane = native_plane_start(lt, raw, tmp, "state", device)
+            step("boot")
+            acts = [a for a, _, _ in shape_oracle.result()]
+            if acts != [1] * len(NATIVE_LOADGEN_ATTACKS) \
+                    + [0] * len(NATIVE_LOADGEN_CLEAN):
+                fail(f"native: the oracle answers loadgen_http's shapes "
+                     f"{list(zip(shapes, acts))}: its attacks must block "
+                     f"and its clean paths pass")
+            step("oracle start")
+            print(f"native: NativePlane on {plane.server.device} with "
+                  f"{len(plane.server.plan.rules)} columns, the httpd on "
+                  f"port {port} after {plane.boot_s:.1f} s (warm-up "
+                  f"{sum(ms for *_, ms in plane.warm_up):.0f} ms over "
+                  f"{len(plane.warm_up)} batches), pong on {pong_port}, "
+                  f"{len(listed)} of {NATIVE_CONNS} client addresses "
+                  f"listed, RLIMIT_NOFILE {nofile}", flush=True)
+            none = [None] * n
+            results["correctness"] = native_pass(
+                "correctness", client, plane, port, reqs, none, sources)
+            step("correctness")
+            loadgen = {}
+            for label, args, prof in (("warm", NATIVE_LOADGEN_WARM, False),
+                                      ("throughput", NATIVE_LOADGEN, False),
+                                      ("profiled", NATIVE_LOADGEN_PROFILED,
+                                       True)):
+                loadgen[label] = native_loadgen(label, plane, port, args,
+                                                prof)
+                step(f"loadgen {label}")
+            sidecar_stats = {k: v for k, v in plane.sidecar.stats().items()
+                             if k != "ring_telemetry"}
+            boot_s, warm_up = plane.boot_s, plane.warm_up
+            native_plane_stop(lt, plane)
+            step("stop")
+            os.environ["PINGOO_BODY_INSPECT"] = "on"
+            try:
+                port = free_port()
+                raw_body = dict(raw, listeners={"http": {
+                    "address": f"http://127.0.0.1:{port}"}})
+                plane = native_plane_start(lt, raw_body, tmp, "state-body",
+                                           device)
+                results["body"] = native_pass(
+                    "body", client, plane, port, reqs[:NATIVE_BODIES],
+                    bodies, sources)
+                body_verdicts = plane.sidecar.body_verdicts
+                native_plane_stop(lt, plane)
+            finally:
+                os.environ.pop("PINGOO_BODY_INSPECT")
+            step("body boot, pass and stop")
+            entry = listener_entry_point(raw, tmp, LISTENER_PROBES, device,
+                                         native=True)
+            step("entry point")
+        except BaseException:
+            pool.shutdown(cancel_futures=True)
+            raise
+        finally:
+            client.close()
+            lt.close()
+            pong.kill()
+            pong.wait(timeout=30)
+        t0 = time.monotonic()
+        for f in ready:
+            f.result()
+        jobs = [(native_fields(RequestTuple(
+            host="www.example.com", url=target, method=m, user_agent=ua,
+            ip="127.0.0.1"), target, "127.0.0.1", local), None)
+            for (_, m, target, ua), (*_, local) in zip(LISTENER_PROBES,
+                                                      entry["answers"])]
+        for res in results.values():
+            jobs += [(fields, body) for fields, body, _ in res["check"]]
+        chunk = 256
+        futures = [pool.submit(listener_oracle, jobs[i:i + chunk])
+                   for i in range(0, len(jobs), chunk)]
+        oracle = [o for f in futures for o in f.result()]
+    pool.shutdown()
+    step("oracle")
+    print("native phase steps (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in steps.items()), flush=True)
+    print(f"native oracle: {len(oracle)} requests interpreted in "
+          f"{time.monotonic() - t0:.1f} s in {LISTENER_ORACLE_WORKERS} "
+          f"processes", flush=True)
+    for (label, m, target, ua), (status, got, _), (act, _, service), \
+            kind in zip(LISTENER_PROBES, entry["answers"], oracle,
+                        ("block", "empty", "pong")):
+        want = native_expect(m, ua, target.split("?", 1)[0], act, service)
+        if (status, got) != (want[0], want[2]) or want[2] != kind:
+            fail(f"python -m pingoo_tpu_torch --native-plane answered "
+                 f"{label} with {(status, got)}, the oracle says {want}")
+    at = len(LISTENER_PROBES)
+    kinds = {}
+    for label, res in results.items():
+        kinds[label] = native_check(label, res,
+                                    oracle[at:at + res["requests"]])
+        at += res["requests"]
+    for label in ("correctness", "body"):
+        missing = [k for k, c in results[label]["launches"].items()
+                   if c == 0]
+        if missing:
+            fail(f"the native {label} pass launched no {missing} kernel")
+    for label in ("throughput", "profiled"):
+        native_loadgen_check(label, loadgen[label])
+    if not body_verdicts:
+        fail("the body pass's sidecar posted no body verdict")
+    print(json.dumps({"native": dict(
+        requests=n, conns=NATIVE_CONNS, listed=len(listed),
+        boot_s=boot_s, warm_up=warm_up, builds=took, sonames=sonames,
+        nofile=nofile, passes=results, loadgen=loadgen, outcomes=kinds,
+        entry_point=entry, sidecar=sidecar_stats,
+        body_verdicts=body_verdicts, steps_s=steps,
+        seconds=time.monotonic() - t_phase)}), flush=True)
+    return 0
+
+
+def native_child() -> dict:
+    """`native_phase` in a process of its own; returns its JSON."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--native-phase"],
+        capture_output=True, text=True, timeout=900)
+    print(proc.stdout.rstrip(), flush=True)
+    if proc.returncode != 0:
+        fail(f"the native phase exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    print(f"native phase: {time.monotonic() - t0:.1f} s", flush=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])["native"]
+
+
 def main() -> int:
     # The listener phase's helper processes, which need no card.
     if sys.argv[1:] == ["--listener-pong"]:
@@ -3011,8 +3848,13 @@ def main() -> int:
         return body_phase()
     if sys.argv[1:] == ["--listener-phase"]:
         return listener_phase()
+    if sys.argv[1:] == ["--native-phase"]:
+        return native_phase()
     if len(sys.argv) == 3 and sys.argv[1] == "--ring-producer":
         return ring_producer(sys.argv[2])
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import numpy as np
 
     from pingoo_tpu_torch.compiler.plan import compile_ruleset
@@ -3021,11 +3863,26 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    rules, lists = generate_ruleset(500)
+    reqs = generate_traffic(N_REQUESTS, attack_fraction=0.3, seed=SEED,
+                            lists=lists)
+    oracle_pool = ProcessPoolExecutor(
+        SLICE_ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=slice_oracle_init, initargs=(rules, lists))
+    chunk = -(-N_REQUESTS // SLICE_ORACLE_WORKERS)
+    oracle_parts = [oracle_pool.submit(slice_oracle, reqs[i:i + chunk])
+                    for i in range(0, N_REQUESTS, chunk)]
     t0 = time.monotonic()
     took = _build.build(verbose=True)
     print(f"build: {time.monotonic() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})",
           flush=True)
+    t0 = time.monotonic()
+    oracle = np.concatenate([f.result() for f in oracle_parts])
+    oracle_pool.shutdown()
+    print(f"oracle: {N_REQUESTS} requests interpreted in "
+          f"{SLICE_ORACLE_WORKERS} processes during the build, then "
+          f"{time.monotonic() - t0:.1f} s more", flush=True)
     for name, report in _build.ptxas_reports.items():
         parts = []
         for fn, body in re.findall(r"Compiling entry function '(\S+)'"
@@ -3051,18 +3908,16 @@ def main() -> int:
               f"{' '.join(parts)}", flush=True)
 
     dev = torch.device("cuda")
-    rules, lists = generate_ruleset(500)
     plan = compile_ruleset(rules, lists, device=dev)
     print(f"plan: {plan.stats}", flush=True)
     rng = np.random.default_rng(SEED)
     results = kernel_phase(plan, dev, rng)
-    reqs = generate_traffic(N_REQUESTS, attack_fraction=0.3, seed=SEED,
-                            lists=lists)
     results["prefilter"]["stage_a"] = stage_a_child()
     ring = ring_child()
     body = body_child()
     listener = listener_child()
-    counts, oracle, main_path = slice_phase(plan, rules, lists, reqs, dev)
+    native = native_child()
+    counts, main_path = slice_phase(plan, rules, lists, reqs, dev, oracle)
     config_counts = config_phase(rules, lists, reqs, oracle, main_path, dev)
     calls, launched = capture_main_path(plan, lists, reqs, dev)
     batches = -(-N_REQUESTS // B)
@@ -3091,6 +3946,8 @@ def main() -> int:
             "body_launches": sum(c["launches"][name]
                                  for c in body["configs"].values()),
             "listener_launches": listener["passes"]["h1"]["launches"][name],
+            "native_launches": native["loadgen"]["throughput"]["launches"][
+                name],
             **{k: v for k, v in r.items() if k not in (
                 "route", "source", "replaces", "max_abs_err", "ms",
                 "plain_ms", "work")}})

@@ -8,6 +8,9 @@ to the same locations.
 
 The rules run on the CUDA card, and the server refuses to start without
 one; `--no-device` runs the kernels' plain versions on the CPU instead.
+`--native-plane` puts the C++ httpd (built from `native/` at first use)
+on the listeners' addresses, each verdict from the ring sidecar, and
+moves the Python plane to loopback (`host/native_plane.py`).
 """
 
 from __future__ import annotations
@@ -54,10 +57,6 @@ def main(argv: list[str] | None = None) -> int:
                         help="PEM trust bundle for TLS upstream hops "
                              "(native plane; system roots by default)")
     args = parser.parse_args(argv)
-    if args.native_plane:
-        raise NotImplementedError(
-            "--native-plane is not supported by pingoo_tpu_torch yet "
-            "(ROADMAP.md: port queue item 1d, the native-plane runner)")
 
     init_logging()
     try:
@@ -79,16 +78,25 @@ def main(argv: list[str] | None = None) -> int:
                       for l in config.listeners],
         "rules": len(config.rules),
         "device": not args.no_device,
-        "native_plane": False,
+        "native_plane": args.native_plane,
     }})
+    device = "cpu" if args.no_device else None
+    server_kwargs = dict(enable_docker=not args.no_docker,
+                         captcha_jwks_path=args.captcha_jwks,
+                         cache_dir=args.cache_dir,
+                         bot_score_params_path=args.bot_score_params)
     try:
-        from .host.server import run
+        if args.native_plane:
+            from .host.native_plane import run_native
 
-        asyncio.run(run(config, device="cpu" if args.no_device else None,
-                        enable_docker=not args.no_docker,
-                        captcha_jwks_path=args.captcha_jwks,
-                        cache_dir=args.cache_dir,
-                        bot_score_params_path=args.bot_score_params))
+            asyncio.run(run_native(
+                config, state_dir=args.state_dir,
+                workers=args.native_workers, upstream_ca=args.upstream_ca,
+                device=device, **server_kwargs))
+        else:
+            from .host.server import run
+
+            asyncio.run(run(config, device=device, **server_kwargs))
     except KeyboardInterrupt:
         pass
     finally:

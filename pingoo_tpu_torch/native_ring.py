@@ -244,6 +244,127 @@ def build_ring_lib() -> float:
     return time.monotonic() - t0
 
 
+# -- the data plane's binaries ------------------------------------------------
+# The httpd (the C++ front door), and the upstream and HTTP load generator
+# of the end-to-end drive: copies of the JAX package's sources in
+# `native/`, each built at first use in the idiom of the ring library.
+# name -> (compiled sources, included headers, links OpenSSL and nghttp2).
+
+BINARIES = {
+    "httpd": (("httpd.cc", "pingoo_ring.cc"),
+              ("pingoo_ring.h", "ossl_shim.h", "nghttp2_shim.h",
+               "up_h2_link.h"), True),
+    "pong": (("pong.cc",), (), False),
+    "loadgen_http": (("loadgen_http.cc",), (), False),
+}
+# The binaries' own sources (the ring's are RING_SOURCES).
+DATA_PLANE_SOURCES = tuple(dict.fromkeys(
+    f for sources, headers, _ in BINARIES.values()
+    for f in sources + headers if f not in RING_SOURCES))
+BIN_FLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-pthread")
+NGHTTP2_SONAME = "libnghttp2.so.14"
+
+
+def _ldconfig_listing() -> str:
+    """`ldconfig -p`: the shared libraries the dynamic linker finds."""
+    for exe in (shutil.which("ldconfig"), "/sbin/ldconfig",
+                "/usr/sbin/ldconfig"):
+        if exe and os.path.exists(exe):
+            return subprocess.run([exe, "-p"], capture_output=True,
+                                  text=True).stdout
+    return ""
+
+
+def tls_sonames() -> tuple[str, ...]:
+    """The versioned sonames the httpd links: OpenSSL 3 where the linker
+    lists it, else OpenSSL 1.1 (`ossl_shim.h` uses only symbols both
+    export), and nghttp2. The machine needs the runtime libraries only:
+    the shims declare the ABI, so no headers or dev packages. Raises
+    RuntimeError naming what `ldconfig -p` does not list."""
+    listed = set()
+    for line in _ldconfig_listing().splitlines():
+        name = line.strip().split(" ", 1)[0]
+        if name:
+            listed.add(name)
+    ver = "3" if "libssl.so.3" in listed else "1.1"
+    need = (f"libssl.so.{ver}", f"libcrypto.so.{ver}", NGHTTP2_SONAME)
+    missing = [n for n in need if n not in listed]
+    if missing:
+        raise RuntimeError(
+            f"the httpd links {', '.join(need)}, and `ldconfig -p` lists "
+            f"no {', '.join(missing)}: install the runtime libraries of "
+            f"OpenSSL 3 (or 1.1) and nghttp2")
+    return need
+
+
+def _link_flags(name: str) -> tuple[str, ...]:
+    return tuple(f"-l:{so}" for so in tls_sonames()) \
+        if BINARIES[name][2] else ()
+
+
+def binary_path(name: str) -> Path:
+    """Where binary `name` of BINARIES is built: named by a hash of its
+    sources and headers, the flags and link line, the compiler's
+    identity and the machine, as `ring_lib_path` is. RuntimeError when
+    there is no compiler or a soname is missing."""
+    sources, headers, _ = BINARIES[name]
+    digest = hashlib.sha256()
+    for src in sources + headers:
+        digest.update(src.encode() + b"\0" + (NATIVE_DIR / src).read_bytes())
+    digest.update(" ".join(BIN_FLAGS + _link_flags(name)).encode())
+    digest.update(_compiler_identity(_compiler()).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}"
+
+
+def build_binary(name: str) -> float:
+    """Build binary `name` unless it is built; returns the seconds the
+    build took (0.0 when it was built already). RuntimeError, with the
+    compiler's stderr, when there is no compiler, a soname is missing or
+    the build fails. Written under a temporary name and renamed."""
+    cxx = _compiler()
+    out = binary_path(name)
+    if out.exists():
+        return 0.0
+    sources = BINARIES[name][0]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}"
+                        ".tmp")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [cxx, *BIN_FLAGS, "-o", str(tmp),
+         *(str(NATIVE_DIR / s) for s in sources), *_link_flags(name)],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{name} build failed ({cxx} exited "
+                           f"{proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return time.monotonic() - t0
+
+
+def httpd_path() -> Path:
+    return binary_path("httpd")
+
+
+def build_httpd() -> float:
+    return build_binary("httpd")
+
+
+def ensure_built() -> dict[str, float]:
+    """Build the ring library and every binary of BINARIES, one compiler
+    process each, all started together; returns each one's build seconds
+    (0.0 where it was built already). Raises the first failure: the JAX
+    package's `ensure_built` returns False instead."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    builds = {"libpingoo_ring": build_ring_lib,
+              **{name: functools.partial(build_binary, name)
+                 for name in BINARIES}}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {name: pool.submit(build) for name, build in builds.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pingoo_ring_bytes.restype = ctypes.c_size_t
     lib.pingoo_ring_bytes.argtypes = [ctypes.c_uint32]
@@ -544,6 +665,20 @@ def slots_to_arrays(slots: np.ndarray) -> dict:
     return arrays
 
 
+# The rows of RingSidecar.warm_up's batches (method, host, path, url,
+# user agent): a clean request and attack shapes of the CRS corpus, so
+# that candidate rows reach the scans behind the prefilter.
+WARM_REQUESTS = (
+    (b"GET", b"www.example.com", b"/", b"/", b"Mozilla/5.0"),
+    (b"GET", b"www.example.com", b"/search",
+     b"/search?q=1' UNION SELECT pass --", b"Mozilla/5.0"),
+    (b"POST", b"www.example.com", b"/page",
+     b"/page?x=<script>alert(1)</script>", b"sqlmap/1.8"),
+    (b"GET", b"www.example.com", b"/download",
+     b"/download?file=../../../../etc/passwd", b"curl/8.0"),
+)
+
+
 class RingSidecar:
     """The native plane's verdict engine, one batch at a time.
 
@@ -629,6 +764,7 @@ class RingSidecar:
         self.batches = 0
         self.truncated_rows = 0
         self.spilled_rows = 0  # overflow rows re-evaluated untruncated
+        self.device_wait_s = 0.0  # waiting for the lanes after host rules
         # Per batch (ms), the newest WINDOW of each: slots to padded
         # batch arrays ("decode"), the lane function's issue up to the
         # returned device tensor ("verdict"), host rules, the device sync,
@@ -768,13 +904,7 @@ class RingSidecar:
         t0 = time.monotonic()
         slots = parts[0][1] if len(parts) == 1 else np.concatenate(
             [s for _, s in parts])
-        n = len(slots)
-        raw = RequestBatch(size=n, arrays=slots_to_arrays(slots))
-        # Columns trimmed to a power of two over the batch's longest
-        # value (the scans walk columns), rows padded to a power of two.
-        batch = pad_batch(
-            RequestBatch(size=n, arrays=bucket_arrays(raw.arrays)),
-            pow2_batch_size(n, self.max_batch))
+        raw, batch = self._decode(slots)
         t1 = time.monotonic()
         with self._hb_busy():
             dev = self._lane_fn(self.plan.np_tables, batch.arrays)
@@ -782,6 +912,91 @@ class RingSidecar:
         self.stage_ms["decode"].append((t1 - t0) * 1e3)
         self.stage_ms["verdict"].append((t2 - t1) * 1e3)
         return parts, slots, raw, dev, t2
+
+    def _decode(self, slots: np.ndarray) -> tuple[RequestBatch, RequestBatch]:
+        """Slots -> the raw batch and the padded one the lane function
+        takes: columns trimmed to a power of two over the batch's longest
+        value (the scans walk columns), rows padded to a power of two."""
+        n = len(slots)
+        raw = RequestBatch(size=n, arrays=slots_to_arrays(slots))
+        batch = pad_batch(
+            RequestBatch(size=n, arrays=bucket_arrays(raw.arrays)),
+            pow2_batch_size(n, self.max_batch))
+        return raw, batch
+
+    def warm_up(self) -> list[tuple[int, int, float]]:
+        """Run one batch of every padded row count the drain loop can
+        issue (`pow2_batch_size` over 1..max_batch: 8, 16, ..., max_batch)
+        through the lane function and wait for it, each at the narrowest
+        column bucket and at the slots' full width, with rows cycling
+        through WARM_REQUESTS. Call it before a data plane enqueues: the
+        first batch of a shape pays one-time costs on the card (the
+        first launch of each kernel and library module, the caching
+        allocator's growth, cuDNN's algorithm choice for the window
+        convolution's shapes), and the httpd fails a request open when
+        its verdict misses the 3 s deadline. Touches no ring and no
+        counter; returns (rows, widest column, ms) of each batch."""
+        buckets = sorted({pow2_batch_size(1 << k, self.max_batch)
+                          for k in range(self.max_batch.bit_length())})
+        out = []
+        for rows in buckets:
+            for wide in (False, True):
+                slots = np.zeros(rows, dtype=REQUEST_SLOT_DTYPE)
+                for i in range(rows):
+                    m, h, p, u, ua = WARM_REQUESTS[i % len(WARM_REQUESTS)]
+                    if wide and i == 0:
+                        p = u = p + b"a" * (FIELD_CAPS["url"] - len(p))
+                    for field, value in (("method", m), ("host", h),
+                                         ("path", p), ("url", u),
+                                         ("user_agent", ua)):
+                        slots[field][i, :len(value)] = np.frombuffer(
+                            value, np.uint8)
+                        key = "ua_len" if field == "user_agent" \
+                            else f"{field}_len"
+                        slots[key][i] = len(value)
+                slots["country"] = b"XX"
+                slots["spill_idx"] = SPILL_NONE
+                t0 = time.monotonic()
+                _, batch = self._decode(slots)
+                self._lane_fn(self.plan.np_tables, batch.arrays).cpu()
+                out.append((rows, batch.arrays["url_bytes"].shape[1],
+                            (time.monotonic() - t0) * 1e3))
+        return out
+
+    def ring_telemetry(self) -> dict:
+        """The rings' telemetry blocks together: counters and the wait
+        histogram summed, the depth marks maxed."""
+        agg = {name: 0 for name in TELEMETRY_FIELDS}
+        agg["wait_hist"] = [0] * WAIT_BUCKETS
+        for ring in self.rings:
+            t = ring.telemetry()
+            for name in TELEMETRY_FIELDS:
+                agg[name] = max(agg[name], t[name]) \
+                    if name in ("depth", "depth_hwm") else agg[name] + t[name]
+            agg["wait_hist"] = [a + b for a, b in zip(agg["wait_hist"],
+                                                      t["wait_hist"])]
+        return agg
+
+    def stats(self) -> dict:
+        """The sidecar's counters, beside the httpd's /__pingoo/metrics.
+        `device_wait_ms_per_batch` is the mean wait for a batch's lanes
+        after the host rules ran."""
+        return {
+            "processed": self.processed,
+            "batches": self.batches,
+            "batch_occupancy": round(self.processed / self.batches, 2)
+            if self.batches else 0.0,
+            "device_wait_ms_per_batch": round(
+                1e3 * self.device_wait_s / self.batches, 3)
+            if self.batches else 0.0,
+            "truncated_rows": self.truncated_rows,
+            "spilled_rows": self.spilled_rows,
+            "body_verdicts": self.body_verdicts,
+            "rings": len(self.rings),
+            "ring_telemetry": self.ring_telemetry(),
+            "supervision": {"epoch": self.epoch,
+                            "reconciled": dict(self.reconciled)},
+        }
 
     def _enrich_slots(self, slots: np.ndarray) -> None:
         """Fill asn/country in place for rows enqueued with the unknown
@@ -806,8 +1021,10 @@ class RingSidecar:
         n = len(slots)
         # Host rules run while the device is still computing.
         host = host_rule_lanes(self.plan, raw, self.lists)
+        t0 = time.monotonic()
         with self._hb_busy():
             dev_lanes = dev.cpu().numpy()[:, :n]
+        self.device_wait_s += time.monotonic() - t0
         unverified, verified_block = merge_lanes(dev_lanes, host)
         self.batches += 1
         # Rows the producer flagged as truncated (a field past its slot
@@ -996,6 +1213,87 @@ class RingSidecar:
             if t is not None and t.is_alive() \
                     and t is not threading.current_thread():
                 t.join(timeout=join_timeout_s)
+
+
+# -- the services table -------------------------------------------------------
+# The httpd routes each allowed request by its verdict's route bits to a
+# service of this table (httpd.cc's ServiceTable), which it reloads when
+# the file's mtime changes.
+
+
+class _TableMarker(str):
+    """A marker of a services-table upstream entry, recognised only by
+    `isinstance` and identity: a hostname from the config that equals a
+    marker's text is never taken for one (`_append_tls` raises and asks
+    for the explicit (ip, port, "tls", name) form instead)."""
+
+    __slots__ = ()
+
+
+# The loopback control plane: the httpd sends its per-boot internal token
+# on hops to it, which lets the Python listener trust the x-forwarded-for.
+INTERNAL = _TableMarker("internal")
+# A cleartext prior-knowledge HTTP/2 upstream (scheme h2://): the httpd
+# frames requests over an nghttp2 client session instead of HTTP/1.1.
+H2 = _TableMarker("h2-prior-knowledge")
+
+
+def _append_tls(lines: list, ip, port, sni, explicit: bool = False) -> None:
+    if not sni or len(sni) > 255 or any(ch.isspace() for ch in sni):
+        # 255 is the reader's %255s scan width: a longer name would be
+        # cut into one no certificate can verify.
+        raise ValueError(f"bad tls server name {sni!r}")
+    if not explicit and sni in (INTERNAL, H2):
+        # In the 3-tuple form a server name equal to a marker's text is
+        # ambiguous: retagging the hop would leak the internal token or
+        # downgrade TLS to cleartext h2.
+        raise ValueError(
+            f"tls server name {sni!r} collides with a table marker; "
+            f"use the (ip, port, 'tls', name) entry form")
+    lines.append(f"upstream {ip} {port} tls {sni}")
+
+
+def write_services_file(path: str, services: list) -> None:
+    """Publish a listener's routing table. `services` is its ordered
+    [(name, [upstream, ...])], or (name, upstreams, static_root) for a
+    static site (the httpd serves its files of up to 500 KB and proxies
+    larger ones to the upstreams). An upstream is (ip, port) in the
+    clear, (ip, port, server_name) or (ip, port, "tls", server_name) for
+    a verified TLS hop, (ip, port, H2) for prior-knowledge h2, or
+    (ip, port, INTERNAL) for the loopback control plane. At most 31
+    services (the route field's 5 bits, 31 meaning none). Written to a
+    temporary file and renamed, so the reader never sees a partial
+    table."""
+    if len(services) > 31:
+        raise ValueError(
+            f"native routing supports at most 31 services (5-bit route "
+            f"field, 31 = no match), got {len(services)}")
+    lines = ["pingoo-services v1"]
+    for order, entry in enumerate(services):
+        name, ups = entry[0], entry[1]
+        static_root = entry[2] if len(entry) > 2 else None
+        lines.append(f"service {order} {name}")
+        if static_root is not None:
+            if (not static_root or len(static_root) > 383
+                    or any(ch.isspace() for ch in static_root)):
+                # %383s scan width; whitespace would split the token.
+                raise ValueError(f"bad static root {static_root!r}")
+            lines.append(f"static {static_root}")
+        for up in ups:
+            if len(up) == 2:
+                lines.append(f"upstream {up[0]} {up[1]}")
+            elif len(up) == 4 and up[2] == "tls":
+                _append_tls(lines, up[0], up[1], up[3], explicit=True)
+            elif isinstance(up[2], _TableMarker) and up[2] is INTERNAL:
+                lines.append(f"upstream {up[0]} {up[1]} internal")
+            elif isinstance(up[2], _TableMarker) and up[2] is H2:
+                lines.append(f"upstream {up[0]} {up[1]} h2")
+            else:
+                _append_tls(lines, up[0], up[1], up[2])
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    os.replace(tmp, path)
 
 
 # -- a producer: drive a request stream through a ring ------------------------

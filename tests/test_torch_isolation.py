@@ -5,8 +5,8 @@
     on the CPU (the card's machine has no JAX), builds the ring library
     and serves the batch through `RingSidecar` on a ring, scans one
     request body in three windows, imports the listener, the server,
-    `__main__` and the modules they stand on, and boots a deployment
-    through them to `explain()`.
+    `__main__`, the native-plane runner and the modules they stand on,
+    and boots a deployment through them to `explain()`.
   * No source file of the port, nor chip_smoke.py, imports jax or the
     JAX package (`pingoo_tpu` not followed by `_torch`).
   * Without a card, an entry point called without device="cpu" raises,
@@ -91,7 +91,7 @@ for mod in ("config.load", "lists", "logging_utils", "obs.trace",
             "obs.window", "host.jwt", "host.captcha", "host.captcha_frontend",
             "host.geoip", "host.services", "host.discovery", "host.tlsmgr",
             "host.acme", "host.h2", "host.httpd", "host.server",
-            "__main__"):
+            "host.native_plane", "__main__"):
     importlib.import_module("pingoo_tpu_torch." + mod)
 from pingoo_tpu_torch.config import parse_config
 from pingoo_tpu_torch.lists import load_lists

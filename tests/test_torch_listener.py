@@ -718,7 +718,7 @@ def test_server_and_main_default_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--native-plane"], "item 1d"),
+    (["--native-plane", "--cache-dir", "cache"], "item 8"),
     (["--cache-dir", "cache"], "item 8"),
     (["--bot-score-params", "head.npz"], "item 7"),
 ])

@@ -1,7 +1,8 @@
 """The port's native plane against the JAX package's: the ring client,
 its ABI and `RingSidecar`, on the CPU.
 
-  * ABI: the port's copy of the ring library is the reference's bytes,
+  * ABI: the port's copies of the ring library and of the data plane's
+    sources (the httpd, pong and loadgen_http) are the reference's bytes,
     and its struct mirrors and constants equal the JAX package's and
     tools/analyze/abi_golden.json.
   * One ring file, two clients: requests the reference's `Ring` enqueues
@@ -163,7 +164,7 @@ def serve_both(tmp_path, plans, requests, max_batch=16, lists=({}, {}),
 # -- ABI ------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", nr.RING_SOURCES)
+@pytest.mark.parametrize("name", nr.RING_SOURCES + nr.DATA_PLANE_SOURCES)
 def test_ring_sources_are_the_reference_bytes(name):
     assert (nr.NATIVE_DIR / name).read_bytes() == \
         (Path(ref_nr.NATIVE_DIR) / name).read_bytes()
