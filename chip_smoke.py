@@ -29,12 +29,16 @@
    one device kernel.
 3. Slice phase: a VerdictService(max_batch=2048) on the card answers
    8,192 CRS-style requests through `evaluate` under every
-   PINGOO_DFA=off|auto|force x PINGOO_PREFILTER=off|banks mode; every
-   matched row, action and verified_block must equal the interpreter
-   oracle (computed in processes of its own while the kernels build)
-   and the port's CPU path. The default mode (auto, banks) is the
-   main path: the kernels' launch counts are reset just before it and
-   read just after, and each kernel must have launched.
+   PINGOO_DFA=off|auto|force x PINGOO_PREFILTER=off|banks mode with the
+   default pipelined executor (PINGOO_PIPELINE=on, two batches in
+   flight), and the default mode once more under PINGOO_PIPELINE=off;
+   every matched row, action and verified_block must equal the
+   interpreter oracle (computed in processes of its own while the
+   kernels build) and the port's CPU path. The default mode (auto,
+   banks) under on is the main path: the kernels' launch counts are
+   reset just before it and read just after, and each kernel must have
+   launched. Both executor modes print req/s, and the main path's
+   in-issue syncs are timed (`SyncTimer`).
 4. Config phase: the port booted from a deployment, as a server does.
    The same corpus is written as a pingoo deployment (its lists as CSV
    files, the rules as pingoo.yml's mapping, two services with `route:`
@@ -57,16 +61,20 @@
 6. Ring phase, in a process of its own: the native plane. The ring
    library is built from the port's copy (pingoo_tpu_torch/native), a
    RingSidecar(max_batch=2048) in a thread serves a ring of 16,384 slots
-   on the 500-rule plan with its lists. A producer in a child process,
-   as the httpd is, drives a warm stream, then the measured stream
-   (generate_traffic(16384, seed=11)) twice, the second under
-   torch.profiler. Each measured drive must give checksum 4032806221
-   (the JAX package's value on this stream), VerdictService's verdict on
-   the card for every request, every ticket answered once, a heartbeat
-   age under 500 ms and launches of all three kernels (counts set to 0
-   just before the drive, read just after). Prints {"ring": ...}: req/s, wait
-   p50/p99, batches, the stage split, launches per batch and the
-   device's busy share.
+   on the 500-rule plan with its lists, first under PINGOO_PIPELINE=off
+   (one batch at a time), then a fresh one under on (pipeline_depth=3).
+   A producer in a child process, as the httpd is, drives each a warm
+   stream, then the measured stream (generate_traffic(16384, seed=11)),
+   and under on the measured stream again under torch.profiler. Each
+   measured drive must give checksum 4032806221 (the JAX package's
+   value on this stream), VerdictService's verdict on the card for
+   every request, every ticket answered once, a heartbeat age under 500
+   ms and launches of all three kernels (counts set to 0 just before the
+   drive, read just after); the on arm must have had two or more
+   batches in flight. Prints {"ring": ...}: per arm req/s, wait
+   p50/p99, batches, the stage split, the in-issue syncs, launches per
+   batch, peak in flight, overlap_ratio and stage occupancy, and the on
+   arm's device busy share.
 7. Body phase, in a process of its own: streaming body inspection
    (engine/bodyscan.py). (a) bench.py's body stream at the scanner's
    defaults (1,024 flows of 256-12,288 bytes, a payload planted in every
@@ -1158,6 +1166,10 @@ def device_kernels(fns: dict) -> dict:
             with record_function(f"run:{label}"):
                 fn()
                 torch.cuda.synchronize()
+        # The profiler receives a kernel's record some time after the
+        # kernel ends: a session stopped right after the last sync has
+        # lost the last run's kernel on the H100.
+        time.sleep(0.1)
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in events if e.device_type == cuda
@@ -1326,36 +1338,49 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
     cpu_plan = compile_ruleset(rules, lists, device="cpu")
     cpu_fn = make_verdict_fn(cpu_plan)
     main_counts = None
-    for dfa_mode, pf_mode in MODES:
+    # Every mode under the default executor (PINGOO_PIPELINE=on); the
+    # main path's mode also under off, one batch at a time.
+    runs = [(dfa, pf, "on") for dfa, pf in MODES]
+    runs.insert(1, (*MODES[0], "off"))
+    cpu_rows = {}
+    for dfa_mode, pf_mode, pipe_mode in runs:
         os.environ["PINGOO_DFA"] = dfa_mode
         os.environ["PINGOO_PREFILTER"] = pf_mode
-        label = f"PINGOO_DFA={dfa_mode} PINGOO_PREFILTER={pf_mode}"
+        os.environ["PINGOO_PIPELINE"] = pipe_mode
+        label = (f"PINGOO_DFA={dfa_mode} PINGOO_PREFILTER={pf_mode} "
+                 f"PINGOO_PIPELINE={pipe_mode}")
+        main = (dfa_mode, pf_mode) == ("auto", "banks")
         # A warm-up pass over the same batches (each new field width
         # costs a first call) outside the timings, then a fresh service.
         warm = VerdictService(plan, lists, max_batch=B, device=dev)
         for lo in range(0, N_REQUESTS, B):
             warm.evaluate_batch(reqs[lo:lo + B])
         service = VerdictService(plan, lists, max_batch=B, device=dev)
+        os.environ.pop("PINGOO_PIPELINE")
+        syncs = SyncTimer()
         _build.reset_launch_counts()
-        verdicts, wall = asyncio.run(serve(service, reqs))
+        with syncs:
+            verdicts, wall = asyncio.run(serve(service, reqs))
         counts = {k: v.launches for k, v in _build.KERNELS.items()}
-        if (dfa_mode, pf_mode) == ("auto", "banks"):
+        if main and pipe_mode == "on":
             main_counts = counts
         matched = np.stack([v.matched for v in verdicts])
         act = np.array([v.action for v in verdicts])
         vb = np.array([v.verified_block for v in verdicts])
-        if (dfa_mode, pf_mode) == ("auto", "banks"):
-            main = (matched, act, vb)
-        # The port's CPU path on the same batches.
-        cpu = []
-        for lo in range(0, N_REQUESTS, B):
-            chunk = reqs[lo:lo + B]
-            arrays = bucket_arrays(
-                encode_requests(chunk, cpu_plan.field_specs).arrays)
-            cpu.append(finish_batch(
-                cpu_plan, cpu_fn(cpu_plan.np_tables, arrays),
-                RequestBatch(size=len(chunk), arrays=arrays), lists))
-        cpu = np.concatenate(cpu)
+        if main and pipe_mode == "on":
+            main_out = (matched, act, vb)
+        # The port's CPU path on the same batches, once per mode.
+        if (dfa_mode, pf_mode) not in cpu_rows:
+            cpu = []
+            for lo in range(0, N_REQUESTS, B):
+                chunk = reqs[lo:lo + B]
+                arrays = bucket_arrays(
+                    encode_requests(chunk, cpu_plan.field_specs).arrays)
+                cpu.append(finish_batch(
+                    cpu_plan, cpu_fn(cpu_plan.np_tables, arrays),
+                    RequestBatch(size=len(chunk), arrays=arrays), lists))
+            cpu_rows[dfa_mode, pf_mode] = np.concatenate(cpu)
+        cpu = cpu_rows[dfa_mode, pf_mode]
         bad = int((matched != oracle).any(axis=1).sum())
         bad_cpu = int((cpu != oracle).any(axis=1).sum())
         if bad or bad_cpu or (act != o_act).any() or (vb != o_vb).any():
@@ -1366,11 +1391,18 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
         ms = np.array(list(service.stats.batch))
         stages = ", ".join(f"{k} {v.percentile(50):.2f}"
                            for k, v in service.stats.stages.items())
+        pipe = service.pipeline_snapshot()
         print(f"{label}: {N_REQUESTS} verdicts equal the oracle and the CPU "
               f"path; {N_REQUESTS / wall:.0f} req/s, batch p50 "
               f"{np.percentile(ms, 50):.2f} ms p99 "
               f"{np.percentile(ms, 99):.2f} ms over {len(ms)} batches "
-              f"(p50 ms: {stages}); launches {counts}", flush=True)
+              f"(p50 ms: {stages}); launches {counts}"
+              + (f"; depth {pipe['depth']}, peak in flight "
+                 f"{service._pipe.peak_inflight}, overlap_ratio "
+                 f"{pipe['overlap_ratio']} over {pipe['overlap_events']} "
+                 f"events, occupancy {pipe['stage_occupancy']}, in-issue "
+                 f"syncs {syncs.summary(len(ms))}" if main else ""),
+              flush=True)
     os.environ["PINGOO_DFA"], os.environ["PINGOO_PREFILTER"] = MODES[0]
     profile_main_path(plan, lists, reqs, dev)
     os.environ.pop("PINGOO_DFA")
@@ -1379,7 +1411,7 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
                if main_counts.get(k, 0) == 0]
     if missing:
         fail(f"the main path launched no {missing} kernel")
-    return main_counts, main
+    return main_counts, main_out
 
 
 EXPLAIN_REQUESTS = 64
@@ -1658,12 +1690,64 @@ class ChildProducer:
                  f"{self.proc.stderr.read()[-3000:]}")
 
 
+class SyncTimer:
+    """Times the host syncs inside a batch's issue (engine/verdict.py):
+    Stage B's one `.tolist()` of the banks' candidate flags and each
+    `torch.nonzero` of `compact_rows`, on CUDA tensors, by wrapping
+    both for the duration of a `with` block. `ms` holds one entry per
+    call; the wrappers cost microseconds against syncs of milliseconds."""
+
+    def __init__(self):
+        self.ms = {"stage_b_tolist": [], "compact_rows_nonzero": []}
+
+    def __enter__(self):
+        import torch
+
+        self._orig = (torch.Tensor.tolist, torch.nonzero)
+        tolist, nonzero = self._orig
+        ms = self.ms
+
+        def timed_tolist(t, *args, **kwargs):
+            if not t.is_cuda:
+                return tolist(t, *args, **kwargs)
+            t0 = time.perf_counter()
+            out = tolist(t, *args, **kwargs)
+            ms["stage_b_tolist"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def timed_nonzero(t, *args, **kwargs):
+            if not t.is_cuda:
+                return nonzero(t, *args, **kwargs)
+            t0 = time.perf_counter()
+            out = nonzero(t, *args, **kwargs)
+            ms["compact_rows_nonzero"].append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+
+        torch.Tensor.tolist, torch.nonzero = timed_tolist, timed_nonzero
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.Tensor.tolist, torch.nonzero = self._orig
+
+    def summary(self, batches: int) -> dict:
+        import numpy as np
+
+        return {k: {"calls": len(v),
+                    "p50_ms": float(np.percentile(v, 50)) if v else 0.0,
+                    "max_ms": max(v, default=0.0),
+                    "ms_per_batch": sum(v) / max(batches, 1)}
+                for k, v in self.ms.items()}
+
+
 def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
     """Run `drive()` (-> DriveResult) with the kernels' launch counts set
     to 0 just before and read just after; hold the verdicts to the
     checksum, to `want` (byte for byte, in stream order) and the
-    heartbeat's age to the data plane's limit. Returns the drive's
-    numbers."""
+    heartbeat's age to the data plane's limit. Unprofiled drives time
+    the in-issue syncs (`SyncTimer`). Returns the drive's numbers."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1672,6 +1756,7 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
 
     b0 = sidecar.batches
     s0 = {k: v.count for k, v in sidecar.stage_ms.items()}
+    syncs = SyncTimer()
     _build.reset_launch_counts()
     if profiled:
         with profile(activities=[ProfilerActivity.CPU,
@@ -1679,7 +1764,8 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
             r = drive()
             torch.cuda.synchronize()
     else:
-        r = drive()
+        with syncs:
+            r = drive()
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
     batches = sidecar.batches - b0
     if r.checksum != RING_CHECKSUM:
@@ -1704,6 +1790,8 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
         max_heartbeat_age_ms=r.max_heartbeat_age_ms, checksum=r.checksum,
         launches=launches,
         launches_per_batch={k: n / batches for k, n in launches.items()})
+    if not profiled:
+        out["issue_syncs"] = syncs.summary(batches)
     if profiled:
         busy_ms = sum(device_time_us(prof).values()) / 1e3
         out["device_busy_ms"] = busy_ms if busy_ms > 0 else "not measured"
@@ -1712,20 +1800,65 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
     return out
 
 
+def ring_arm(ring, producer, plan, lists, want, dev, mode: str) -> dict:
+    """One arm of the ring phase: a RingSidecar(max_batch=B,
+    pipeline_depth=3) under PINGOO_PIPELINE=`mode` drains the ring in a
+    thread while the producer drives the warm stream, then the measured
+    one (and under `on` the measured one again under torch.profiler);
+    then the sidecar stops. Returns the arm's numbers."""
+    import threading
+
+    from pingoo_tpu_torch import native_ring as nr
+
+    os.environ["PINGOO_PIPELINE"] = mode
+    try:
+        sidecar = nr.RingSidecar(ring, plan, lists, max_batch=B,
+                                 device=dev, pipeline_depth=3)
+    finally:
+        os.environ.pop("PINGOO_PIPELINE")
+    if sidecar.pipeline_mode != mode:
+        fail(f"the sidecar runs {sidecar.pipeline_mode}, not {mode}")
+    thread = threading.Thread(target=sidecar.run, daemon=True)
+    thread.start()
+    try:
+        t0 = time.monotonic()
+        producer.drive(12)
+        warm_s = time.monotonic() - t0
+        drives = [ring_drive(sidecar, lambda: producer.drive(11), want,
+                             profiled)
+                  for profiled in ((False, True) if mode == "on"
+                                   else (False,))]
+    finally:
+        sidecar.stop()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        fail(f"the {mode} sidecar's drain loop did not stop")
+    pipe = sidecar.stats()["pipeline"]
+    peak = sidecar._pipe.peak_inflight
+    if mode == "on" and peak < 2:
+        fail(f"the on arm never had two batches in flight (peak {peak})")
+    return dict(mode=mode, depth=sidecar.pipeline_depth, warm_s=warm_s,
+                processed=sidecar.processed, peak_inflight=peak,
+                pipeline=pipe, drives=drives)
+
+
 def ring_phase() -> int:
     """The native plane on the card: the ring library built from the
     port's copy, the 500-rule plan with its lists, a ring of
     RING_CAPACITY slots and `RingSidecar(max_batch=B)` in a thread. The
-    producer runs in a child process, as the httpd does: a warm stream
-    (`generate_traffic(seed=12)`), then the measured stream (seed=11)
-    twice, the second under torch.profiler. Each measured drive must
-    give the JAX package's checksum, VerdictService's verdict on the card
-    for every request, a heartbeat younger than the data plane's limit, and
-    launches of all three kernels. Prints one JSON line {"ring": ...},
-    but no result line (it runs in a process of its own, so its profiler
-    session is the process's first)."""
+    producer runs in a child process, as the httpd does. Two arms on the
+    same ring and producer, one sidecar each: PINGOO_PIPELINE=off (one
+    batch at a time), then on (pipeline_depth=3, as bench.py's pipeline
+    bench). Each drives a warm stream (`generate_traffic(seed=12)`) and
+    the measured stream (seed=11); the on arm drives the measured stream
+    again under torch.profiler. Each measured drive must give the JAX
+    package's checksum, VerdictService's verdict on the card for every
+    request, a heartbeat younger than the data plane's limit, and
+    launches of all three kernels; the on arm must have had two or more
+    batches in flight. Prints one JSON line {"ring": ...}, but no result
+    line (it runs in a process of its own, so its profiler session is
+    the process's first)."""
     import tempfile
-    import threading
 
     import torch
 
@@ -1746,22 +1879,16 @@ def ring_phase() -> int:
     want = bytes(v.action | (v.verified_block << 2)
                  for lo in range(0, RING_REQUESTS, B)
                  for v in service.evaluate_batch(reqs[lo:lo + B]))
+    arms = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ring")
         ring = nr.Ring(path, capacity=RING_CAPACITY, create=True)
         try:
-            sidecar = nr.RingSidecar(ring, plan, lists, max_batch=B,
-                                     device=dev)
-            thread = threading.Thread(target=sidecar.run, daemon=True)
-            thread.start()
             producer = ChildProducer(path)
             try:
-                t0 = time.monotonic()
-                producer.drive(12)
-                warm_s = time.monotonic() - t0
-                drives = [ring_drive(sidecar, lambda: producer.drive(11),
-                                     want, profiled)
-                          for profiled in (False, True)]
+                for mode in ("off", "on"):
+                    arms[mode] = ring_arm(ring, producer, plan, lists, want,
+                                          dev, mode)
                 producer.close()
                 time.sleep(0.2)
                 if ring.poll_verdict() is not None:
@@ -1770,26 +1897,33 @@ def ring_phase() -> int:
                 if producer.proc.poll() is None:
                     producer.proc.kill()
                     producer.proc.wait()
-                sidecar.stop()
-                thread.join(timeout=30)
-            if thread.is_alive():
-                fail("the sidecar's drain loop did not stop")
         finally:
             ring.close()
-    for label, d in zip(("measured", "profiled"), drives):
-        print(f"ring drive ({label}): {RING_REQUESTS} requests, checksum "
-              f"{d['checksum']}, {d['req_per_s']:.0f} req/s, wait p50 "
-              f"{d['wait_p50_ms']:.2f} ms p99 {d['wait_p99_ms']:.2f} ms, "
-              f"{d['batches']} batches of {d['rows_per_batch']:.1f} rows, "
-              f"stage p50 ms {d['stage_p50_ms']}, heartbeat age max "
-              f"{d['max_heartbeat_age_ms']} ms, launches {d['launches']}"
-              + (f", device busy {d['device_busy_ms']} ms = "
-                 f"{d['device_busy_pct']}% of the wall" if "device_busy_pct"
-                 in d else ""), flush=True)
+    for mode, arm in arms.items():
+        pipe = arm["pipeline"]
+        print(f"ring arm PINGOO_PIPELINE={mode} (depth {arm['depth']}): "
+              f"peak in flight {arm['peak_inflight']}, overlap_ratio "
+              f"{pipe['overlap_ratio']} over {pipe['overlap_events']} "
+              f"events, stage occupancy {pipe['stage_occupancy']}",
+              flush=True)
+        for label, d in zip(("measured", "profiled"), arm["drives"]):
+            print(f"  ring drive ({mode}, {label}): {RING_REQUESTS} "
+                  f"requests, checksum {d['checksum']}, "
+                  f"{d['req_per_s']:.0f} req/s, wait p50 "
+                  f"{d['wait_p50_ms']:.2f} ms p99 {d['wait_p99_ms']:.2f} ms, "
+                  f"{d['batches']} batches of {d['rows_per_batch']:.1f} rows, "
+                  f"stage p50 ms {d['stage_p50_ms']}, heartbeat age max "
+                  f"{d['max_heartbeat_age_ms']} ms, launches {d['launches']}"
+                  + (f", in-issue syncs {d['issue_syncs']}"
+                     if "issue_syncs" in d else "")
+                  + (f", device busy {d['device_busy_ms']} ms = "
+                     f"{d['device_busy_pct']}% of the wall"
+                     if "device_busy_pct" in d else ""), flush=True)
     print(json.dumps({"ring": dict(
         requests=RING_REQUESTS, max_batch=B, capacity=RING_CAPACITY,
-        rules=500, build_s=build_s, warm_s=warm_s,
-        processed=sidecar.processed, drives=drives)}), flush=True)
+        rules=500, build_s=build_s, warm_s=arms["on"]["warm_s"],
+        processed=arms["on"]["processed"], drives=arms["on"]["drives"],
+        arms=arms)}), flush=True)
     return 0
 
 

@@ -13,13 +13,6 @@ import os
 import torch
 
 
-def _pipeline_depth_above_1(v: str) -> bool:
-    try:
-        return int(v) > 1
-    except ValueError:  # the JAX package fails on such a value too
-        return v != ""
-
-
 # Knobs of the JAX package whose features the port does not have yet:
 # (variable, predicate on its value, the ROADMAP.md port-queue item).
 # Three knobs of the JAX package are not here: PINGOO_NFA_LOOKUP,
@@ -27,16 +20,6 @@ def _pipeline_depth_above_1(v: str) -> bool:
 # backends (lax.scan lookups, Pallas or XLA) and mean nothing in the
 # port, whose only device route is its CUDA kernels.
 _UNPORTED = (
-    # Any value the JAX package reads as "on" (its default there); the
-    # port always runs one batch at a time, which is its "off".
-    ("PINGOO_PIPELINE", lambda v: v.strip().lower() not in
-     ("", "off", "0", "false"),
-     "port queue item 1c, the pipelined executor"),
-    ("PINGOO_PIPELINE_DEPTH", lambda v: v != "",
-     "port queue item 1c, the pipelined executor"),
-    # The double-buffered dispatch; at most 1 is the port's one batch.
-    ("PINGOO_SCHED_PIPELINE", _pipeline_depth_above_1,
-     "port queue item 1c, the pipelined executor"),
     ("PINGOO_PREFILTER_LEVELS", lambda v: v != "",
      "port queue item 2, prefilter compact mode"),
     ("PINGOO_PREFILTER", lambda v: v == "compact",
@@ -83,6 +66,23 @@ def check_env() -> None:
             raise NotImplementedError(
                 f"{name}={value} is not supported by pingoo_tpu_torch yet "
                 f"(ROADMAP.md: {item})")
+
+
+def pipeline_mode() -> str:
+    """PINGOO_PIPELINE: "on" (the default) runs the pipelined executor,
+    "off", "0" or "false" one batch at a time."""
+    mode = os.environ.get("PINGOO_PIPELINE", "on").strip().lower()
+    return "off" if mode in ("off", "0", "false") else "on"
+
+
+def pipeline_depth(default: int) -> int:
+    """A plane's in-flight bound: PINGOO_PIPELINE_DEPTH where it is an
+    integer (at least 1), else `default`, as in the JAX package."""
+    try:
+        return max(1, int(os.environ.get("PINGOO_PIPELINE_DEPTH",
+                                         str(default))))
+    except ValueError:
+        return max(1, int(default))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -9,11 +9,18 @@ by the interpreter over the untruncated strings (engine/service.py).
 `batch_to_contexts` rebuilds the strings the device saw (the parity
 oracle's view). Only full staging is ported: every field is staged at
 its full width, then `bucket_arrays` trims the columns to a power of two.
+
+Two encode paths give the same arrays: the one-batch chain
+(`encode_requests` -> `bucket_arrays` -> `pad_batch`, or the ring's
+`slots_to_arrays` -> bucket -> pad), which allocates per batch, and the
+pipelined executor's `StagingEncoder`, which fills reused buffers in
+place and hands out views already bucketed and padded.
 """
 
 from __future__ import annotations
 
 import ipaddress
+import threading
 from dataclasses import dataclass
 from typing import Mapping, Optional
 
@@ -132,6 +139,18 @@ def bucket_arrays(arrays: dict, min_len: int = 16) -> dict:
     return out
 
 
+# The request slot's length field of each string field
+# (native_ring.REQUEST_SLOT_DTYPE); `country` is a fixed 2-byte code with
+# no length field.
+SLOT_LEN_KEYS = {
+    "method": "method_len",
+    "host": "host_len",
+    "path": "path_len",
+    "url": "url_len",
+    "user_agent": "ua_len",
+}
+
+
 def pow2_batch_size(n: int, max_batch: int) -> int:
     """Padded launch size for an n-row batch: the next power of two
     (floor 8), capped at `max_batch` but never below n."""
@@ -157,6 +176,192 @@ def pad_batch(batch: RequestBatch, to_size: int) -> RequestBatch:
         overflow = np.concatenate(
             [overflow, np.zeros(to_size - B, dtype=bool)])
     return RequestBatch(size=to_size, arrays=arrays, overflow=overflow)
+
+
+class StagingEncoder:
+    """Reused staging buffers for the pipelined executor.
+
+    The one-batch chain allocates three full-batch copies before the
+    device sees a byte: `encode_requests` builds fresh (B, cap)
+    matrices, `bucket_arrays` copies the power-of-two column slice and
+    `pad_batch` concatenates zero rows. This encoder owns
+    (max_batch, cap) matrices per field and fills them in place,
+    returning views already bucketed and padded, equal to that chain's
+    arrays (tests/test_torch_pipeline.py holds the two equal).
+
+    The encoder owns `nbuf` buffer sets. A batch `checkout`s one, fills
+    it, and holds it until it `release`s it after its last verdict,
+    since host rules, overflow rows and spill rows read its views at
+    completion. The free list, not an order of checkouts, keeps a set
+    from being refilled while its batch reads it, so batches may finish
+    in any order. The planes take one set per batch in flight, so the
+    sets also bound the batches in flight. (`batch_tensors` copies
+    each array into pinned memory of its own before the upload, so a
+    set is free for the host once its batch completes.)
+
+    Two fill paths: `encode_requests` from RequestTuples (the Python
+    plane) and `encode_slots` from request-slot rows (the sidecar),
+    the latter with one strided copy per field and no per-slot Python.
+    Only full staging is ported: the packed layout of compact staging
+    (`stage_caps`) raises (ROADMAP.md, port queue item 3).
+    """
+
+    def __init__(self, max_batch: int,
+                 field_specs: Optional[Mapping[str, int]] = None,
+                 nbuf: int = 2,
+                 stage_caps: Optional[Mapping[str, int]] = None,
+                 overflow_thresholds: Optional[Mapping[str, int]] = None):
+        if stage_caps is not None or overflow_thresholds is not None:
+            self.set_stage_caps(stage_caps, overflow_thresholds)
+        specs = dict(field_specs or DEFAULT_FIELD_SPECS)
+        self.max_batch = int(max_batch)
+        self.specs = specs
+        self.nbuf = max(1, int(nbuf))
+        self._free = list(range(self.nbuf))
+        self._cv = threading.Condition()
+        self._bufs: list[dict] = []
+        for _ in range(self.nbuf):
+            bufs: dict = {}
+            for field in STRING_FIELDS:
+                cap = specs.get(field, 256)
+                bufs[f"{field}_bytes"] = np.zeros(
+                    (self.max_batch, cap), dtype=np.uint8)
+                bufs[f"{field}_len"] = np.zeros(self.max_batch,
+                                                dtype=np.int32)
+            bufs["ip"] = np.zeros((self.max_batch, 4), dtype=np.uint32)
+            bufs["asn"] = np.zeros(self.max_batch, dtype=np.int64)
+            bufs["remote_port"] = np.zeros(self.max_batch, dtype=np.int64)
+            bufs["overflow"] = np.zeros(self.max_batch, dtype=bool)
+            self._bufs.append(bufs)
+
+    def set_stage_caps(self, stage_caps, overflow_thresholds=None) -> None:
+        raise NotImplementedError(
+            "compact staging (StagingEncoder stage_caps) is not supported "
+            "by pingoo_tpu_torch yet (ROADMAP.md: port queue item 3, "
+            "compact staging)")
+
+    def checkout(self, block: bool = True) -> int:
+        """A free buffer set for one batch, held until `release`.
+        Blocks while every set is out; with `block=False` that raises
+        instead (a caller that never holds more than `nbuf` sets)."""
+        with self._cv:
+            if not self._free and not block:
+                raise RuntimeError(
+                    f"every staging set is checked out (nbuf={self.nbuf})")
+            while not self._free:
+                self._cv.wait()
+            return self._free.pop()
+
+    def release(self, idx: int) -> None:
+        with self._cv:
+            self._free.append(idx)
+            self._cv.notify()
+
+    def _check_shape(self, n: int, pad_to: Optional[int]) -> int:
+        P = n if pad_to is None else int(pad_to)
+        if not n or P < n or P > self.max_batch:
+            raise ValueError(f"bad staging shape: n={n} pad_to={pad_to} "
+                             f"max_batch={self.max_batch}")
+        return P
+
+    def encode_requests(self, requests: list[RequestTuple],
+                        pad_to: Optional[int] = None, *,
+                        into: int) -> RequestBatch:
+        """RequestTuples -> bucketed and padded views of the checked-out
+        set `into`, equal to
+        `pad_batch(bucket_arrays(encode_requests(requests)), pad_to)`
+        (overflow included)."""
+        B = len(requests)
+        P = self._check_shape(B, pad_to)
+        buf = self._bufs[into]
+        arrays: dict = {}
+        overflow = buf["overflow"][:P]
+        overflow[:] = False
+        for field in STRING_FIELDS:
+            cap = self.specs.get(field, 256)
+            raws = []
+            longest = 0
+            for i, req in enumerate(requests):
+                full = _to_bytes(getattr(req, field))
+                if len(full) > cap:
+                    overflow[i] = True
+                raw = full[:cap]
+                raws.append(raw)
+                longest = max(longest, len(raw))
+            L = bucket_len(longest, cap)
+            data = buf[f"{field}_bytes"][:P, :L]
+            lens = buf[f"{field}_len"][:P]
+            data[:] = 0
+            lens[B:] = 0
+            for i, raw in enumerate(raws):
+                data[i, : len(raw)] = np.frombuffer(raw, dtype=np.uint8)
+                lens[i] = len(raw)
+            arrays[f"{field}_bytes"] = data
+            arrays[f"{field}_len"] = lens
+        ip = buf["ip"][:P]
+        ip[B:] = 0
+        for i, req in enumerate(requests):
+            try:
+                ip[i], _ = ip_to_words(Ip(req.ip))
+            except Exception:
+                ip[i] = 0  # unparseable -> never matches any predicate
+        arrays["ip"] = ip
+        asn = buf["asn"][:P]
+        port = buf["remote_port"][:P]
+        asn[B:] = 0
+        port[B:] = 0
+        for i, req in enumerate(requests):
+            asn[i] = _clamp_i64(req.asn)
+            port[i] = _clamp_i64(req.remote_port)
+        arrays["asn"] = asn
+        arrays["remote_port"] = port
+        return RequestBatch(size=P, arrays=arrays, overflow=overflow)
+
+    def encode_slots(self, slots: np.ndarray,
+                     pad_to: Optional[int] = None, *,
+                     into: int) -> RequestBatch:
+        """Request-slot rows (a REQUEST_SLOT_DTYPE view, as
+        `Ring.dequeue_batch_into` fills) -> bucketed and padded views of
+        the checked-out set `into`, equal to slots_to_arrays ->
+        bucket_arrays -> pad_batch, with one vectorized copy per field.
+        `overflow` is None: rows past the slot caps carry their flags
+        and spill slots instead."""
+        n = len(slots)
+        P = self._check_shape(n, pad_to)
+        buf = self._bufs[into]
+        arrays: dict = {}
+        for field, len_key in SLOT_LEN_KEYS.items():
+            cap = self.specs.get(field, 256)
+            lens = buf[f"{field}_len"][:P]
+            lens[:n] = slots[len_key]
+            lens[n:] = 0
+            L = bucket_len(int(lens[:n].max()), cap)
+            data = buf[f"{field}_bytes"][:P, :L]
+            data[:n] = slots[field][:, :L]
+            data[n:] = 0
+            arrays[f"{field}_bytes"] = data
+            arrays[f"{field}_len"] = lens
+        # country: a fixed 2-byte code with no length field (length 2 for
+        # live rows, 0 for padding, as slots_to_arrays gives).
+        cdata = buf["country_bytes"][:P, :2]
+        cdata[:n] = np.frombuffer(slots["country"].tobytes(),
+                                  dtype=np.uint8).reshape(-1, 2)
+        cdata[n:] = 0
+        clens = buf["country_len"][:P]
+        clens[:n] = 2
+        clens[n:] = 0
+        arrays["country_bytes"] = cdata
+        arrays["country_len"] = clens
+        ip = buf["ip"][:P]
+        ip[:n] = slots["ip"].view(">u4")  # big-endian words -> native
+        ip[n:] = 0
+        arrays["ip"] = ip
+        for key in ("asn", "remote_port"):
+            col = buf[key][:P]
+            col[:n] = slots[key]
+            col[n:] = 0
+            arrays[key] = col
+        return RequestBatch(size=P, arrays=arrays, overflow=None)
 
 
 def batch_tensors(arrays: Mapping, device) -> dict[str, torch.Tensor]:

@@ -7,19 +7,37 @@ most `max_wait_us` after the first one, and runs each batch in a worker
 thread: encode, trim the field columns to a power of two, pad the batch
 axis to a power of two, evaluate on the plan's device, re-interpret
 rows whose fields overflowed the device capacity, and reduce to the two
-action lanes. One batch runs at a time.
+action lanes.
+
+The executor (PINGOO_PIPELINE, as in the JAX package):
+
+  * `on` (the default): up to `PINGOO_SCHED_PIPELINE` batches (default
+    2; PINGOO_PIPELINE_DEPTH overrides it) are in flight, each its own
+    task. A batch encodes into a `StagingEncoder`'s reused buffers under
+    the "encode" token and issues its device work under the "dispatch"
+    token, its result's copy to the host queued at the end of the issue
+    (`verdict.to_host_async`); holding no token while it waits for that
+    result, it lets the next batch encode and issue. All batches issue
+    on torch's current stream, so issue order is device order.
+  * `off`, `0` or `false`: one batch at a time through the allocating
+    chain (`encode_requests` -> `bucket_arrays` -> `pad_batch`).
+
+A staging or device error fails that batch's callers and nothing else;
+there is no fallback to the other chain.
 
 What the listener reads, with the JAX package's keys: `stats.snapshot()`
 (counts, the verdict wait and the stages), `pipeline_snapshot()` (the
-one-batch executor seen as a pipeline of depth 1) and `explain(req)`
-(one request through the batched path and the interpreter, per rule).
-Every timing is kept in a bounded window (`obs/window.py`).
+executor's `PipelineStats`: depth, batches in flight, stage occupancy,
+overlap) and `explain(req)` (one request through the batched path and
+the interpreter, per rule). Every timing is kept in a bounded window
+(`obs/window.py`).
 """
 
 from __future__ import annotations
 
 import asyncio
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -27,14 +45,15 @@ from typing import Optional
 import numpy as np
 
 from ..compiler.plan import RulesetPlan
-from ..device import check_env, resolve_device
+from ..device import check_env, pipeline_depth, pipeline_mode, resolve_device
+from ..obs.pipeline import PipelineStats
 from ..obs.trace import tuple_digest
 from ..obs.window import WINDOW, TimingWindow
-from .batch import (RequestBatch, RequestTuple, bucket_arrays,
-                    encode_requests, pad_batch, pow2_batch_size,
-                    tuple_to_context)
+from .batch import (RequestBatch, RequestTuple, StagingEncoder,
+                    bucket_arrays, encode_requests, pad_batch,
+                    pow2_batch_size, tuple_to_context)
 from .verdict import (action_lanes, finish_batch, interpret_rules_row,
-                      make_verdict_fn)
+                      make_verdict_fn, to_host_async)
 
 
 @dataclass
@@ -64,7 +83,7 @@ class Verdict:
 
 # The stages one batch goes through: host encoding ("encode"), the
 # host's issue of the device verdict ("verdict": dispatch and the path's
-# own syncs, up to the returned device tensor), and host rules, the wait
+# own syncs, up to the queued copy of its result), and host rules, the wait
 # for the device result, overflow rows and action lanes ("finish").
 STAGES = ("encode", "verdict", "finish")
 
@@ -105,7 +124,8 @@ class ServiceStats:
 
 
 class VerdictService:
-    """Fixed-window batching collector over `make_verdict_fn`."""
+    """Fixed-window batching collector over `make_verdict_fn`, with the
+    pipelined executor of the module's docstring."""
 
     # Timing samples kept per window (tests shrink it).
     WINDOW = WINDOW
@@ -127,8 +147,30 @@ class VerdictService:
         self._queue: Optional[asyncio.Queue] = None
         self._task: Optional[asyncio.Task] = None
         self.stats = ServiceStats(self.WINDOW)
-        self._t_boot = time.monotonic()
-        self._inflight = 0
+        # The executor: batches in flight at most `_pipeline_depth`
+        # (PINGOO_SCHED_PIPELINE, default 2; a non-integer raises
+        # ValueError as in the JAX package; PINGOO_PIPELINE_DEPTH
+        # overrides it); `off` runs one batch at a time.
+        depth = int(os.environ.get("PINGOO_SCHED_PIPELINE", "2"))
+        self.pipeline_mode = pipeline_mode()
+        self._pipeline_depth = pipeline_depth(depth) \
+            if self.pipeline_mode == "on" else 1
+        self._pipe = PipelineStats("python", self._pipeline_depth)
+        # One staging set per batch in flight, held from its encode to
+        # its last verdict: however many threads call evaluate_batch, at
+        # most `_pipeline_depth` batches are in flight, and a set is
+        # never refilled while its batch reads it, whatever order the
+        # batches finish in.
+        self._staging = StagingEncoder(
+            max_batch, plan.field_specs, nbuf=self._pipeline_depth) \
+            if self.pipeline_mode == "on" else None
+        # Host stages are serialized across batches (the dispatch token
+        # covers the whole issue, the verdict function's lazily built
+        # constants included), while a batch waiting for its result
+        # holds neither: that asymmetry is the overlap.
+        self._stage_tokens = {"encode": threading.Lock(),
+                              "dispatch": threading.Lock()}
+        self._batch_tasks: set = set()
         self._profiler = None  # (torch.profiler session, output dir)
         self._profile_task: Optional[asyncio.Task] = None
 
@@ -150,6 +192,10 @@ class VerdictService:
                     await task
                 except asyncio.CancelledError:
                     pass
+            if attr == "_task" and self._batch_tasks:
+                # The batches in flight finish and resolve their callers.
+                await asyncio.gather(*list(self._batch_tasks),
+                                     return_exceptions=True)
         self.ensure_trace_stopped()
 
     # -- torch.profiler windows: PINGOO_PROFILE_DIR traces start() to
@@ -218,32 +264,11 @@ class VerdictService:
         return verdict
 
     def pipeline_snapshot(self) -> dict:
-        """The one-batch executor through the keys of the JAX package's
-        pipelined executor: mode "off", depth 1, at most one batch in
-        flight, no overlap and no megastep. Occupancy is each stage's
-        busy share of the time since construction: "encode" is the encode
-        stage, "dispatch" the verdict stage, "resolve" the finish stage,
-        which holds the wait for the device; "compute" is not timed apart
-        from it and reads 0."""
-        wall = max(time.monotonic() - self._t_boot, 1e-9)
-        stages = self.stats.stages
-        busy = {"encode": stages["encode"].total,
-                "dispatch": stages["verdict"].total,
-                "compute": 0.0,
-                "resolve": stages["finish"].total}
-        return {
-            "plane": "python",
-            "depth": 1,
-            "inflight": self._inflight,
-            "batches": {"off": self.stats.batches},
-            "overlap_ratio": None,
-            "overlap_events": 0,
-            "stage_occupancy": {k: round(ms / 1e3 / wall, 4)
-                                for k, ms in busy.items()},
-            "megastep": {"k": 0, "windows": 0, "slices": 0,
-                         "amortization": None, "slices_by_mode": {}},
-            "mode": "off",
-        }
+        """The executor's `PipelineStats.snapshot()` and its mode, with
+        the JAX package's keys."""
+        snap = self._pipe.snapshot()
+        snap["mode"] = self.pipeline_mode
+        return snap
 
     async def explain(self, req: RequestTuple) -> dict:
         """One request through the real batched path (`evaluate`) and the
@@ -294,7 +319,7 @@ class VerdictService:
         }
 
     async def _collector(self) -> None:
-        loop = asyncio.get_running_loop()
+        sem = asyncio.Semaphore(self._pipeline_depth)
         while True:
             pending = [await self._queue.get()]
             deadline = time.monotonic() + self.max_wait_s
@@ -310,54 +335,102 @@ class VerdictService:
             # Whatever is already queued rides this batch for free.
             while len(pending) < self.max_batch and not self._queue.empty():
                 pending.append(self._queue.get_nowait())
+            # At most `_pipeline_depth` batches in flight: each is its own
+            # task, and the next batch gathers while they run.
+            await sem.acquire()
+            task = asyncio.create_task(self._run_batch_guarded(pending, sem))
+            self._batch_tasks.add(task)
+            task.add_done_callback(self._batch_tasks.discard)
+
+    async def _run_batch_guarded(self, pending, sem) -> None:
+        """One batch in a worker thread; its verdicts, or its error, go
+        to its callers, and its in-flight slot is released whatever
+        happens."""
+        try:
             reqs = [r for r, _ in pending]
-            self._inflight = 1
             try:
-                verdicts = await loop.run_in_executor(
+                verdicts = await asyncio.get_running_loop().run_in_executor(
                     None, self.evaluate_batch, reqs)
             except Exception as exc:  # surface the failure to every caller
                 for _, fut in pending:
                     if not fut.done():
                         fut.set_exception(exc)
-                continue
-            finally:
-                self._inflight = 0
+                return
             for (_, fut), v in zip(pending, verdicts):
                 if not fut.done():
                     fut.set_result(v)
+        finally:
+            sem.release()
 
     def evaluate_batch(self, reqs: list[RequestTuple]) -> list[Verdict]:
-        """Evaluate one batch synchronously (the collector's worker)."""
-        t0 = time.monotonic()
+        """Evaluate one batch synchronously, through the executor's
+        chain (the collector's worker; callable from any thread: under
+        `on` a caller waits for a free staging set, so at most
+        `_pipeline_depth` batches are in flight)."""
+        staged = self._staging.checkout() if self._staging is not None \
+            else None
+        try:
+            slot = self._pipe.enter(self.pipeline_mode)
+            try:
+                return self._evaluate(reqs, slot, staged)
+            finally:
+                self._pipe.exit()
+        finally:
+            if staged is not None:
+                self._staging.release(staged)
+
+    def _evaluate(self, reqs: list[RequestTuple], slot: int,
+                  staged: Optional[int]) -> list[Verdict]:
+        pipe, tokens = self._pipe, self._stage_tokens
         n = len(reqs)
-        batch = encode_requests(reqs, self.plan.field_specs)
-        fast = pad_batch(
-            RequestBatch(size=n, arrays=bucket_arrays(batch.arrays)),
-            pow2_batch_size(n, self.max_batch))
-        t1 = time.monotonic()
-        # The device result stays on the card: finish_batch interprets the
-        # host rules before its one sync, so they overlap the device work.
-        dev = self._verdict_fn(self.plan.np_tables, fast.arrays)
-        t2 = time.monotonic()
+        P = pow2_batch_size(n, self.max_batch)
+        t_start = time.monotonic()
+        with tokens["encode"]:
+            t0 = time.monotonic()
+            if staged is not None:
+                fast = self._staging.encode_requests(reqs, pad_to=P,
+                                                     into=staged)
+                overflow = fast.overflow
+            else:
+                batch = encode_requests(reqs, self.plan.field_specs)
+                overflow = batch.overflow
+                fast = pad_batch(
+                    RequestBatch(size=n, arrays=bucket_arrays(batch.arrays)),
+                    P)
+            t1 = time.monotonic()
+        with tokens["dispatch"]:
+            # Issue order is device order (one stream). The result's copy
+            # to the host is queued here, so the wait below is for this
+            # batch alone.
+            t2 = time.monotonic()
+            dev = to_host_async(self._verdict_fn(self.plan.np_tables,
+                                                 fast.arrays))
+            t3 = time.monotonic()
+        # Host rules run first, then the one wait for the device result.
         matched = finish_batch(self.plan, dev, fast, self.lists)[:n]
-        matched = self._rewrite_overflow_rows(reqs, batch, matched)
+        t4 = time.monotonic()
+        matched = self._rewrite_overflow_rows(reqs, overflow, matched)
         actions, verified_block = action_lanes(self.plan, matched)
-        t3 = time.monotonic()
+        verdicts = [Verdict(action=int(actions[i]), matched=matched[i],
+                            verified_block=bool(verified_block[i]))
+                    for i in range(n)]
+        t5 = time.monotonic()
+        pipe.note_stage(slot, "encode", t0, t1)
+        pipe.note_stage(slot, "dispatch", t2, t3)
+        pipe.note_stage(slot, "compute", t3, t4)
+        pipe.note_stage(slot, "resolve", t4, t5)
         stats = self.stats
-        stats.batch.append((t3 - t0) * 1e3)
+        stats.batch.append((t5 - t_start) * 1e3)
         stats.stages["encode"].append((t1 - t0) * 1e3)
-        stats.stages["verdict"].append((t2 - t1) * 1e3)
-        stats.stages["finish"].append((t3 - t2) * 1e3)
+        stats.stages["verdict"].append((t3 - t2) * 1e3)
+        stats.stages["finish"].append((t5 - t3) * 1e3)
         stats.batches += 1
         stats.requests += n
-        return [Verdict(action=int(actions[i]), matched=matched[i],
-                        verified_block=bool(verified_block[i]))
-                for i in range(n)]
+        return verdicts
 
-    def _rewrite_overflow_rows(self, reqs, batch, matched: np.ndarray):
-        """Rows whose fields exceeded device capacity are re-evaluated by
-        the interpreter over the UNTRUNCATED strings."""
-        overflow = batch.overflow
+    def _rewrite_overflow_rows(self, reqs, overflow, matched: np.ndarray):
+        """Rows whose fields exceeded device capacity (`overflow`) are
+        re-evaluated by the interpreter over the UNTRUNCATED strings."""
         if overflow is None or not overflow[: len(reqs)].any():
             return matched
         for i in np.nonzero(overflow[: len(reqs)])[0]:

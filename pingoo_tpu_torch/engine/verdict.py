@@ -606,7 +606,38 @@ def host_rule_lanes(plan: RulesetPlan, batch, lists):
     return first_act, kind, first_block
 
 
+class HostResult:
+    """A device result whose copy to the host was queued when its batch
+    was issued: a pinned host tensor filled by a non-blocking copy, and
+    a CUDA event recorded after that copy. `wait()` waits on this event
+    alone, so a batch completes as soon as its own result is on the
+    host, while later batches' kernels queued behind it run on."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, dev: torch.Tensor):
+        self.host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        self.host.copy_(dev, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def wait(self) -> np.ndarray:
+        self.event.synchronize()
+        return self.host.numpy()
+
+
+def to_host_async(dev):
+    """Queue a device result's copy to the host at the end of its issue:
+    a `HostResult` for a CUDA tensor; a CPU tensor is already there and
+    passes through (the plain path)."""
+    if isinstance(dev, torch.Tensor) and dev.device.type == "cuda":
+        return HostResult(dev)
+    return dev
+
+
 def _host_array(x) -> np.ndarray:
+    if isinstance(x, HostResult):
+        return x.wait()
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy()
     return np.asarray(x)
@@ -644,9 +675,9 @@ def _host_matrix(plan, batch, lists) -> np.ndarray:
 
 def finish_batch(plan, dev, batch, lists) -> np.ndarray:
     """Combine a device verdict with the host-interpreted rules. `dev`
-    may be a tensor still being computed on the card: the host rules run
-    first and `_host_array` then syncs once, so they overlap the device
-    work (as in the JAX package)."""
+    may be a tensor still being computed on the card, or its
+    `HostResult`: the host rules run first and `_host_array` then waits
+    once, so they overlap the device work (as in the JAX package)."""
     out = _host_matrix(plan, batch, lists)
     dev = _host_array(dev)
     for col, idx in enumerate(plan.device_rule_indices):

@@ -23,7 +23,7 @@ from typing import Optional
 
 from ..compiler.plan import compile_ruleset
 from ..config.schema import Config
-from ..device import check_env, resolve_device
+from ..device import check_env, pipeline_mode, resolve_device
 from ..engine.service import VerdictService
 from ..lists import load_lists
 from ..logging_utils import get_logger
@@ -97,11 +97,11 @@ class Server:
         self.lists = lists
 
         # The knobs of features the port does not have raise here, before
-        # any table is built; the port runs one mode.
+        # any table is built.
         check_env()
         log.info("scheduler config", extra={"fields": {
             "device": str(self.device), "mesh": "1", "mode": "fixed",
-            "pipeline": "off"}})
+            "pipeline": pipeline_mode()}})
 
         # Service route predicates compile into the same plan as extra
         # verdict columns (rules AND routing decided by one batch).

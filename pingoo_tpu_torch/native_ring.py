@@ -13,7 +13,9 @@ same ring. This module holds the port's side of that ring:
   * `RingSidecar`: the drain loop. It dequeues one merged batch across
     the rings, runs the lane function of `engine/verdict.py` on the
     plan's device, and posts the verdict bytes back on each request's
-    own ring, one batch at a time. With PINGOO_BODY_INSPECT=on it also
+    own ring, with up to `pipeline_depth` batches in flight under
+    PINGOO_PIPELINE=on (the default), one at a time under off. With
+    PINGOO_BODY_INSPECT=on it also
     drains the request-body windows through `engine/bodyscan.py` and
     posts one body verdict per flow;
   * `pack_requests` / `drive_stream`: a producer that drives a seeded
@@ -41,22 +43,26 @@ import subprocess
 import threading
 import time
 import zlib
+from collections import deque
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-from .device import check_env, resolve_device
+from .device import check_env, pipeline_mode, resolve_device
+from .device import pipeline_depth as _env_depth
 from .engine.bodyscan import (BodyScanner, BodyWindow, body_inspect_enabled,
                               body_max_flows, body_window_bytes,
                               merge_actions, split_payload)
-from .engine.batch import (RequestBatch, RequestTuple, batch_to_contexts,
-                           bucket_arrays, pad_batch, pow2_batch_size,
-                           tuple_to_context)
-from .engine.verdict import (LANE_NONE, action_lanes, host_rule_lanes,
-                             interpret_rules_row, make_lane_fn, merge_lanes)
+from .engine.batch import (RequestBatch, RequestTuple, StagingEncoder,
+                           batch_to_contexts, bucket_arrays, pad_batch,
+                           pow2_batch_size, tuple_to_context)
+from .engine.verdict import (LANE_NONE, _host_array, action_lanes,
+                             host_rule_lanes, interpret_rules_row,
+                             make_lane_fn, merge_lanes, to_host_async)
 from .expr import execute_as_bool
+from .obs.pipeline import PipelineStats
 from .obs.window import WINDOW, TimingWindow
 from .ops import _build
 
@@ -680,7 +686,7 @@ WARM_REQUESTS = (
 
 
 class RingSidecar:
-    """The native plane's verdict engine, one batch at a time.
+    """The native plane's verdict engine.
 
     `ring` is one Ring or a list of them (one per data-plane worker);
     each pass dequeues one merged batch across them and posts every
@@ -695,6 +701,18 @@ class RingSidecar:
     body-window rings through a `BodyScanner` on the same device and
     posts each finished flow's body verdict on its ring, the ticket
     tagged with BODY_VERDICT_BIT (0 for a flow the scanner degraded).
+
+    The executor (PINGOO_PIPELINE, as in the JAX package): under `on`
+    (the default) each pass dequeues straight into a pooled slot buffer
+    (`Ring.dequeue_batch_into`), encodes it through a `StagingEncoder`'s
+    reused views, issues the lane function with its result's copy to the
+    host queued behind it (`verdict.to_host_async`), and keeps up to
+    `pipeline_depth` batches (default 3; PINGOO_PIPELINE_DEPTH overrides
+    it) in flight, completed in FIFO order when the bound is reached or
+    when a pass launched nothing. Under `off`, `0` or `false` each batch
+    is decoded through slots_to_arrays -> bucket -> pad and completed
+    before the next pass. Completion in FIFO order keeps the posted
+    tickets a prefix. A staging error raises as a device error does.
 
     `device=None` means the CUDA card (raises without one). A device
     error, in a batch or in a body scan, propagates out of `run()`: the
@@ -712,7 +730,8 @@ class RingSidecar:
 
     def __init__(self, ring, plan, lists, max_batch: int = 1024,
                  services: Optional[list] = None, geoip=None,
-                 ring_services: Optional[list] = None, device=None):
+                 ring_services: Optional[list] = None, device=None,
+                 pipeline_depth: int = 3):
         dev = resolve_device(device)
         if dev.type != plan.device.type:
             raise ValueError(f"plan tables live on {plan.device}, the "
@@ -760,6 +779,22 @@ class RingSidecar:
                 if ridx is not None and by_index[ridx].host:
                     hr.append((order, by_index[ridx].program))
             self._host_routes.append(hr)
+        self.pipeline_mode = pipeline_mode()
+        on = self.pipeline_mode == "on"
+        self.pipeline_depth = _env_depth(pipeline_depth) if on else 1
+        self._pipe = PipelineStats("sidecar", self.pipeline_depth)
+        # Under `on`: a staging set per batch in flight (a pass issues
+        # only when fewer than `pipeline_depth` are), and a slot buffer
+        # per batch in flight plus the one the next pass dequeues into.
+        self._staging = None
+        self._slot_pool: deque = deque()
+        if on:
+            caps = dict(FIELD_CAPS, country=2)
+            self._staging = StagingEncoder(max_batch, field_specs=caps,
+                                           nbuf=self.pipeline_depth)
+            for _ in range(self.pipeline_depth + 1):
+                self._slot_pool.append(
+                    np.zeros(max_batch, dtype=REQUEST_SLOT_DTYPE))
         self.processed = 0
         self.batches = 0
         self.truncated_rows = 0
@@ -767,8 +802,9 @@ class RingSidecar:
         self.device_wait_s = 0.0  # waiting for the lanes after host rules
         # Per batch (ms), the newest WINDOW of each: slots to padded
         # batch arrays ("decode"), the lane function's issue up to the
-        # returned device tensor ("verdict"), host rules, the device sync,
-        # routes, spill rows and the posts ("finish"). `count` counts all.
+        # queued copy of its result ("verdict"), host rules, the wait for
+        # the result, routes, spill rows and the posts ("finish", from the
+        # start of the batch's completion). `count` counts all.
         self.stage_ms: dict[str, TimingWindow] = {
             k: TimingWindow(self.WINDOW)
             for k in ("decode", "verdict", "finish")}
@@ -824,10 +860,14 @@ class RingSidecar:
         Each pass stamps every ring's heartbeat, makes one merged
         dequeue pass across the rings (the start ring rotates, so a
         saturated ring cannot starve the others) of up to `max_batch`
-        slots, and serves them as one batch, completed before the next
-        pass. Slots are served in the pass that dequeued them, so none
-        is left unanswered when the loop exits."""
+        slots and issues them as one batch; the oldest batch in flight
+        completes when `pipeline_depth` are in flight or when the pass
+        launched nothing. Batches in flight are completed when the loop
+        exits, so no dequeued slot is left unanswered."""
         self._thread = threading.current_thread()
+        inflight: deque = deque()
+        slot_buf = self._take_slot_buf() if self._staging is not None \
+            else None
         while not self._stop:
             for r in self.rings:
                 r.heartbeat()
@@ -835,13 +875,25 @@ class RingSidecar:
             # a batch behind the metadata batch that admitted it.
             if self.body_scanner is not None:
                 self._drain_bodies()
-            parts = self._dequeue()
+            parts = self._dequeue(slot_buf)
             if parts:
-                self._complete(*self._dispatch(parts))
-            elif max_requests is None or self.processed < max_requests:
+                inflight.append(self._dispatch(parts, slot_buf))
+                if slot_buf is not None:
+                    slot_buf = self._take_slot_buf()
+            if inflight and (len(inflight) >= self.pipeline_depth
+                             or not parts):
+                self._complete(*inflight.popleft())
+            elif not parts and (max_requests is None
+                                or self.processed < max_requests):
                 time.sleep(self.IDLE_SLEEP_S)
-            if max_requests is not None and self.processed >= max_requests:
+            if max_requests is not None and not inflight \
+                    and self.processed >= max_requests:
                 break
+        # Dequeued slots still get their verdicts, in FIFO order.
+        while inflight:
+            self._complete(*inflight.popleft())
+        if slot_buf is not None:
+            self._slot_pool.append(slot_buf)
         # FINAL windows already in the ring still get their verdicts.
         if self.body_scanner is not None:
             self._drain_bodies()
@@ -879,16 +931,30 @@ class RingSidecar:
         if drained:
             self.stage_ms["body"].append((time.monotonic() - t0) * 1e3)
 
-    def _dequeue(self) -> list[tuple[Ring, np.ndarray]]:
+    def _take_slot_buf(self) -> np.ndarray:
+        """A pooled REQUEST_SLOT_DTYPE buffer for the next batch. The
+        pool holds one more than the batches in flight, so an empty pool
+        (IndexError) means a buffer leaked."""
+        return self._slot_pool.popleft()
+
+    def _dequeue(self, slot_buf=None) -> list[tuple[Ring, np.ndarray]]:
+        """One merged dequeue pass: (ring, slots) per ring that had any.
+        With `slot_buf` (under `on`) every ring's slots land in it one
+        after the other, so the merged batch is one view of it."""
         budget = self.max_batch
         nrings = len(self.rings)
         self._ring_rr = (self._ring_rr + 1) % nrings
         parts = []
+        got = 0
         for i in range(nrings):
             if budget <= 0:
                 break
             r = self.rings[(self._ring_rr + i) % nrings]
-            s = r.dequeue_batch(budget)
+            if slot_buf is not None:
+                k = r.dequeue_batch_into(slot_buf[got:got + budget])
+                s = slot_buf[got:got + k]
+            else:
+                s = r.dequeue_batch(budget)
             if len(s):
                 if self.geoip is not None:
                     # Before decoding, so the device batch and the
@@ -896,22 +962,42 @@ class RingSidecar:
                     self._enrich_slots(s)
                 parts.append((r, s))
                 budget -= len(s)
+                got += len(s)
         return parts
 
-    def _dispatch(self, parts):
-        """Decode one merged batch and issue the lane function; returns
-        what `_complete` takes."""
+    def _dispatch(self, parts, slot_buf=None):
+        """Encode one merged batch and issue the lane function, its
+        result's copy to the host queued behind it; returns what
+        `_complete` takes."""
+        slot = self._pipe.enter(self.pipeline_mode)
         t0 = time.monotonic()
-        slots = parts[0][1] if len(parts) == 1 else np.concatenate(
-            [s for _, s in parts])
-        raw, batch = self._decode(slots)
+        staged = None
+        if slot_buf is not None:
+            n = sum(len(p) for _, p in parts)
+            slots = slot_buf[:n]
+            staged = self._staging.checkout(block=False)
+            batch = self._staging.encode_slots(
+                slots, pad_to=pow2_batch_size(n, self.max_batch),
+                into=staged)
+            # The unpadded rows of the same views: every consumer of
+            # `raw` reads data[:len], and the bucketed columns hold
+            # every row's length.
+            raw = RequestBatch(size=n, arrays={
+                k: v[:n] for k, v in batch.arrays.items()})
+        else:
+            slots = parts[0][1] if len(parts) == 1 else np.concatenate(
+                [s for _, s in parts])
+            raw, batch = self._decode(slots)
         t1 = time.monotonic()
         with self._hb_busy():
-            dev = self._lane_fn(self.plan.np_tables, batch.arrays)
+            dev = to_host_async(self._lane_fn(self.plan.np_tables,
+                                              batch.arrays))
         t2 = time.monotonic()
         self.stage_ms["decode"].append((t1 - t0) * 1e3)
         self.stage_ms["verdict"].append((t2 - t1) * 1e3)
-        return parts, slots, raw, dev, t2
+        self._pipe.note_stage(slot, "encode", t0, t1)
+        self._pipe.note_stage(slot, "dispatch", t1, t2)
+        return parts, slots, raw, dev, t2, slot_buf, staged, slot
 
     def _decode(self, slots: np.ndarray) -> tuple[RequestBatch, RequestBatch]:
         """Slots -> the raw batch and the padded one the lane function
@@ -933,8 +1019,10 @@ class RingSidecar:
         first batch of a shape pays one-time costs on the card (the
         first launch of each kernel and library module, the caching
         allocator's growth, cuDNN's algorithm choice for the window
-        convolution's shapes), and the httpd fails a request open when
-        its verdict misses the 3 s deadline. Touches no ring and no
+        convolution's shapes, pinned host memory for the results), and
+        the httpd fails a request open when its verdict misses the 3 s
+        deadline. Under PINGOO_PIPELINE=on the batches go through the
+        staging encoder, as the drain loop's do. Touches no ring and no
         counter; returns (rows, widest column, ms) of each batch."""
         buckets = sorted({pow2_batch_size(1 << k, self.max_batch)
                           for k in range(self.max_batch.bit_length())})
@@ -957,8 +1045,17 @@ class RingSidecar:
                 slots["country"] = b"XX"
                 slots["spill_idx"] = SPILL_NONE
                 t0 = time.monotonic()
-                _, batch = self._decode(slots)
-                self._lane_fn(self.plan.np_tables, batch.arrays).cpu()
+                staged = None
+                if self._staging is not None:
+                    staged = self._staging.checkout(block=False)
+                    batch = self._staging.encode_slots(slots, pad_to=rows,
+                                                       into=staged)
+                else:
+                    _, batch = self._decode(slots)
+                _host_array(to_host_async(self._lane_fn(
+                    self.plan.np_tables, batch.arrays)))
+                if staged is not None:
+                    self._staging.release(staged)
                 out.append((rows, batch.arrays["url_bytes"].shape[1],
                             (time.monotonic() - t0) * 1e3))
         return out
@@ -994,6 +1091,7 @@ class RingSidecar:
             "body_verdicts": self.body_verdicts,
             "rings": len(self.rings),
             "ring_telemetry": self.ring_telemetry(),
+            "pipeline": self._pipe.snapshot(),
             "supervision": {"epoch": self.epoch,
                             "reconciled": dict(self.reconciled)},
         }
@@ -1017,14 +1115,33 @@ class RingSidecar:
             if len(cc) == 2:
                 slots["country"][i] = cc
 
-    def _complete(self, parts, slots, raw, dev, t_issued: float) -> None:
+    def _complete(self, parts, slots, raw, dev, t_issued: float,
+                  slot_buf=None, staged=None, pipe_slot: int = 0) -> None:
+        """Finish one batch: host rules, the wait for its own lanes,
+        routes, spill rows and the posts. Its slot buffer and staging set
+        then return to their pools and it leaves the pipeline."""
+        try:
+            self._finish(parts, slots, raw, dev, t_issued, pipe_slot)
+        finally:
+            if slot_buf is not None:
+                self._slot_pool.append(slot_buf)
+            if staged is not None:
+                self._staging.release(staged)
+            self._pipe.exit()
+
+    def _finish(self, parts, slots, raw, dev, t_issued: float,
+                pipe_slot: int) -> None:
+        t_start = time.monotonic()
         n = len(slots)
         # Host rules run while the device is still computing.
         host = host_rule_lanes(self.plan, raw, self.lists)
         t0 = time.monotonic()
         with self._hb_busy():
-            dev_lanes = dev.cpu().numpy()[:, :n]
-        self.device_wait_s += time.monotonic() - t0
+            dev_lanes = _host_array(dev)[:, :n]
+        t_ready = time.monotonic()
+        self.device_wait_s += t_ready - t0
+        # The compute window: end of issue to the lanes on the host.
+        self._pipe.note_stage(pipe_slot, "compute", t_issued, t_ready)
         unverified, verified_block = merge_lanes(dev_lanes, host)
         self.batches += 1
         # Rows the producer flagged as truncated (a field past its slot
@@ -1108,7 +1225,9 @@ class RingSidecar:
             ring.set_posted_floor(int(part["ticket"].max()) + 1)
             off += m
         self.processed += n
-        self.stage_ms["finish"].append((time.monotonic() - t_issued) * 1e3)
+        t_end = time.monotonic()
+        self._pipe.note_stage(pipe_slot, "resolve", t_ready, t_end)
+        self.stage_ms["finish"].append((t_end - t_start) * 1e3)
 
     def _reconcile_orphans(self) -> None:
         """Answer the tickets the previous epoch dequeued and never

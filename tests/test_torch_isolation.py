@@ -88,10 +88,10 @@ assert [(v.flow_id, v.unverified, v.verified_block) for v in verdicts] \
 # them: parse_config -> load_lists -> compile_ruleset(routes) -> explain.
 import asyncio, importlib
 for mod in ("config.load", "lists", "logging_utils", "obs.trace",
-            "obs.window", "host.jwt", "host.captcha", "host.captcha_frontend",
-            "host.geoip", "host.services", "host.discovery", "host.tlsmgr",
-            "host.acme", "host.h2", "host.httpd", "host.server",
-            "host.native_plane", "__main__"):
+            "obs.window", "obs.pipeline", "host.jwt", "host.captcha",
+            "host.captcha_frontend", "host.geoip", "host.services",
+            "host.discovery", "host.tlsmgr", "host.acme", "host.h2",
+            "host.httpd", "host.server", "host.native_plane", "__main__"):
     importlib.import_module("pingoo_tpu_torch." + mod)
 from pingoo_tpu_torch.config import parse_config
 from pingoo_tpu_torch.lists import load_lists
@@ -112,7 +112,8 @@ explained = asyncio.run(explain_all())
 assert all(e["parity"]["consistent"] for e in explained)
 assert any(e["action"] for e in explained), explained
 assert svc.stats.snapshot()["requests"] == 8
-assert svc.pipeline_snapshot()["depth"] == 1
+pipe = svc.pipeline_snapshot()
+assert (pipe["mode"], pipe["depth"], pipe["batches"]) == ("on", 2, {"on": 8})
 assert not any(k == "jax" or k.startswith(("jax.", "pingoo_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ISOLATED-OK", int(m.sum()), sidecar.processed)
@@ -195,8 +196,6 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_MEGASTEP", "auto"),
     ("PINGOO_MEGASTEP", "force"),
     ("PINGOO_MESH", "2x1x1"),
-    ("PINGOO_PIPELINE", "on"),
-    ("PINGOO_PIPELINE_DEPTH", "3"),
     ("PINGOO_SCAN_STRATEGY", "halo"),
     ("PINGOO_SCHED_MODE", "continuous"),
     ("PINGOO_SCHED_MODE", "deadline"),
@@ -207,8 +206,6 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_PREFILTER_LEVELS", "4"),
     ("PINGOO_STAGING_DEPTH", "2"),
     ("PINGOO_MEGASTEP_K", "4"),
-    ("PINGOO_SCHED_PIPELINE", "2"),
-    ("PINGOO_SCHED_PIPELINE", "two"),
     ("PINGOO_DEADLINE_MS", "2"),
 ])
 def test_unported_knobs_raise(monkeypatch, name, value):
@@ -224,9 +221,6 @@ def test_unported_knobs_raise(monkeypatch, name, value):
 
 
 @pytest.mark.parametrize("name,value,item", [
-    ("PINGOO_PIPELINE", "on", "item 1c, the pipelined executor"),
-    ("PINGOO_PIPELINE", "1", "item 1c, the pipelined executor"),
-    ("PINGOO_PIPELINE_DEPTH", "3", "item 1c, the pipelined executor"),
     ("PINGOO_SCAN_STRATEGY", "halo", "item 4, halo split"),
     ("PINGOO_SCHED_MODE", "continuous", "item 9, the scheduler"),
     ("PINGOO_SCHED_FAILOPEN", "allow", "item 9, the scheduler"),
@@ -235,7 +229,6 @@ def test_unported_knobs_raise(monkeypatch, name, value):
     ("PINGOO_PREFILTER_LEVELS", "2", "item 2, prefilter compact mode"),
     ("PINGOO_STAGING_DEPTH", "1", "item 3, compact staging"),
     ("PINGOO_MEGASTEP_K", "2", "item 5, megastep and DeviceInputQueue"),
-    ("PINGOO_SCHED_PIPELINE", "3", "item 1c, the pipelined executor"),
     ("PINGOO_DEADLINE_MS", "5", "item 9, the scheduler"),
 ])
 def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
@@ -255,6 +248,12 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     ("PINGOO_HALO_SPLIT", "0"), ("PINGOO_SCAN_PACK", "field"),
     ("PINGOO_STAGING_DEPTH", "0"), ("PINGOO_SCHED_PIPELINE", "1"),
     ("PINGOO_SCHED_PIPELINE", "0"),
+    # The pipelined executor (port queue item 1c, ported): its knobs and
+    # the JAX package's default "on".
+    ("PINGOO_PIPELINE", "on"), ("PINGOO_PIPELINE", "1"),
+    ("PINGOO_PIPELINE", "true"), ("PINGOO_PIPELINE_DEPTH", "3"),
+    ("PINGOO_PIPELINE_DEPTH", "1"), ("PINGOO_SCHED_PIPELINE", "2"),
+    ("PINGOO_SCHED_PIPELINE", "3"),
     # Knobs that pick among the JAX package's backends mean nothing here.
     ("PINGOO_NFA_LOOKUP", "pair"), ("PINGOO_DFA_KERNEL", "pallas"),
     ("PINGOO_PREFILTER_KERNEL", "pallas"),
@@ -262,6 +261,18 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
 def test_ported_knob_values_pass(monkeypatch, name, value):
     monkeypatch.setenv(name, value)
     port_device.check_env()
+
+
+def test_non_integer_sched_pipeline_raises_value_error(monkeypatch):
+    """PINGOO_SCHED_PIPELINE is an integer: another value raises
+    ValueError when the service is built, as `int()` does in the JAX
+    package."""
+    rules, lists = generate_ruleset(20, with_lists=False, seed=3)
+    plan = compile_ruleset(rules, lists, device="cpu")
+    monkeypatch.setenv("PINGOO_SCHED_PIPELINE", "two")
+    port_device.check_env()
+    with pytest.raises(ValueError, match="two"):
+        VerdictService(plan, lists, device="cpu")
 
 
 def test_import_builds_nothing():

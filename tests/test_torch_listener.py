@@ -271,7 +271,7 @@ class TestEndToEnd:
         assert "verdict" in payload
         assert "stages" in payload["verdict"]  # per-stage breakdown
         assert payload["verdict"]["requests"] >= 1
-        assert payload["pipeline"]["depth"] == 1
+        assert payload["pipeline"]["depth"] == 2  # PINGOO_SCHED_PIPELINE
         assert payload["engine_errors"] == 0
         assert "ladder" not in payload
         # The Prometheus text (the default exposition) and the other

@@ -240,7 +240,7 @@ def test_service_timing_stays_bounded(small, monkeypatch):
     assert {k: v["count"] for k, v in snap["stages"].items()} \
         == {"encode": 10, "verdict": 10, "finish": 10}
     assert snap["verdict_p99_ms"] >= snap["verdict_p50_ms"] > 0
-    assert service.pipeline_snapshot()["batches"] == {"off": 10}
+    assert service.pipeline_snapshot()["batches"] == {"on": 10}
 
 
 @pytest.mark.parametrize("name,value", [("PINGOO_PIPELINE", "off"),
