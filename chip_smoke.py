@@ -38,7 +38,16 @@
    banks) under on is the main path: the kernels' launch counts are
    reset just before it and read just after, and each kernel must have
    launched. Both executor modes print req/s, and the main path's
-   in-issue syncs are timed (`SyncTimer`).
+   in-issue syncs are timed (`SyncTimer`). The main path runs twice more
+   under PINGOO_MEGASTEP=force, at PINGOO_MEGASTEP_K=4 (each batch one
+   window of 4 slices of 512 rows, one CUDA graph replay) and at 1 (one
+   slice of 2048 rows): a warm-up pass captures the
+   graphs, then the measured pass through the same service must give
+   the main path's verdicts (and the oracle's) with every kernel
+   launched through the replays and no epoch echo mismatch, and one
+   more pass runs under torch.profiler. It prints the captures and
+   their ms, replays, distinct graph keys, the verdict issue per batch
+   and the device's busy share.
 4. Config phase: the port booted from a deployment, as a server does.
    The same corpus is written as a pingoo deployment (its lists as CSV
    files, the rules as pingoo.yml's mapping, two services with `route:`
@@ -71,10 +80,19 @@
    every request, every ticket answered once, a heartbeat age under 500
    ms and launches of all three kernels (counts set to 0 just before the
    drive, read just after); the on arm must have had two or more
-   batches in flight. Prints {"ring": ...}: per arm req/s, wait
-   p50/p99, batches, the stage split, the in-issue syncs, launches per
-   batch, peak in flight, overlap_ratio and stage occupancy, and the on
-   arm's device busy share.
+   batches in flight. Two more arms run under PINGOO_MEGASTEP=force
+   (K=4, on): max_batch=2048, and max_batch=256, whose measured drive
+   must split into more than 40 slices; each first runs the sidecar's
+   warm_up() (one window of every K it ships, narrow and wide, each
+   capturing its graph) and counts the captures its warm stream still
+   makes; both must give the same
+   checksum and bytes, launch every kernel through graph replays and
+   echo every slice's epoch. Prints {"ring": ...}: per arm req/s, wait
+   p50/p99, batches, the stage split, the verdict issue per batch, the
+   in-issue syncs, launches per batch, peak in flight, overlap_ratio
+   and stage occupancy, the megastep arms' warm-up, windows, captures,
+   capture ms, replays and window wall, and the on arms' device busy
+   share.
 7. Body phase, in a process of its own: streaming body inspection
    (engine/bodyscan.py). (a) bench.py's body stream at the scanner's
    defaults (1,024 flows of 256-12,288 bytes, a payload planted in every
@@ -148,9 +166,10 @@
    per batch, the largest heartbeat age and the device's busy share.
 10. Prints one JSON line of per-kernel results (with each kernel's
    launches in the config phase, on the ring drive, on the body
-   phase's streamed passes, on the listener's measured pass and on the
-   native phase's measured loadgen run), then, last, {"ok": true,
-   "device": {...}}.
+   phase's streamed passes, on the listener's measured pass, on the
+   native phase's measured loadgen run, and through the megastep's
+   graph replays in the slice phase and the two ring arms), then, last,
+   {"ok": true, "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
 Imports no JAX and nothing of the JAX package.
@@ -197,6 +216,8 @@ MODES = [(dfa, pf) for dfa in ("auto", "off", "force")
 RING_REQUESTS = 16384
 RING_CAPACITY = 16384
 RING_CHECKSUM = 4032806221
+# The ring phase's many-slice megastep arm: max_batch of its sidecar.
+RING_MANY_SLICES = 256
 # The httpd fails a request open when the sidecar's heartbeat is older.
 HEARTBEAT_LIMIT_MS = 500
 # Calls of a kernel's wrapper queued behind one sleep when its main-path
@@ -1036,11 +1057,15 @@ def call_tables(plan, key):
     return plan.np_tables[key]
 
 
-def capture_main_path(plan, lists, reqs, dev):
+def capture_main_path(plan, lists, reqs, dev, megastep: bool = False):
     """Serve `reqs` once on the main path with every kernel's launcher
     wrapped; returns {kernel: its calls' inputs, by table key (a list of
     keys for a grouped call)} and {kernel: its own launch count over that
-    pass}."""
+    pass}. With `megastep`, the batches go through VerdictService under
+    PINGOO_MEGASTEP=force (the Python plane's default K, one slice a
+    batch), one at a time, each window's K-slice body run
+    eagerly instead of through its graph (a launch inside a capture
+    runs nothing there to record): the megastep arm's calls."""
     from pingoo_tpu_torch.engine.service import VerdictService
 
     keys = {id(t): k for k, t in plan.np_tables.items()}
@@ -1068,13 +1093,29 @@ def capture_main_path(plan, lists, reqs, dev):
     for name, (mod, attr, _, _) in launchers().items():
         setattr(mod, attr, wrap(name, reals[name]))
     try:
-        asyncio.run(serve(VerdictService(plan, lists, max_batch=B,
-                                         device=dev), reqs))
+        if megastep:
+            os.environ["PINGOO_MEGASTEP"] = "force"
+            service = VerdictService(plan, lists, max_batch=B, device=dev)
+            runner = service._mega_runner
+
+            def eager(queue, buf_id, k_used, k_ship):
+                stacked, nv, ep = queue.device_stack(buf_id, k_used, k_ship)
+                return runner.program.fn(
+                    runner.tables, {k: v.to(dev) for k, v in stacked.items()},
+                    nv.to(dev), ep.to(dev))
+
+            runner.run = eager
+            for lo in range(0, N_REQUESTS, B):
+                service.evaluate_batch(reqs[lo:lo + B])
+        else:
+            asyncio.run(serve(VerdictService(plan, lists, max_batch=B,
+                                             device=dev), reqs))
     finally:
         for name, (mod, attr, _, _) in launchers().items():
             setattr(mod, attr, reals[name])
         os.environ.pop("PINGOO_DFA")
         os.environ.pop("PINGOO_PREFILTER")
+        os.environ.pop("PINGOO_MEGASTEP", None)
     return calls, {name: mod.KERNEL.launches - before[name]
                    for name, (mod, _, _, _) in launchers().items()}
 
@@ -1094,7 +1135,8 @@ def call_shape(plan, c) -> str:
     return f"{c['key']}:{data.shape[0]}x{data.shape[1]}"
 
 
-def main_path_phase(plan, name, calls, n_launched) -> dict:
+def main_path_phase(plan, name, calls, n_launched,
+                    label: str = "main path") -> dict:
     """Replay one kernel's captured main-path calls through the kernel
     and the plain version (bit equality), time the whole replay (issued
     by the host, and queued on the card) and give the work's bound and,
@@ -1105,7 +1147,7 @@ def main_path_phase(plan, name, calls, n_launched) -> dict:
     mod, attr, plain, work_fn = launchers()[name]
     fused = getattr(mod, attr)
     if not n_launched or not calls:
-        fail(f"the main path launched no {name} kernel to capture")
+        fail(f"the {label} launched no {name} kernel to capture")
 
     def replay(fn):
         return [fn(call_tables(plan, c["key"]), *c["args"], **c["kwargs"])
@@ -1122,7 +1164,7 @@ def main_path_phase(plan, name, calls, n_launched) -> dict:
     shapes = [call_shape(plan, c) for c in calls]
     floor = f", chain floor {chain_floor_ms(work) * 1e3:.1f} us" \
         if "chain" in work else ""
-    print(f"{name} main path: {len(calls)} calls, {n_launched} launches "
+    print(f"{name} {label}: {len(calls)} calls, {n_launched} launches "
           f"{' '.join(shapes)}, max_abs_err {err}; replay {med * 1e3:.1f} us "
           f"(quartiles {q1 * 1e3:.1f}-{q3 * 1e3:.1f}), queued on the card "
           f"{dev_ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us{floor}",
@@ -1152,39 +1194,40 @@ def stage_a_inputs(plan, reqs, dev):
 def device_kernels(fns: dict) -> dict:
     """{label: {device kernel name: launches}} of one run of each `fn`,
     all in one torch.profiler session (a second session in one process
-    can record no device events), each run under its own annotation; a
-    kernel counts for the annotated range its start falls in."""
+    can record no device events). A sleep kernel goes before each run and
+    after the last, and a kernel counts for the run between the two
+    markers it falls between on the device's own clock: the device's
+    timestamps can lie tens of µs before the host's, so a kernel launched
+    at the start of a host-side range has shown up before that range on
+    the H100."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for label, fn in fns.items():
-            with record_function(f"run:{label}"):
-                fn()
-                torch.cuda.synchronize()
-        # The profiler receives a kernel's record some time after the
-        # kernel ends: a session stopped right after the last sync has
-        # lost the last run's kernel on the H100.
+        for fn in fns.values():
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         time.sleep(0.1)
-    events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in events if e.device_type == cuda
-               and not e.name.startswith("run:")]
-    out = {}
-    for e in events:
-        if not e.name.startswith("run:") or e.device_type == cuda:
-            continue
-        lo, hi = e.time_range.start, e.time_range.end
-        counts = {}
-        for k in kernels:
-            if lo <= k.time_range.start < hi:
-                counts[k.name] = counts.get(k.name, 0) + 1
-        out[e.name[4:]] = counts
-    return out
+    kernels = sorted((e for e in prof.events() if e.device_type == cuda),
+                     key=lambda e: e.time_range.start)
+    runs = []
+    for k in kernels:
+        if "spin_kernel" in k.name:
+            runs.append({})
+        elif runs:
+            runs[-1][k.name] = runs[-1].get(k.name, 0) + 1
+    if len(runs) != len(fns) + 1 or runs[-1]:
+        fail(f"the profiler recorded {len(runs)} marker kernels around "
+             f"{len(fns)} runs, not {len(fns) + 1}")
+    return dict(zip(fns, runs))
 
 
 def stage_a_phase(pf_ops, plan, reqs, dev, grouped: bool = True) -> dict:
@@ -1265,16 +1308,19 @@ def session_device(prof) -> tuple[float, int]:
     return us, ours
 
 
-def profile_main_path(plan, lists, reqs, dev) -> None:
-    """One more main-path run under torch.profiler: the device's busy
-    share of the wall time and the device time by kernel name (printed
-    as "not measured" when the profiler records no device time)."""
+def profile_main_path(plan, lists, reqs, dev, service=None):
+    """One more main-path run (through `service`, else a fresh one)
+    under torch.profiler: the device's busy share of the wall time and
+    the device time by kernel name (printed as "not measured" when the
+    profiler records no device time); returns the busy share (%) or
+    "not measured"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from pingoo_tpu_torch.engine.service import VerdictService
 
-    service = VerdictService(plan, lists, max_batch=B, device=dev)
+    if service is None:
+        service = VerdictService(plan, lists, max_batch=B, device=dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = asyncio.run(serve(service, reqs))
@@ -1284,13 +1330,15 @@ def profile_main_path(plan, lists, reqs, dev) -> None:
     if busy_ms <= 0:
         print("profile: device time not measured (the profiler recorded "
               "no device kernels)", flush=True)
-        return
+        return "not measured"
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    busy = 100 * busy_ms / (wall * 1e3)
     print(f"profile (main path, {N_REQUESTS} requests): wall "
           f"{wall * 1e3:.1f} ms, device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / (wall * 1e3):.2f}% busy); by kernel (ms): "
+          f"({busy:.2f}% busy); by kernel (ms): "
           + "; ".join(f"{k[:60]} {v / 1e3:.3f}" for k, v in top),
           flush=True)
+    return busy
 
 
 # The slice phase's interpreter oracle runs in processes of its own while
@@ -1339,36 +1387,85 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
     cpu_fn = make_verdict_fn(cpu_plan)
     main_counts = None
     # Every mode under the default executor (PINGOO_PIPELINE=on); the
-    # main path's mode also under off, one batch at a time.
-    runs = [(dfa, pf, "on") for dfa, pf in MODES]
-    runs.insert(1, (*MODES[0], "off"))
+    # main path's mode also under off, one batch at a time, and under
+    # PINGOO_MEGASTEP=force at PINGOO_MEGASTEP_K=4 (4 slices of 512 rows
+    # a batch) and 1 (one slice of 2048 rows).
+    runs = [(dfa, pf, "on", "off", None) for dfa, pf in MODES]
+    runs.insert(1, (*MODES[0], "off", "off", None))
+    runs.insert(2, (*MODES[0], "on", "force", 4))
+    runs.insert(3, (*MODES[0], "on", "force", 1))
     cpu_rows = {}
-    for dfa_mode, pf_mode, pipe_mode in runs:
+    megas = {}
+    for dfa_mode, pf_mode, pipe_mode, mega_mode, mega_k in runs:
         os.environ["PINGOO_DFA"] = dfa_mode
         os.environ["PINGOO_PREFILTER"] = pf_mode
         os.environ["PINGOO_PIPELINE"] = pipe_mode
+        os.environ["PINGOO_MEGASTEP"] = mega_mode
+        if mega_k is not None:
+            os.environ["PINGOO_MEGASTEP_K"] = str(mega_k)
         label = (f"PINGOO_DFA={dfa_mode} PINGOO_PREFILTER={pf_mode} "
-                 f"PINGOO_PIPELINE={pipe_mode}")
+                 f"PINGOO_PIPELINE={pipe_mode}"
+                 + (f" PINGOO_MEGASTEP=force PINGOO_MEGASTEP_K={mega_k}"
+                    if mega_mode == "force" else ""))
         main = (dfa_mode, pf_mode) == ("auto", "banks")
         # A warm-up pass over the same batches (each new field width
-        # costs a first call) outside the timings, then a fresh service.
+        # costs a first call) outside the timings, then a fresh service;
+        # under the megastep the warmed service itself, whose graphs the
+        # warm-up captured, with its statistics started afresh.
         warm = VerdictService(plan, lists, max_batch=B, device=dev)
+        if mega_mode == "force":
+            # This thread alone uses the card in the warm-up pass: its
+            # captures run in the global mode, where any call of the
+            # slice body illegal under capture would raise.
+            warm._mega_runner.capture_mode = "global"
+        t0 = time.monotonic()
         for lo in range(0, N_REQUESTS, B):
             warm.evaluate_batch(reqs[lo:lo + B])
-        service = VerdictService(plan, lists, max_batch=B, device=dev)
+        warm_s = time.monotonic() - t0
+        # The verdict issue of the warm-up's batches, one at a time in
+        # this thread (the measured pass below issues beside another
+        # batch's encode or finish, which contend for the interpreter).
+        alone = warm.stats.stages["verdict"].summary()
+        if mega_mode == "force":
+            warm._mega_runner.capture_mode = "thread_local"
+            service = warm
+            mega = megas[mega_k] = {}
+            mega["warm_s"] = warm_s
+            mega["warm_graphs"] = service._mega_runner.snapshot()
+            service.stats = type(service.stats)(service.WINDOW)
+            service._pipe = type(service._pipe)("python",
+                                                service._pipeline_depth)
+        else:
+            service = VerdictService(plan, lists, max_batch=B, device=dev)
         os.environ.pop("PINGOO_PIPELINE")
         syncs = SyncTimer()
         _build.reset_launch_counts()
         with syncs:
             verdicts, wall = asyncio.run(serve(service, reqs))
         counts = {k: v.launches for k, v in _build.KERNELS.items()}
-        if main and pipe_mode == "on":
+        if main and (pipe_mode, mega_mode) == ("on", "off"):
             main_counts = counts
         matched = np.stack([v.matched for v in verdicts])
         act = np.array([v.action for v in verdicts])
         vb = np.array([v.verified_block for v in verdicts])
-        if main and pipe_mode == "on":
+        if main and (pipe_mode, mega_mode) == ("on", "off"):
             main_out = (matched, act, vb)
+        if mega_mode == "force":
+            if (matched != main_out[0]).any() or (act != main_out[1]).any() \
+                    or (vb != main_out[2]).any():
+                fail(f"{label}: verdicts differ from the main path's")
+            missing = [k for k, n in counts.items() if n == 0]
+            if missing:
+                fail(f"{label}: no {missing} kernel launched through the "
+                     f"graph replays")
+            mega.update(
+                launches=counts, graphs=service._mega_runner.snapshot(),
+                snapshot=service.pipeline_snapshot()["megastep"],
+                echo_mismatch=service.mega_echo_mismatch,
+                verdict_ms=service.stats.stages["verdict"].summary(),
+                verdict_alone_ms=alone, req_per_s=N_REQUESTS / wall)
+            if mega["echo_mismatch"]:
+                fail(f"{label}: {mega['echo_mismatch']} epoch echoes differ")
         # The port's CPU path on the same batches, once per mode.
         if (dfa_mode, pf_mode) not in cpu_rows:
             cpu = []
@@ -1401,8 +1498,16 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
                  f"{service._pipe.peak_inflight}, overlap_ratio "
                  f"{pipe['overlap_ratio']} over {pipe['overlap_events']} "
                  f"events, occupancy {pipe['stage_occupancy']}, in-issue "
-                 f"syncs {syncs.summary(len(ms))}" if main else ""),
+                 f"syncs {syncs.summary(len(ms))}; verdict issue of the "
+                 f"warm-up's batches one at a time: p50 "
+                 f"{alone['p50_ms']:.3f} ms, mean {alone['mean_ms']:.3f} ms "
+                 f"over {alone['count']}" if main else ""),
               flush=True)
+        if mega_mode == "force":
+            mega["busy"] = profile_main_path(plan, lists, reqs, dev,
+                                             service=service)
+        os.environ.pop("PINGOO_MEGASTEP")
+        os.environ.pop("PINGOO_MEGASTEP_K", None)
     os.environ["PINGOO_DFA"], os.environ["PINGOO_PREFILTER"] = MODES[0]
     profile_main_path(plan, lists, reqs, dev)
     os.environ.pop("PINGOO_DFA")
@@ -1411,7 +1516,24 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
                if main_counts.get(k, 0) == 0]
     if missing:
         fail(f"the main path launched no {missing} kernel")
-    return main_counts, main_out
+    for k, mega in megas.items():
+        g = mega["graphs"]
+        print(f"megastep (slice phase, K={k} x {B // k} rows): warm-up "
+              f"pass {mega['warm_s']:.2f} s with "
+              f"{mega['warm_graphs']['captures']} captures "
+              f"({mega['warm_graphs']['capture_ms_total']:.1f} ms, max "
+              f"{mega['warm_graphs']['capture_ms_max']:.1f}); measured "
+              f"pass {mega['req_per_s']:.0f} req/s, {g['replays']} replays "
+              f"in all, {g['distinct_keys']} distinct graph keys, verdict "
+              f"issue p50 {mega['verdict_ms']['p50_ms']:.3f} ms mean "
+              f"{mega['verdict_ms']['mean_ms']:.3f} ms a batch (one at a "
+              f"time in the warm-up, capture included: p50 "
+              f"{mega['verdict_alone_ms']['p50_ms']:.3f} ms), launches "
+              f"through replays {mega['launches']}, windows "
+              f"{mega['snapshot']['windows']} of K {mega['snapshot']['k']}, "
+              f"echo mismatches {mega['echo_mismatch']}, device busy "
+              f"{mega['busy']}", flush=True)
+    return main_counts, main_out, megas
 
 
 EXPLAIN_REQUESTS = 64
@@ -1756,6 +1878,7 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
 
     b0 = sidecar.batches
     s0 = {k: v.count for k, v in sidecar.stage_ms.items()}
+    g0 = sidecar.stats()["megastep"]["graphs"]
     syncs = SyncTimer()
     _build.reset_launch_counts()
     if profiled:
@@ -1789,7 +1912,21 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
                       for k, v in sidecar.stage_ms.items()},
         max_heartbeat_age_ms=r.max_heartbeat_age_ms, checksum=r.checksum,
         launches=launches,
-        launches_per_batch={k: n / batches for k, n in launches.items()})
+        launches_per_batch={k: n / batches for k, n in launches.items()},
+        verdict_issue_ms_per_batch=sum(
+            sidecar.stage_ms["verdict"].since(s0["verdict"])) / batches)
+    if g0 is not None:
+        # The megastep: windows, graph captures and replays in the drive.
+        g1 = sidecar.stats()["megastep"]["graphs"]
+        out["megastep"] = dict(
+            windows=len(sidecar.stage_ms["window"].since(s0["window"])),
+            captures=g1["captures"] - g0["captures"],
+            capture_ms=round(g1["capture_ms_total"]
+                             - g0["capture_ms_total"], 3),
+            replays=g1["replays"] - g0["replays"],
+            distinct_keys=g1["distinct_keys"],
+            window_p50_ms=float(np.percentile(
+                sidecar.stage_ms["window"].since(s0["window"]), 50)))
     if not profiled:
         out["issue_syncs"] = syncs.summary(batches)
     if profiled:
@@ -1800,30 +1937,45 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
     return out
 
 
-def ring_arm(ring, producer, plan, lists, want, dev, mode: str) -> dict:
-    """One arm of the ring phase: a RingSidecar(max_batch=B,
-    pipeline_depth=3) under PINGOO_PIPELINE=`mode` drains the ring in a
-    thread while the producer drives the warm stream, then the measured
-    one (and under `on` the measured one again under torch.profiler);
-    then the sidecar stops. Returns the arm's numbers."""
+def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
+             megastep: str = "off", max_batch: int = B) -> dict:
+    """One arm of the ring phase: a RingSidecar(max_batch,
+    pipeline_depth=3) under PINGOO_PIPELINE=`mode` and
+    PINGOO_MEGASTEP=`megastep` drains the ring in a thread while the
+    producer drives the warm stream, then the measured one (and under
+    `on` the measured one again under torch.profiler); then the sidecar
+    stops. Returns the arm's numbers."""
     import threading
 
     from pingoo_tpu_torch import native_ring as nr
 
     os.environ["PINGOO_PIPELINE"] = mode
+    os.environ["PINGOO_MEGASTEP"] = megastep
     try:
-        sidecar = nr.RingSidecar(ring, plan, lists, max_batch=B,
+        sidecar = nr.RingSidecar(ring, plan, lists, max_batch=max_batch,
                                  device=dev, pipeline_depth=3)
     finally:
         os.environ.pop("PINGOO_PIPELINE")
+        os.environ.pop("PINGOO_MEGASTEP")
     if sidecar.pipeline_mode != mode:
         fail(f"the sidecar runs {sidecar.pipeline_mode}, not {mode}")
+    t_arm = time.monotonic()
+    warm_up = None
+    if megastep == "force":
+        # As the native plane does before its httpd enqueues: under force
+        # one window of each K the loop ships, narrow and wide, each
+        # capturing its graph.
+        warm_up = dict(windows=sidecar.warm_up(),
+                       graphs=sidecar.stats()["megastep"]["graphs"])
     thread = threading.Thread(target=sidecar.run, daemon=True)
     thread.start()
     try:
         t0 = time.monotonic()
         producer.drive(12)
         warm_s = time.monotonic() - t0
+        if warm_up is not None:
+            warm_up["warm_drive_captures"] = sidecar.stats()["megastep"][
+                "graphs"]["captures"] - warm_up["graphs"]["captures"]
         drives = [ring_drive(sidecar, lambda: producer.drive(11), want,
                              profiled)
                   for profiled in ((False, True) if mode == "on"
@@ -1833,13 +1985,27 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str) -> dict:
         thread.join(timeout=30)
     if thread.is_alive():
         fail(f"the {mode} sidecar's drain loop did not stop")
-    pipe = sidecar.stats()["pipeline"]
+    stats = sidecar.stats()
+    pipe = stats["pipeline"]
     peak = sidecar._pipe.peak_inflight
     if mode == "on" and peak < 2:
         fail(f"the on arm never had two batches in flight (peak {peak})")
-    return dict(mode=mode, depth=sidecar.pipeline_depth, warm_s=warm_s,
+    if megastep == "force":
+        mega = stats["megastep"]
+        if mega["echo_mismatch"] or not mega["windows"]:
+            fail(f"the megastep arm ran {mega['windows']} windows with "
+                 f"{mega['echo_mismatch']} epoch echo mismatches")
+        if max_batch == RING_MANY_SLICES and drives[0]["batches"] <= 40:
+            fail(f"the megastep arm's measured drive split into "
+                 f"{drives[0]['batches']} slices, not more than 40")
+    return dict(mode=mode, megastep=megastep, max_batch=max_batch,
+                depth=sidecar.pipeline_depth, warm_up=warm_up, warm_s=warm_s,
+                arm_s=time.monotonic() - t_arm,
                 processed=sidecar.processed, peak_inflight=peak,
-                pipeline=pipe, drives=drives)
+                pipeline=pipe, megastep_stats=stats["megastep"],
+                graph_keys=(sorted(sidecar._mega_runner.keys)
+                            if megastep == "force" else None),
+                drives=drives)
 
 
 def ring_phase() -> int:
@@ -1864,6 +2030,7 @@ def ring_phase() -> int:
 
     from pingoo_tpu_torch import native_ring as nr
     from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.engine.batch import STRING_FIELDS
     from pingoo_tpu_torch.engine.service import VerdictService
     from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
 
@@ -1889,6 +2056,14 @@ def ring_phase() -> int:
                 for mode in ("off", "on"):
                     arms[mode] = ring_arm(ring, producer, plan, lists, want,
                                           dev, mode)
+                # The megastep (K=4): windows of four max_batch slices,
+                # then max_batch=256, where the stream splits into 64 or
+                # more slices.
+                arms["force"] = ring_arm(ring, producer, plan, lists, want,
+                                         dev, "on", "force")
+                arms["force_256"] = ring_arm(ring, producer, plan, lists,
+                                             want, dev, "on", "force",
+                                             max_batch=RING_MANY_SLICES)
                 producer.close()
                 time.sleep(0.2)
                 if ring.poll_verdict() is not None:
@@ -1901,11 +2076,18 @@ def ring_phase() -> int:
             ring.close()
     for mode, arm in arms.items():
         pipe = arm["pipeline"]
-        print(f"ring arm PINGOO_PIPELINE={mode} (depth {arm['depth']}): "
+        print(f"ring arm {mode}: PINGOO_PIPELINE={arm['mode']} "
+              f"PINGOO_MEGASTEP={arm['megastep']} max_batch "
+              f"{arm['max_batch']} (depth {arm['depth']}, {arm['arm_s']:.1f}"
+              f" s, warm-up drive {arm['warm_s']:.2f} s): "
               f"peak in flight {arm['peak_inflight']}, overlap_ratio "
               f"{pipe['overlap_ratio']} over {pipe['overlap_events']} "
-              f"events, stage occupancy {pipe['stage_occupancy']}",
-              flush=True)
+              f"events, stage occupancy {pipe['stage_occupancy']}"
+              + (f", megastep {arm['megastep_stats']}, windows "
+                 f"{pipe['megastep']}; warm_up() {arm['warm_up']}; graph "
+                 f"keys (kind, k_ship, rows, widths of {STRING_FIELDS}) "
+                 f"{arm['graph_keys']}"
+                 if arm["megastep"] == "force" else ""), flush=True)
         for label, d in zip(("measured", "profiled"), arm["drives"]):
             print(f"  ring drive ({mode}, {label}): {RING_REQUESTS} "
                   f"requests, checksum {d['checksum']}, "
@@ -1914,6 +2096,10 @@ def ring_phase() -> int:
                   f"{d['batches']} batches of {d['rows_per_batch']:.1f} rows, "
                   f"stage p50 ms {d['stage_p50_ms']}, heartbeat age max "
                   f"{d['max_heartbeat_age_ms']} ms, launches {d['launches']}"
+                  + f", verdict issue {d['verdict_issue_ms_per_batch']:.3f}"
+                  f" ms a batch"
+                  + (f", megastep {d['megastep']}" if "megastep" in d
+                     else "")
                   + (f", in-issue syncs {d['issue_syncs']}"
                      if "issue_syncs" in d else "")
                   + (f", device busy {d['device_busy_ms']} ms = "
@@ -4051,7 +4237,8 @@ def main() -> int:
     body = body_child()
     listener = listener_child()
     native = native_child()
-    counts, main_path = slice_phase(plan, rules, lists, reqs, dev, oracle)
+    counts, main_path, megas = slice_phase(plan, rules, lists, reqs, dev,
+                                           oracle)
     config_counts = config_phase(rules, lists, reqs, oracle, main_path, dev)
     calls, launched = capture_main_path(plan, lists, reqs, dev)
     batches = -(-N_REQUESTS // B)
@@ -4065,6 +4252,18 @@ def main() -> int:
             fail(f"the {name} kernel disagrees with its plain version on a "
                  f"captured main-path launch")
         results[name].update(main)
+    # The megastep arm's calls: the slices' gathered rows (candidates at
+    # the front, the rest at length 0), held and timed the same way.
+    calls, launched = capture_main_path(plan, lists, reqs, dev,
+                                        megastep=True)
+    for name in ("nfa_scan", "bitsplit_dfa", "prefilter"):
+        m = main_path_phase(plan, name, calls[name], launched[name],
+                            label="megastep path")
+        if m.pop("max_abs_err") != 0:
+            fail(f"the {name} kernel disagrees with its plain version on a "
+                 f"captured megastep launch")
+        results[name].update({k.replace("main_path", "megastep_path"): v
+                              for k, v in m.items()})
     out = []
     for name in ("nfa_scan", "bitsplit_dfa", "prefilter"):
         r = results[name]
@@ -4082,6 +4281,12 @@ def main() -> int:
             "listener_launches": listener["passes"]["h1"]["launches"][name],
             "native_launches": native["loadgen"]["throughput"]["launches"][
                 name],
+            "megastep_launches": megas[1]["launches"][name],
+            "megastep_k4_launches": megas[4]["launches"][name],
+            "ring_megastep_launches": ring["arms"]["force"]["drives"][0][
+                "launches"][name],
+            "ring_megastep_256_launches": ring["arms"]["force_256"][
+                "drives"][0]["launches"][name],
             **{k: v for k, v in r.items() if k not in (
                 "route", "source", "replaces", "max_abs_err", "ms",
                 "plain_ms", "work")}})

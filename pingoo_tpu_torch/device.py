@@ -37,10 +37,11 @@ _UNPORTED = (
     # The JAX package's lane and row packing of lax.scan banks.
     ("PINGOO_SCAN_PACK", lambda v: v not in ("", "field"),
      "section 2, kernel work item 1, lane packing"),
-    ("PINGOO_MEGASTEP", lambda v: v not in ("", "off"),
-     "port queue item 5, megastep and DeviceInputQueue"),
-    ("PINGOO_MEGASTEP_K", lambda v: v != "",
-     "port queue item 5, megastep and DeviceInputQueue"),
+    # `off` and `force` are ported (engine/verdict.py, engine/graphs.py);
+    # `auto` sizes K against deadline slack with the scheduler's cost
+    # model, which the port does not have.
+    ("PINGOO_MEGASTEP", lambda v: v == "auto",
+     "port queue item 9, the scheduler (megastep auto sizing)"),
     ("PINGOO_MESH", lambda v: v.strip() not in ("", "1", "1x1", "1x1x1"),
      "port queue item 9, the mesh"),
     # The port's sidecar dispatches whatever one drain pass returns (the

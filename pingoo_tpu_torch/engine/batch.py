@@ -14,12 +14,14 @@ Two encode paths give the same arrays: the one-batch chain
 (`encode_requests` -> `bucket_arrays` -> `pad_batch`, or the ring's
 `slots_to_arrays` -> bucket -> pad), which allocates per batch, and the
 pipelined executor's `StagingEncoder`, which fills reused buffers in
-place and hands out views already bucketed and padded.
+place and hands out views already bucketed and padded. The megastep's
+`DeviceInputQueue` stacks K such batches for one device program.
 """
 
 from __future__ import annotations
 
 import ipaddress
+import math
 import threading
 from dataclasses import dataclass
 from typing import Mapping, Optional
@@ -362,6 +364,244 @@ class StagingEncoder:
             col[n:] = 0
             arrays[key] = col
         return RequestBatch(size=P, arrays=arrays, overflow=None)
+
+
+# The megastep's per-slice words, beside the stacked batch arrays.
+_WINDOW_WORDS = ("n_valid", "epoch")
+
+
+class DeviceInputQueue:
+    """The megastep's input stacks (PINGOO_MEGASTEP=force).
+
+    The megastep (engine/verdict.make_megastep_fn) reads K batch slices
+    as one stacked {field: [K, B, ...]} plus an n_valid and an epoch word
+    per slice. Each set of this queue holds stacks sized to the field
+    capacities; `fill_slice` copies one encoded batch into slice j in
+    place (so the staging views it came from are free at once), and the
+    window ships trimmed to its K, its row count and each byte field's
+    widest slice (`device_stack` on the CPU; `ship` into a CUDA graph's
+    static inputs on the card). Short slices are masked by n_valid,
+    never re-shaped, and slices shipped past the filled ones (`k_ship`
+    quantised up the K ladder) arrive as zero rows with n_valid 0.
+
+    Two differences from the JAX package's queue, which hands its
+    `nbuf` sets out in turn:
+
+      * the sets come from a free list. A set is held from `checkout()`
+        to `release()`: on the sidecar until its window's last verdict,
+        since host rules and spill rows read its `slice_view`s then; so
+        no later window can refill the stacks of a window in flight,
+        however many are in flight. `checkout(block=False)` raises when
+        every set is out;
+      * on the card the window is packed, at its shape, into one pinned
+        buffer of its set and uploaded by one non-blocking copy queued
+        on the current stream right before the graph's replay, then a
+        CUDA event is recorded. `checkout()` waits for the set's event
+        before handing the set out again, so the copy has read the
+        buffer before anything refills it.
+    """
+
+    def __init__(self, k: int, max_batch: int,
+                 field_specs: Optional[Mapping[str, int]] = None,
+                 nbuf: int = 2):
+        specs = dict(field_specs or DEFAULT_FIELD_SPECS)
+        self.k = max(1, int(k))
+        self.max_batch = int(max_batch)
+        self.specs = specs
+        self.nbuf = max(1, int(nbuf))
+        self._free = list(range(self.nbuf))
+        self._cv = threading.Condition()
+        self._bufs: list[dict] = []
+        self._widths: list[dict] = []
+        self._rows: list[int] = [0] * self.nbuf
+        # Per set: the pinned upload buffer (grown on demand) and the
+        # CUDA event recorded after its last upload.
+        self._pinned: list = [None] * self.nbuf
+        self._shipped: list = [None] * self.nbuf
+        for _ in range(self.nbuf):
+            stacks: dict = {}
+            for field in STRING_FIELDS:
+                cap = specs.get(field, 256)
+                stacks[f"{field}_bytes"] = np.zeros(
+                    (self.k, self.max_batch, cap), dtype=np.uint8)
+                stacks[f"{field}_len"] = np.zeros(
+                    (self.k, self.max_batch), dtype=np.int32)
+            stacks["ip"] = np.zeros(
+                (self.k, self.max_batch, 4), dtype=np.uint32)
+            stacks["asn"] = np.zeros(
+                (self.k, self.max_batch), dtype=np.int64)
+            stacks["remote_port"] = np.zeros(
+                (self.k, self.max_batch), dtype=np.int64)
+            stacks["n_valid"] = np.zeros(self.k, dtype=np.int32)
+            stacks["epoch"] = np.zeros(self.k, dtype=np.int32)
+            self._bufs.append(stacks)
+            self._widths.append({})
+
+    def checkout(self, block: bool = True) -> int:
+        """A free stack set for a new window, held until `release`, its
+        n_valid words zeroed. Blocks while every set is out; with
+        `block=False` that raises instead."""
+        with self._cv:
+            if not self._free and not block:
+                raise RuntimeError(
+                    f"every megastep input set is checked out "
+                    f"(nbuf={self.nbuf})")
+            while not self._free:
+                self._cv.wait()
+            i = self._free.pop(0)
+        if self._shipped[i] is not None:
+            self._shipped[i].synchronize()
+            self._shipped[i] = None
+        self._bufs[i]["n_valid"][:] = 0
+        self._widths[i].clear()
+        self._rows[i] = 0
+        return i
+
+    def release(self, buf_id: int) -> None:
+        with self._cv:
+            self._free.append(buf_id)
+            self._cv.notify()
+
+    def fill_slice(self, buf_id: int, j: int, arrays: Mapping,
+                   n_valid: int, epoch: int) -> None:
+        """Copy one encoded batch into slice j of the set. Byte columns
+        may be narrower than the capacity (bucketed views): the columns
+        from the slice's width up to the window's widest are zeroed, so
+        no earlier window's bytes show in the shipped window."""
+        buf = self._bufs[buf_id]
+        widths = self._widths[buf_id]
+        rows = 0
+        for name, arr in arrays.items():
+            rows = arr.shape[0]
+            if name.endswith("_bytes"):
+                w = arr.shape[1]
+                prev = widths.get(name, 0)
+                dst = buf[name][j, :rows]
+                dst[:, :w] = arr
+                if w < prev:
+                    dst[:, w:prev] = 0
+                elif w > prev:
+                    if prev and j:
+                        buf[name][:j, :rows, prev:w] = 0
+                    widths[name] = w
+            else:
+                buf[name][j, :rows] = arr
+        if self._rows[buf_id] and rows != self._rows[buf_id]:
+            raise ValueError(
+                f"megastep slices must share one row bucket: "
+                f"{rows} != {self._rows[buf_id]}")
+        self._rows[buf_id] = rows
+        buf["n_valid"][j] = n_valid
+        buf["epoch"][j] = epoch
+
+    def slice_view(self, buf_id: int, j: int, n: int) -> dict:
+        """Host views of slice j's first n rows (capacity width), valid
+        until the set is released."""
+        buf = self._bufs[buf_id]
+        return {name: buf[name][j, :n]
+                for name in buf if name not in _WINDOW_WORDS}
+
+    def window_shape(self, buf_id: int, k_ship: int) -> dict:
+        """{name: shape} of the window as shipped with `k_ship` slices:
+        [k_ship, rows, width] bytes (the window's widest slice),
+        [k_ship, rows] lengths and numbers, [k_ship, rows, 4] IP words,
+        [k_ship] n_valid and epoch."""
+        k_ship = min(self.k, k_ship)
+        buf = self._bufs[buf_id]
+        widths = self._widths[buf_id]
+        rows = self._rows[buf_id] or self.max_batch
+        out = {}
+        for name, stack in buf.items():
+            if name in _WINDOW_WORDS:
+                out[name] = (k_ship,)
+            elif name.endswith("_bytes"):
+                out[name] = (k_ship, rows, widths.get(name, stack.shape[2]))
+            else:
+                out[name] = (k_ship, rows) + stack.shape[2:]
+        return out
+
+    def _pack(self, buf_id: int, k_used: int, out: dict) -> None:
+        """Write the window into `out` ({name: array} of `window_shape`;
+        IP words widened to int64): the filled slices, zeros past them."""
+        buf = self._bufs[buf_id]
+        for name, dst in out.items():
+            stack = buf[name]
+            if name in _WINDOW_WORDS:
+                dst[:] = stack[:dst.shape[0]]
+                continue
+            k, rows = dst.shape[:2]
+            src = stack[:k_used, :rows]
+            if name.endswith("_bytes"):
+                src = src[:, :, :dst.shape[2]]
+            dst[:k_used] = src
+            dst[k_used:] = 0
+
+    def device_stack(self, buf_id: int, k_used: int, pad_to: int = 0):
+        """(stacked, n_valid, epoch) of the window as CPU tensors, the
+        leading dim `max(k_used, pad_to)` capped at K."""
+        k_ship = min(self.k, max(k_used, pad_to))
+        out = {name: np.empty(shape, dtype=np.int64 if name == "ip"
+                              else self._bufs[buf_id][name].dtype)
+               for name, shape in self.window_shape(buf_id, k_ship).items()}
+        self._pack(buf_id, k_used, out)
+        t = {name: torch.from_numpy(a) for name, a in out.items()}
+        nv, ep = t.pop("n_valid"), t.pop("epoch")
+        return t, nv, ep
+
+    def _layout(self, buf_id: int, k_ship: int) -> tuple[dict, int]:
+        """{name: (dtype, shape, byte offset)} of the window's arrays
+        packed into one flat byte buffer (each at a 256-byte boundary),
+        and the buffer's size."""
+        buf = self._bufs[buf_id]
+        layout, off = {}, 0
+        for name, shape in self.window_shape(buf_id, k_ship).items():
+            dtype = _torch_dtype(name, buf[name].dtype)
+            layout[name] = (dtype, shape, off)
+            off += -(-math.prod(shape) * dtype.itemsize // 256) * 256
+        return layout, off
+
+    def empty_inputs(self, buf_id: int, k_ship: int, device):
+        """(flat, {name: view}): one device byte tensor holding the
+        window's arrays, n_valid and epoch included (a graph's static
+        inputs), and each array's view of it."""
+        layout, nbytes = self._layout(buf_id, k_ship)
+        flat = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        return flat, _carve(flat, layout)
+
+    def ship(self, buf_id: int, k_used: int, k_ship: int,
+             flat: torch.Tensor) -> None:
+        """Queue the window's upload into `flat` (from `empty_inputs`)
+        on the current stream: the window packed into the set's pinned
+        buffer in the same layout, one non-blocking copy, then the set's
+        event."""
+        layout, nbytes = self._layout(buf_id, k_ship)
+        if flat.numel() != nbytes:
+            raise ValueError(f"a window of {nbytes} bytes shipped into "
+                             f"{flat.numel()}")
+        pinned = self._pinned[buf_id]
+        if pinned is None or pinned.numel() < nbytes:
+            pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._pinned[buf_id] = pinned
+        host = pinned[:nbytes]
+        self._pack(buf_id, k_used, {n: v.numpy() for n, v in
+                                    _carve(host, layout).items()})
+        flat.copy_(host, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._shipped[buf_id] = event
+
+
+def _carve(flat: torch.Tensor, layout: dict) -> dict:
+    return {name: flat.narrow(0, off, math.prod(shape) * dtype.itemsize)
+            .view(dtype).view(shape)
+            for name, (dtype, shape, off) in layout.items()}
+
+
+def _torch_dtype(name: str, np_dtype) -> torch.dtype:
+    """The device dtype of a stacked array (`batch_tensors`' types)."""
+    if name == "ip":
+        return torch.int64
+    return torch.from_numpy(np.zeros(0, dtype=np_dtype)).dtype
 
 
 def batch_tensors(arrays: Mapping, device) -> dict[str, torch.Tensor]:

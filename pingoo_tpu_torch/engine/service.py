@@ -22,8 +22,17 @@ The executor (PINGOO_PIPELINE, as in the JAX package):
   * `off`, `0` or `false`: one batch at a time through the allocating
     chain (`encode_requests` -> `bucket_arrays` -> `pad_batch`).
 
+Under PINGOO_MEGASTEP=force (either executor) a batch's device work is
+one megastep window: its padded rows split into K slices (the largest
+rung of the PINGOO_MEGASTEP_K ladder that divides them; K is 1 unless
+the variable is set, see SERVICE_MEGASTEP_K_DEFAULT), staged into a
+`DeviceInputQueue` set and run as one program, on the card one CUDA
+graph replay (engine/graphs.py); its copy to the host is queued right
+after the replay, and host rules run before the one wait.
+
 A staging or device error fails that batch's callers and nothing else;
-there is no fallback to the other chain.
+there is no fallback to the other chain, nor from a megastep window to
+the per-batch path.
 
 What the listener reads, with the JAX package's keys: `stats.snapshot()`
 (counts, the verdict wait and the stages), `pipeline_snapshot()` (the
@@ -49,11 +58,24 @@ from ..device import check_env, pipeline_depth, pipeline_mode, resolve_device
 from ..obs.pipeline import PipelineStats
 from ..obs.trace import tuple_digest
 from ..obs.window import WINDOW, TimingWindow
-from .batch import (RequestBatch, RequestTuple, StagingEncoder,
-                    bucket_arrays, encode_requests, pad_batch,
-                    pow2_batch_size, tuple_to_context)
-from .verdict import (action_lanes, finish_batch, interpret_rules_row,
-                      make_verdict_fn, to_host_async)
+from .batch import (DeviceInputQueue, RequestBatch, RequestTuple,
+                    StagingEncoder, bucket_arrays, encode_requests,
+                    pad_batch, pow2_batch_size, tuple_to_context)
+from .graphs import MegastepRunner
+from .verdict import (_host_array, _resolve_megastep_mode, action_lanes,
+                      finish_batch, finish_megastep, interpret_rules_row,
+                      make_megastep_fn, make_verdict_fn, megastep_k_cap,
+                      megastep_k_ladder, to_host_async)
+
+
+# PINGOO_MEGASTEP_K's default here. A window is one graph replay at any
+# K, and each slice runs the whole slice body again (every gated bank,
+# the glue kernels), so splitting one batch saves no issue and costs
+# device time: on an H100 a 2048-row batch as one slice took as much
+# issue as four slices of 512 and about a quarter of their device time
+# (PERF.md, the megastep's findings). The sidecar's K (default 4) puts
+# K dequeued batches in one window instead.
+SERVICE_MEGASTEP_K_DEFAULT = 1
 
 
 @dataclass
@@ -173,6 +195,29 @@ class VerdictService:
         self._batch_tasks: set = set()
         self._profiler = None  # (torch.profiler session, output dir)
         self._profile_task: Optional[asyncio.Task] = None
+        # The megastep, built when PINGOO_MEGASTEP=force at construction
+        # and taken by every batch of this service (decided once, as the
+        # sidecar does): the kind="matrix" program, its graph runner and
+        # input sets. A set is held only while its window is issued
+        # (finish reads the batch's own arrays); the issue is serialized
+        # by the dispatch token, and a set is handed out again only once
+        # its upload has been read.
+        # `mega_echo_mismatch` counts slices whose epoch echo differs
+        # from the epoch they were staged under (the port never swaps
+        # plans, so it stays 0).
+        self.ruleset_epoch = 0
+        self.mega_echo_mismatch = 0
+        self._mega_rungs = megastep_k_ladder(
+            megastep_k_cap(SERVICE_MEGASTEP_K_DEFAULT))
+        self._mega_runner: Optional[MegastepRunner] = None
+        self._mega_queue: Optional[DeviceInputQueue] = None
+        if _resolve_megastep_mode() == "force":
+            self._mega_runner = MegastepRunner(
+                make_megastep_fn(plan, kind="matrix"), plan.np_tables,
+                plan.device)
+            self._mega_queue = DeviceInputQueue(
+                self._mega_rungs[-1], max_batch, field_specs=plan.field_specs,
+                nbuf=2)
 
     async def start(self) -> None:
         if self._task is None:
@@ -398,16 +443,26 @@ class VerdictService:
                     RequestBatch(size=n, arrays=bucket_arrays(batch.arrays)),
                     P)
             t1 = time.monotonic()
+        mega = self._mega_runner is not None
         with tokens["dispatch"]:
             # Issue order is device order (one stream). The result's copy
             # to the host is queued here, so the wait below is for this
             # batch alone.
             t2 = time.monotonic()
-            dev = to_host_async(self._verdict_fn(self.plan.np_tables,
-                                                 fast.arrays))
+            if mega:
+                dev, echo, slices = self._issue_megastep(fast, n)
+            else:
+                dev = to_host_async(self._verdict_fn(self.plan.np_tables,
+                                                     fast.arrays))
             t3 = time.monotonic()
         # Host rules run first, then the one wait for the device result.
-        matched = finish_batch(self.plan, dev, fast, self.lists)[:n]
+        if mega:
+            matched = finish_megastep(self.plan, dev, slices, fast,
+                                      self.lists)[:n]
+            self.mega_echo_mismatch += int(
+                (_host_array(echo) != self.ruleset_epoch).sum())
+        else:
+            matched = finish_batch(self.plan, dev, fast, self.lists)[:n]
         t4 = time.monotonic()
         matched = self._rewrite_overflow_rows(reqs, overflow, matched)
         actions, verified_block = action_lanes(self.plan, matched)
@@ -427,6 +482,32 @@ class VerdictService:
         stats.batches += 1
         stats.requests += n
         return verdicts
+
+    def _issue_megastep(self, fast: RequestBatch, n: int):
+        """Issue one batch as a megastep window (under the dispatch
+        token): its P padded rows as K slices of P / K rows, K the
+        largest rung that divides P, the n live rows in the first
+        slices. Returns the matrix's and the echo's queued copies to the
+        host and each slice's (row offset, live rows)."""
+        size = fast.size
+        k = max(r for r in self._mega_rungs if size % r == 0)
+        rows = size // k
+        queue = self._mega_queue
+        buf = queue.checkout()
+        try:
+            for j in range(k):
+                off = j * rows
+                queue.fill_slice(
+                    buf, j, {name: arr[off:off + rows]
+                             for name, arr in fast.arrays.items()},
+                    max(0, min(rows, n - off)), self.ruleset_epoch)
+            out, _, echo = self._mega_runner.run(queue, buf, k, k)
+            dev, echo = to_host_async(out), to_host_async(echo)
+        finally:
+            queue.release(buf)
+        self._pipe.note_megastep(k, "force")
+        return dev, echo, [(j * rows, max(0, min(rows, n - j * rows)))
+                           for j in range(k)]
 
     def _rewrite_overflow_rows(self, reqs, overflow, matched: np.ndarray):
         """Rows whose fields exceeded device capacity (`overflow`) are

@@ -22,14 +22,21 @@
 `make_lane_fn` reduces the matrix on the device to first-match action
 lanes; `merge_lanes` folds in the host-interpreted rules.
 
+`make_megastep_fn` is the megastep (PINGOO_MEGASTEP=force): one program
+over K stacked batch slices, each through the same body with Stage B
+taken on the device (no host sync, so that engine/graphs.py can capture
+the whole window as one CUDA graph).
+
 Environment: PINGOO_DFA=off|auto|force and PINGOO_PREFILTER=off|banks,
-read per call as in the JAX package; knobs of unported features raise
-(device.check_env).
+read per call as in the JAX package; PINGOO_MEGASTEP and
+PINGOO_MEGASTEP_K, read where the planes decide; knobs of unported
+features raise (device.check_env).
 """
 
 from __future__ import annotations
 
 import os
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -184,8 +191,14 @@ def _span_leaf_matrix(hits: torch.Tensor, lo: torch.Tensor,
     return (cs.index_select(1, hi) - cs.index_select(1, lo)) > 0
 
 
-def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict):
-    """Every leaf's ([B] val, [B] err), with shared group ops."""
+def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
+                 sync_free: bool = False):
+    """Every leaf's ([B] val, [B] err), with shared group ops.
+
+    `sync_free` takes Stage B on the device, with no host sync: each
+    gated bank scans its candidate rows only (`gathered_rows`), as the
+    JAX package's compact mode does, where the per-batch path decides
+    for all banks at once on the host."""
     dev = plan.device
     results: dict[int, tuple] = {}
     no_err = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -239,14 +252,36 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict):
              for key in list(nfa_groups) + list(win_groups)}
     gated = [k for k, c in cands.items() if c is not None]
     run: dict[str, bool] = {}
-    if gated:
+    if gated and not sync_free:
         flags = torch.stack([cands[k].any() for k in gated]).tolist()
         run = dict(zip(gated, flags))
 
     def gated_scan(key, data, lens, scan_rows, base_fn):
         if cands.get(key) is None:
             return scan_rows(data, lens)
+        if sync_free:
+            return gathered_rows(scan_rows, base_fn, data, lens, cands[key])
         return scan_rows(data, lens) if run[key] else base_fn()
+
+    def gathered_rows(scan_rows, base_fn, data, lens, cand):
+        """`compact_rows` with no host sync, the counterpart of the JAX
+        package's `lax.cond`/`lax.switch`: the candidate rows, in order,
+        fill the front of a fixed [B] row index (`pos` is each one's
+        place), the rest of it scans at length 0, which costs the
+        kernels almost nothing (each walks a row only to its length),
+        and each candidate takes its hits back from its place. The bits
+        are `compact_rows`' for the same reason."""
+        n = data.shape[0]
+        rows = torch.arange(n, device=dev)
+        pos = cand.to(torch.int64).cumsum(0) - 1
+        idx = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        idx.scatter_(0, torch.where(cand, pos, n), rows)
+        idx = idx[:n]
+        live = rows <= pos[-1:]
+        hits = scan_rows(data.index_select(0, idx),
+                         torch.where(live, lens.index_select(0, idx), 0))
+        back = hits.index_select(0, pos.clamp(min=0))
+        return torch.where(cand[:, None], back, base_fn())
 
     def compact_rows(scan_rows, base_fn, data, lens, cand):
         """Scan only the candidate rows and scatter their hits over the
@@ -291,6 +326,9 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict):
         cand = dfa_row_candidates(dtab, hits, lens)
         if cands.get(key) is not None:
             cand = cand & cands[key]
+        if sync_free:
+            return gathered_rows(recheck_rows, recheck_base, data, lens,
+                                 cand)
         return compact_rows(recheck_rows, recheck_base, data, lens, cand)
 
     def nfa_bank_result(key, field):
@@ -423,7 +461,8 @@ def _eval_bool(ir, leaves, B, dev):
 # -- public API --------------------------------------------------------------
 
 
-def _matched_cols(plan: RulesetPlan, tables, arrays, consts: dict):
+def _matched_cols(plan: RulesetPlan, tables, arrays, consts: dict,
+                  sync_free: bool = False):
     """(tables, device arrays) -> [B, R_dev] bool in device_rule_indices
     order. Single-leaf rules read their column straight out of the
     stacked leaf matrix; compound rules evaluate their boolean tree
@@ -432,7 +471,7 @@ def _matched_cols(plan: RulesetPlan, tables, arrays, consts: dict):
     device_rules = [r for r in plan.rules if not r.host]
     n_leaves = len(plan.leaves)
     B = arrays["asn"].shape[0]
-    leaves = _eval_leaves(plan, tables, arrays, B, consts)
+    leaves = _eval_leaves(plan, tables, arrays, B, consts, sync_free)
     eff: list = [None] * n_leaves
     for leaf_id, (v, e) in leaves.items():
         eff[leaf_id] = v & ~e
@@ -523,10 +562,11 @@ def _make_lane_body(plan: RulesetPlan, groups: list[list[str]],
     none_val = int(LANE_NONE)
     consts: dict = {}
 
-    def lanes(tables, arrays, n_valid=None):
+    def lanes(tables, arrays, n_valid=None, sync_free=False):
         check_env()
         arrays = batch_tensors(arrays, plan.device)
-        matched = _matched_cols(plan, tables, arrays, consts)  # [B, C]
+        matched = _matched_cols(plan, tables, arrays, consts,
+                                sync_free)  # [B, C]
         B = arrays["asn"].shape[0]
 
         def pack(stack):
@@ -564,6 +604,107 @@ def _make_lane_body(plan: RulesetPlan, groups: list[list[str]],
                                 + route_lanes).to(torch.int32))
 
     return lanes
+
+
+# -- the megastep: K batch slices in one program ------------------------------
+#
+# PINGOO_MEGASTEP (read where the planes decide, as in the JAX package):
+#   off   — per-batch dispatch, the parity oracle (the default);
+#   force — every batch goes through a megastep window (K may be 1);
+#   auto  — raises NotImplementedError (device.check_env): it sizes K
+#           against deadline slack with the scheduler's cost model
+#           (ROADMAP.md, port queue item 9).
+# PINGOO_MEGASTEP_K caps K (default 4). Short slices are masked by a
+# per-slice n_valid word, never re-shaped; a per-slice ruleset epoch word
+# passes through the program untouched. On the card the window is one
+# CUDA graph replay (engine/graphs.py); on the CPU the same body runs
+# eagerly over the kernels' plain versions.
+
+MEGASTEP_K_DEFAULT = 4
+
+
+def _resolve_megastep_mode() -> str:
+    """PINGOO_MEGASTEP: off | auto | force, anything else off."""
+    mode = os.environ.get("PINGOO_MEGASTEP", "off")
+    return mode if mode in ("off", "auto", "force") else "off"
+
+
+def megastep_k_cap(default: int = MEGASTEP_K_DEFAULT) -> int:
+    """PINGOO_MEGASTEP_K: the largest K one window may cover (`default`
+    when it is unset or not an integer)."""
+    try:
+        return max(1, int(os.environ.get("PINGOO_MEGASTEP_K", str(default))))
+    except ValueError:
+        return default
+
+
+def megastep_k_ladder(k_max: int) -> list[int]:
+    """The pow2 K rungs [1, 2, 4, ...] up to k_max: each rung is one
+    program shape (one CUDA graph per window shape on the card)."""
+    rungs = [1]
+    while rungs[-1] * 2 <= max(1, k_max):
+        rungs.append(rungs[-1] * 2)
+    return rungs
+
+
+class MegastepProgram(NamedTuple):
+    """`make_megastep_fn`'s bundle: the K-slice body and what its
+    callers need to read its outputs."""
+
+    fn: Any  # (tables, stacked, n_valid, epoch) -> (out, rule_hits, echo)
+    kind: str  # "lanes" (sidecar) | "matrix" (Python plane)
+    with_rule_hits: bool
+
+
+def make_megastep_fn(plan: RulesetPlan, kind: str = "lanes",
+                     service_groups: list[list[str]] | None = None,
+                     with_rule_hits: bool = False) -> MegastepProgram:
+    """The megastep: (tables, stacked, n_valid, epoch) -> (out,
+    rule_hits, epoch_echo) over K batch slices.
+
+      stacked  {name: [K, B, ...] tensor}: K slices padded to one row
+               count (DeviceInputQueue, engine/batch.py);
+      n_valid  [K] int32: the live rows of each slice;
+      epoch    [K] int32: each slice's ruleset epoch, echoed back.
+
+    `kind="lanes"` gives [K, 3 + max(G, 1), B] int32 action lanes
+    (`make_lane_fn`'s body per slice), `kind="matrix"` the [K, B, C]
+    bool match matrix (`make_verdict_fn`'s); rule_hits is [K, C] int32
+    (C = 0 without `with_rule_hits`), epoch_echo [K]. Each slice runs
+    the per-batch body with Stage B on the device (`sync_free`), which
+    gives the per-batch path's bits. The JAX package's fourth output,
+    the prefilter's aux counters, feeds its metric registry only
+    (ROADMAP.md, port queue item 10) and is left out."""
+    if kind not in ("lanes", "matrix"):
+        raise ValueError(f"bad megastep kind {kind!r}")
+    dev = plan.device
+    lane_body = (_make_lane_body(plan, service_groups or [], with_rule_hits)
+                 if kind == "lanes" else None)
+    n_hit_cols = (len([r for r in plan.rules if not r.host])
+                  if with_rule_hits else 0)
+    consts: dict = {}
+
+    def megastep(tables, stacked, n_valid, epoch):
+        check_env()
+        outs, hits = [], []
+        for j in range(n_valid.shape[0]):
+            arrays = {name: t[j] for name, t in stacked.items()}
+            h = None
+            if kind == "lanes":
+                out = lane_body(tables, arrays, n_valid=n_valid[j],
+                                sync_free=True)
+                if with_rule_hits:
+                    out, h = out
+            else:
+                out = _matched_cols(plan, tables, arrays, consts,
+                                    sync_free=True)
+            outs.append(out)
+            hits.append(h if h is not None else torch.zeros(
+                (n_hit_cols,), dtype=torch.int32, device=dev))
+        return torch.stack(outs), torch.stack(hits), epoch.clone()
+
+    return MegastepProgram(fn=megastep, kind=kind,
+                           with_rule_hits=with_rule_hits)
 
 
 # -- host side: interpreted rules, lanes, actions -----------------------------
@@ -682,6 +823,20 @@ def finish_batch(plan, dev, batch, lists) -> np.ndarray:
     dev = _host_array(dev)
     for col, idx in enumerate(plan.device_rule_indices):
         out[:, idx] = dev[:, col]
+    return out
+
+
+def finish_megastep(plan, dev, slices, batch, lists) -> np.ndarray:
+    """`finish_batch` for the Python plane's megastep: `dev` is the
+    [K, Bs, C] matrix of a kind="matrix" window (or its `HostResult`)
+    and `slices` gives each slice j its (row offset, n_valid) span of
+    `batch`. Host rules first, then one wait; padding rows past a
+    slice's n_valid are never read."""
+    out = _host_matrix(plan, batch, lists)
+    dev = _host_array(dev)
+    cols = plan.device_rule_indices
+    for j, (off, nv) in enumerate(slices):
+        out[off:off + nv, cols] = dev[j, :nv]
     return out
 
 

@@ -14,7 +14,9 @@ same ring. This module holds the port's side of that ring:
     the rings, runs the lane function of `engine/verdict.py` on the
     plan's device, and posts the verdict bytes back on each request's
     own ring, with up to `pipeline_depth` batches in flight under
-    PINGOO_PIPELINE=on (the default), one at a time under off. With
+    PINGOO_PIPELINE=on (the default), one at a time under off; under
+    PINGOO_MEGASTEP=force K batches at a time go through one megastep
+    window (one CUDA graph replay on the card). With
     PINGOO_BODY_INSPECT=on it also
     drains the request-body windows through `engine/bodyscan.py` and
     posts one body verdict per flow;
@@ -55,12 +57,15 @@ from .device import pipeline_depth as _env_depth
 from .engine.bodyscan import (BodyScanner, BodyWindow, body_inspect_enabled,
                               body_max_flows, body_window_bytes,
                               merge_actions, split_payload)
-from .engine.batch import (RequestBatch, RequestTuple, StagingEncoder,
-                           batch_to_contexts, bucket_arrays, pad_batch,
-                           pow2_batch_size, tuple_to_context)
-from .engine.verdict import (LANE_NONE, _host_array, action_lanes,
-                             host_rule_lanes, interpret_rules_row,
-                             make_lane_fn, merge_lanes, to_host_async)
+from .engine.batch import (DeviceInputQueue, RequestBatch, RequestTuple,
+                           StagingEncoder, batch_to_contexts, bucket_arrays,
+                           pad_batch, pow2_batch_size, tuple_to_context)
+from .engine.graphs import MegastepRunner
+from .engine.verdict import (LANE_NONE, _host_array, _resolve_megastep_mode,
+                             action_lanes, host_rule_lanes,
+                             interpret_rules_row, make_lane_fn,
+                             make_megastep_fn, megastep_k_cap,
+                             megastep_k_ladder, merge_lanes, to_host_async)
 from .expr import execute_as_bool
 from .obs.pipeline import PipelineStats
 from .obs.window import WINDOW, TimingWindow
@@ -673,9 +678,16 @@ def slots_to_arrays(slots: np.ndarray) -> dict:
 
 # The rows of RingSidecar.warm_up's batches (method, host, path, url,
 # user agent): a clean request and attack shapes of the CRS corpus, so
-# that candidate rows reach the scans behind the prefilter.
+# that candidate rows reach the scans behind the prefilter, and a
+# browser's request, whose user agent (over 64 bytes) and path (over 16)
+# give the narrow batches the column widths of real traffic: a megastep
+# graph is keyed by them.
 WARM_REQUESTS = (
     (b"GET", b"www.example.com", b"/", b"/", b"Mozilla/5.0"),
+    (b"GET", b"www.example.com", b"/static/css/site-main.css",
+     b"/static/css/site-main.css?v=3",
+     b"Mozilla/5.0 (X11; Linux x86_64) AppleWebKit/537.36 (KHTML, like "
+     b"Gecko) Chrome/124.0.0.0 Safari/537.36"),
     (b"GET", b"www.example.com", b"/search",
      b"/search?q=1' UNION SELECT pass --", b"Mozilla/5.0"),
     (b"POST", b"www.example.com", b"/page",
@@ -683,6 +695,39 @@ WARM_REQUESTS = (
     (b"GET", b"www.example.com", b"/download",
      b"/download?file=../../../../etc/passwd", b"curl/8.0"),
 )
+
+
+def _warm_slots(rows: int, wide: bool) -> np.ndarray:
+    """`rows` request slots cycling through WARM_REQUESTS; with `wide`,
+    the first row's path and url fill the slots' full width."""
+    slots = np.zeros(rows, dtype=REQUEST_SLOT_DTYPE)
+    for i in range(rows):
+        m, h, p, u, ua = WARM_REQUESTS[i % len(WARM_REQUESTS)]
+        if wide and i == 0:
+            p = u = p + b"a" * (FIELD_CAPS["url"] - len(p))
+        for field, value in (("method", m), ("host", h), ("path", p),
+                             ("url", u), ("user_agent", ua)):
+            slots[field][i, :len(value)] = np.frombuffer(value, np.uint8)
+            key = "ua_len" if field == "user_agent" else f"{field}_len"
+            slots[key][i] = len(value)
+    slots["country"] = b"XX"
+    slots["spill_idx"] = SPILL_NONE
+    return slots
+
+
+class _MegaSlice:
+    """One batch staged into the open megastep window: what `_dispatch`
+    would have handed `_complete`, kept until the window's one wait."""
+
+    __slots__ = ("parts", "slots", "raw", "n", "slot_buf", "pipe_slot",
+                 "epoch")
+
+
+class _MegaWindow:
+    """One megastep window in flight: its slices, its input set and its
+    result's queued copies to the host."""
+
+    __slots__ = ("slices", "buf_id", "lanes", "echo", "t_launch")
 
 
 class RingSidecar:
@@ -713,6 +758,20 @@ class RingSidecar:
     is decoded through slots_to_arrays -> bucket -> pad and completed
     before the next pass. Completion in FIFO order keeps the posted
     tickets a prefix. A staging error raises as a device error does.
+
+    The megastep (PINGOO_MEGASTEP=force at construction; PINGOO_MEGASTEP_K
+    caps K, default 4): a pass that dequeued a batch with no window open
+    opens one, checking out a `DeviceInputQueue` set; while a window is
+    open every admitted batch stages into it (padded to `max_batch`), so
+    tickets still post in order. The window ships when it holds K slices
+    or a pass dequeued nothing: K quantised up the pow2 ladder, one CUDA
+    graph replay on the card (engine/graphs.py), its lanes' copy queued
+    right after. A window in flight counts as one of `pipeline_depth`;
+    its completion runs every slice's host rules, waits once, then
+    completes each slice as a batch, and returns the set. The set and the
+    slot buffers of its slices are held until then, so there are
+    `pipeline_depth + 1` sets and `pipeline_depth * K + 1` slot buffers.
+    A capture, replay or launch error propagates out of `run()`.
 
     `device=None` means the CUDA card (raises without one). A device
     error, in a batch or in a body scan, propagates out of `run()`: the
@@ -788,11 +847,32 @@ class RingSidecar:
         # per batch in flight plus the one the next pass dequeues into.
         self._staging = None
         self._slot_pool: deque = deque()
+        caps = dict(FIELD_CAPS, country=2)
+        # The megastep: the lane program, its graph runner and input
+        # sets, one per window in flight plus the one being filled.
+        self._mega_mode = _resolve_megastep_mode()
+        self._mega_k = megastep_k_cap()
+        self._mega_rungs = megastep_k_ladder(self._mega_k)
+        self._mega_runner: Optional[MegastepRunner] = None
+        self._mega_queue: Optional[DeviceInputQueue] = None
+        self._mega_staged: list = []
+        self._mega_buf_id: Optional[int] = None
+        self.ruleset_epoch = 0
+        self.mega_windows = 0
+        self.mega_echo_mismatch = 0  # echoed epoch != the staged one
+        if self._mega_mode == "force":
+            self._mega_runner = MegastepRunner(
+                make_megastep_fn(plan, kind="lanes",
+                                 service_groups=self._groups),
+                plan.np_tables, plan.device)
+            self._mega_queue = DeviceInputQueue(
+                self._mega_k, max_batch, field_specs=caps,
+                nbuf=self.pipeline_depth + 1)
         if on:
-            caps = dict(FIELD_CAPS, country=2)
             self._staging = StagingEncoder(max_batch, field_specs=caps,
                                            nbuf=self.pipeline_depth)
-            for _ in range(self.pipeline_depth + 1):
+            per_batch = self._mega_k if self._mega_runner is not None else 1
+            for _ in range(self.pipeline_depth * per_batch + 1):
                 self._slot_pool.append(
                     np.zeros(max_batch, dtype=REQUEST_SLOT_DTYPE))
         self.processed = 0
@@ -805,9 +885,14 @@ class RingSidecar:
         # queued copy of its result ("verdict"), host rules, the wait for
         # the result, routes, spill rows and the posts ("finish", from the
         # start of the batch's completion). `count` counts all.
+        # Under the megastep, "decode" is one slice's staging, "verdict"
+        # one window's issue and "window" its wall from the end of the
+        # issue to its lanes on the host.
         self.stage_ms: dict[str, TimingWindow] = {
             k: TimingWindow(self.WINDOW)
             for k in ("decode", "verdict", "finish")}
+        if self._mega_runner is not None:
+            self.stage_ms["window"] = TimingWindow(self.WINDOW)
         self._ring_rr = -1  # rotating drain start
         self._thread = None
         self._stop = False
@@ -877,21 +962,33 @@ class RingSidecar:
                 self._drain_bodies()
             parts = self._dequeue(slot_buf)
             if parts:
-                inflight.append(self._dispatch(parts, slot_buf))
+                # While a window is open every batch stages into it: a
+                # batch issued past staged ones would post younger
+                # tickets first.
+                if self._mega_staged or self._mega_begin():
+                    self._stage_mega_slice(parts, slot_buf)
+                else:
+                    inflight.append(self._dispatch(parts, slot_buf))
                 if slot_buf is not None:
                     slot_buf = self._take_slot_buf()
+            if self._mega_staged and (
+                    not parts or len(self._mega_staged) >= self._mega_k):
+                inflight.append(self._launch_megastep())
             if inflight and (len(inflight) >= self.pipeline_depth
                              or not parts):
-                self._complete(*inflight.popleft())
+                self._complete_inflight(inflight.popleft())
             elif not parts and (max_requests is None
                                 or self.processed < max_requests):
                 time.sleep(self.IDLE_SLEEP_S)
             if max_requests is not None and not inflight \
+                    and not self._mega_staged \
                     and self.processed >= max_requests:
                 break
         # Dequeued slots still get their verdicts, in FIFO order.
+        if self._mega_staged:
+            inflight.append(self._launch_megastep())
         while inflight:
-            self._complete(*inflight.popleft())
+            self._complete_inflight(inflight.popleft())
         if slot_buf is not None:
             self._slot_pool.append(slot_buf)
         # FINAL windows already in the ring still get their verdicts.
@@ -933,8 +1030,9 @@ class RingSidecar:
 
     def _take_slot_buf(self) -> np.ndarray:
         """A pooled REQUEST_SLOT_DTYPE buffer for the next batch. The
-        pool holds one more than the batches in flight, so an empty pool
-        (IndexError) means a buffer leaked."""
+        pool holds one more than the batches in flight can (K per
+        megastep window), so an empty pool (IndexError) means a buffer
+        leaked."""
         return self._slot_pool.popleft()
 
     def _dequeue(self, slot_buf=None) -> list[tuple[Ring, np.ndarray]]:
@@ -999,6 +1097,125 @@ class RingSidecar:
         self._pipe.note_stage(slot, "dispatch", t1, t2)
         return parts, slots, raw, dev, t2, slot_buf, staged, slot
 
+    # -- the megastep -------------------------------------------------------
+
+    def _mega_begin(self) -> bool:
+        """Open a window for the batch just dequeued? Under `force`
+        always (a window of one slice is legal): check out its set."""
+        if self._mega_runner is None:
+            return False
+        self._mega_buf_id = self._mega_queue.checkout(block=False)
+        return True
+
+    def _stage_mega_slice(self, parts, slot_buf=None) -> None:
+        """Encode one dequeued batch into the open window's next slice.
+        Its raw batch is the slice's view of the window's set, held until
+        the window completes."""
+        slot = self._pipe.enter(self.pipeline_mode)
+        t0 = time.monotonic()
+        n = sum(len(p) for _, p in parts)
+        if slot_buf is not None:
+            slots = slot_buf[:n]
+        else:
+            slots = parts[0][1] if len(parts) == 1 else np.concatenate(
+                [s for _, s in parts])
+        j = len(self._mega_staged)
+        self._encode_mega_slice(slots, self._mega_buf_id, j)
+        rec = _MegaSlice()
+        rec.parts, rec.slots, rec.n = parts, slots, n
+        rec.raw = RequestBatch(size=n, arrays=self._mega_queue.slice_view(
+            self._mega_buf_id, j, n))
+        rec.slot_buf, rec.pipe_slot = slot_buf, slot
+        rec.epoch = self.ruleset_epoch
+        self._mega_staged.append(rec)
+        t1 = time.monotonic()
+        self.stage_ms["decode"].append((t1 - t0) * 1e3)
+        self._pipe.note_stage(slot, "encode", t0, t1)
+
+    def _encode_mega_slice(self, slots: np.ndarray, buf_id: int,
+                           j: int) -> None:
+        """Encode `slots`, padded to `max_batch`, into slice j of set
+        `buf_id`: under `on` through a staging set, released at once (the
+        slice is a copy)."""
+        n = len(slots)
+        if self._staging is None:
+            batch = pad_batch(RequestBatch(
+                size=n, arrays=bucket_arrays(slots_to_arrays(slots))),
+                self.max_batch)
+            self._mega_queue.fill_slice(buf_id, j, batch.arrays, n,
+                                        self.ruleset_epoch)
+            return
+        staged = self._staging.checkout(block=False)
+        try:
+            batch = self._staging.encode_slots(slots, pad_to=self.max_batch,
+                                               into=staged)
+            self._mega_queue.fill_slice(buf_id, j, batch.arrays, n,
+                                        self.ruleset_epoch)
+        finally:
+            self._staging.release(staged)
+
+    def _k_ship(self, k: int) -> int:
+        """The K a window of k slices ships at: the next rung of the
+        ladder (so short windows reuse a few graph shapes), at most the
+        cap, at least k."""
+        k_ship = next((r for r in self._mega_rungs if r >= k), self._mega_k)
+        return max(k, min(k_ship, self._mega_k))
+
+    def _launch_megastep(self) -> _MegaWindow:
+        """Ship the open window and run it (one graph replay on the
+        card), its lanes' and echo's copies to the host queued right
+        after; returns the window in flight (`_k_ship` gives its K)."""
+        staged, self._mega_staged = self._mega_staged, []
+        k = len(staged)
+        k_ship = self._k_ship(k)
+        t0 = time.monotonic()
+        # The first window of a shape captures its graph (and runs the
+        # body once before): the watchdog heartbeats through it.
+        with self._hb_busy():
+            lanes, _, echo = self._mega_runner.run(
+                self._mega_queue, self._mega_buf_id, k, k_ship)
+            win = _MegaWindow()
+            win.lanes, win.echo = to_host_async(lanes), to_host_async(echo)
+        t1 = time.monotonic()
+        win.slices, win.buf_id, win.t_launch = staged, self._mega_buf_id, t1
+        self._mega_buf_id = None
+        self.stage_ms["verdict"].append((t1 - t0) * 1e3)
+        self._pipe.note_stage(staged[0].pipe_slot, "dispatch", t0, t1)
+        self._pipe.note_megastep(k, self._mega_mode)
+        self.mega_windows += 1
+        return win
+
+    def _complete_inflight(self, entry) -> None:
+        if isinstance(entry, _MegaWindow):
+            self._complete_megastep(entry)
+        else:
+            self._complete(*entry)
+
+    def _complete_megastep(self, win: _MegaWindow) -> None:
+        """Every slice's host rules (while the card computes), one wait
+        for the window's lanes, then each slice completes as a batch;
+        the window's set returns to the queue after its last slice."""
+        try:
+            hosts = [host_rule_lanes(self.plan, s.raw, self.lists)
+                     for s in win.slices]
+            t0 = time.monotonic()
+            with self._hb_busy():
+                lanes = _host_array(win.lanes)
+                echo = _host_array(win.echo)
+            t_ready = time.monotonic()
+            self.device_wait_s += t_ready - t0
+            self.stage_ms["window"].append((t_ready - win.t_launch) * 1e3)
+            self._pipe.note_stage(win.slices[0].pipe_slot, "compute",
+                                  win.t_launch, t_ready)
+            for j, s in enumerate(win.slices):
+                if int(echo[j]) != s.epoch:
+                    self.mega_echo_mismatch += 1
+                self._complete(s.parts, s.slots, s.raw, None, win.t_launch,
+                               s.slot_buf, None, s.pipe_slot,
+                               host=hosts[j], dev_lanes=lanes[j][:, :s.n])
+        finally:
+            self._mega_queue.release(win.buf_id)
+
     def _decode(self, slots: np.ndarray) -> tuple[RequestBatch, RequestBatch]:
         """Slots -> the raw batch and the padded one the lane function
         takes: columns trimmed to a power of two over the batch's longest
@@ -1022,28 +1239,19 @@ class RingSidecar:
         convolution's shapes, pinned host memory for the results), and
         the httpd fails a request open when its verdict misses the 3 s
         deadline. Under PINGOO_PIPELINE=on the batches go through the
-        staging encoder, as the drain loop's do. Touches no ring and no
-        counter; returns (rows, widest column, ms) of each batch."""
+        staging encoder, as the drain loop's do. Under
+        PINGOO_MEGASTEP=force the drain loop runs windows only, so the
+        warm-up runs windows instead (`_warm_up_megastep`). Touches no
+        ring and no counter; returns (rows, widest column, ms) of each
+        batch or window."""
+        if self._mega_runner is not None:
+            return self._warm_up_megastep()
         buckets = sorted({pow2_batch_size(1 << k, self.max_batch)
                           for k in range(self.max_batch.bit_length())})
         out = []
         for rows in buckets:
             for wide in (False, True):
-                slots = np.zeros(rows, dtype=REQUEST_SLOT_DTYPE)
-                for i in range(rows):
-                    m, h, p, u, ua = WARM_REQUESTS[i % len(WARM_REQUESTS)]
-                    if wide and i == 0:
-                        p = u = p + b"a" * (FIELD_CAPS["url"] - len(p))
-                    for field, value in (("method", m), ("host", h),
-                                         ("path", p), ("url", u),
-                                         ("user_agent", ua)):
-                        slots[field][i, :len(value)] = np.frombuffer(
-                            value, np.uint8)
-                        key = "ua_len" if field == "user_agent" \
-                            else f"{field}_len"
-                        slots[key][i] = len(value)
-                slots["country"] = b"XX"
-                slots["spill_idx"] = SPILL_NONE
+                slots = _warm_slots(rows, wide)
                 t0 = time.monotonic()
                 staged = None
                 if self._staging is not None:
@@ -1057,6 +1265,36 @@ class RingSidecar:
                 if staged is not None:
                     self._staging.release(staged)
                 out.append((rows, batch.arrays["url_bytes"].shape[1],
+                            (time.monotonic() - t0) * 1e3))
+        return out
+
+    def _warm_up_megastep(self) -> list[tuple[int, int, float]]:
+        """One window of every K the drain loop can ship (`_k_ship` over
+        1..the cap), its slices of `max_batch` WARM_REQUESTS rows, at the
+        narrowest column bucket and at the slots' full width, each waited
+        for: on the card each captures its graph here and not in the
+        first live window of its key, whose tickets would wait for the
+        capture. The graph runner counts these captures and replays; the
+        windows count nowhere else. Returns (rows of the window, widest
+        column, ms) of each."""
+        queue = self._mega_queue
+        out = []
+        for k in sorted({self._k_ship(k)
+                         for k in range(1, self._mega_k + 1)}):
+            for wide in (False, True):
+                slots = _warm_slots(self.max_batch, wide)
+                t0 = time.monotonic()
+                buf = queue.checkout(block=False)
+                try:
+                    for j in range(k):
+                        self._encode_mega_slice(slots, buf, j)
+                    width = queue.window_shape(buf, k)["url_bytes"][2]
+                    with self._hb_busy():
+                        lanes, _, _ = self._mega_runner.run(queue, buf, k, k)
+                        _host_array(to_host_async(lanes))
+                finally:
+                    queue.release(buf)
+                out.append((k * self.max_batch, width,
                             (time.monotonic() - t0) * 1e3))
         return out
 
@@ -1092,6 +1330,14 @@ class RingSidecar:
             "rings": len(self.rings),
             "ring_telemetry": self.ring_telemetry(),
             "pipeline": self._pipe.snapshot(),
+            "megastep": {
+                "mode": self._mega_mode,
+                "k_cap": self._mega_k,
+                "windows": self.mega_windows,
+                "echo_mismatch": self.mega_echo_mismatch,
+                "graphs": (self._mega_runner.snapshot()
+                           if self._mega_runner is not None else None),
+            },
             "supervision": {"epoch": self.epoch,
                             "reconciled": dict(self.reconciled)},
         }
@@ -1116,12 +1362,16 @@ class RingSidecar:
                 slots["country"][i] = cc
 
     def _complete(self, parts, slots, raw, dev, t_issued: float,
-                  slot_buf=None, staged=None, pipe_slot: int = 0) -> None:
+                  slot_buf=None, staged=None, pipe_slot: int = 0,
+                  host=None, dev_lanes=None) -> None:
         """Finish one batch: host rules, the wait for its own lanes,
-        routes, spill rows and the posts. Its slot buffer and staging set
-        then return to their pools and it leaves the pipeline."""
+        routes, spill rows and the posts (a megastep slice comes with its
+        host and device lanes already on the host). Its slot buffer and
+        staging set then return to their pools and it leaves the
+        pipeline."""
         try:
-            self._finish(parts, slots, raw, dev, t_issued, pipe_slot)
+            self._finish(parts, slots, raw, dev, t_issued, pipe_slot, host,
+                         dev_lanes)
         finally:
             if slot_buf is not None:
                 self._slot_pool.append(slot_buf)
@@ -1130,18 +1380,21 @@ class RingSidecar:
             self._pipe.exit()
 
     def _finish(self, parts, slots, raw, dev, t_issued: float,
-                pipe_slot: int) -> None:
+                pipe_slot: int, host=None, dev_lanes=None) -> None:
         t_start = time.monotonic()
         n = len(slots)
-        # Host rules run while the device is still computing.
-        host = host_rule_lanes(self.plan, raw, self.lists)
-        t0 = time.monotonic()
-        with self._hb_busy():
-            dev_lanes = _host_array(dev)[:, :n]
-        t_ready = time.monotonic()
-        self.device_wait_s += t_ready - t0
-        # The compute window: end of issue to the lanes on the host.
-        self._pipe.note_stage(pipe_slot, "compute", t_issued, t_ready)
+        if dev_lanes is None:
+            # Host rules run while the device is still computing.
+            host = host_rule_lanes(self.plan, raw, self.lists)
+            t0 = time.monotonic()
+            with self._hb_busy():
+                dev_lanes = _host_array(dev)[:, :n]
+            t_ready = time.monotonic()
+            self.device_wait_s += t_ready - t0
+            # The compute window: end of issue to the lanes on the host.
+            self._pipe.note_stage(pipe_slot, "compute", t_issued, t_ready)
+        else:
+            t_ready = t_start
         unverified, verified_block = merge_lanes(dev_lanes, host)
         self.batches += 1
         # Rows the producer flagged as truncated (a field past its slot

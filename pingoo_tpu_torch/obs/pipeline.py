@@ -14,7 +14,10 @@ Both planes run the pipelined executor, the Python plane's
     during which a DIFFERENT batch was in a host stage (encode or
     dispatch): above 0 the executor overlaps, it does not just queue;
   * batches served per executor mode ("on" pipelined, "off" one batch
-    at a time).
+    at a time);
+  * megastep windows (`note_megastep`): windows launched, slices they
+    covered, in total and per PINGOO_MEGASTEP mode, K of the latest
+    window and an EWMA of K (slices per device dispatch).
 
 The numbers are plain attributes, read through `snapshot()` with the
 JAX package's keys. Overlap is scored from the stages' wall intervals
@@ -62,6 +65,11 @@ class PipelineStats:
         # (slot, stage, t_start, t_end) of recent stage intervals; 32
         # span several depths of history on both planes.
         self._recent: deque = deque(maxlen=_RECENT_INTERVALS)
+        self.megastep_k = 0
+        self.megastep_windows = 0
+        self.megastep_slices = 0
+        self._megastep_slices_by_mode: dict[str, int] = {}
+        self._amort_ewma: float | None = None
         self._lock = threading.Lock()
 
     def enter(self, mode: str = "on") -> int:
@@ -77,6 +85,20 @@ class PipelineStats:
     def exit(self) -> None:
         with self._lock:
             self.inflight -= 1
+
+    def note_megastep(self, k: int, mode: str) -> None:
+        """One megastep window of `k` slices launched under
+        PINGOO_MEGASTEP `mode`."""
+        k = max(1, int(k))
+        with self._lock:
+            self.megastep_k = k
+            self.megastep_windows += 1
+            self.megastep_slices += k
+            self._megastep_slices_by_mode[mode] = \
+                self._megastep_slices_by_mode.get(mode, 0) + k
+            prev = self._amort_ewma
+            self._amort_ewma = float(k) if prev is None \
+                else prev + _EWMA_ALPHA * (k - prev)
 
     def note_stage(self, slot: int, stage: str, t_start: float,
                    t_end: float) -> None:
@@ -121,8 +143,7 @@ class PipelineStats:
             else prev + _EWMA_ALPHA * (ratio - prev)
 
     def snapshot(self) -> dict:
-        """The JAX package's keys. The megastep entry reads zeros: the
-        port has no megastep yet (ROADMAP.md, port queue item 5)."""
+        """The JAX package's keys."""
         wall = max(time.monotonic() - self._t_boot, 1e-9)
         with self._lock:
             return {
@@ -137,6 +158,14 @@ class PipelineStats:
                 "stage_occupancy": {
                     stage: round(self._busy[stage] / wall, 4)
                     for stage in PIPELINE_EXEC_STAGES},
-                "megastep": {"k": 0, "windows": 0, "slices": 0,
-                             "amortization": None, "slices_by_mode": {}},
+                "megastep": {
+                    "k": self.megastep_k,
+                    "windows": self.megastep_windows,
+                    "slices": self.megastep_slices,
+                    "amortization": (round(self._amort_ewma, 4)
+                                     if self._amort_ewma is not None
+                                     else None),
+                    "slices_by_mode": dict(sorted(
+                        self._megastep_slices_by_mode.items())),
+                },
             }

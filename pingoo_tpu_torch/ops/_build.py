@@ -11,10 +11,17 @@ and an unchanged one is loaded as it is. The libraries are loaded with
 Nothing here runs at import time, so the package imports on a host with
 no nvcc and no card. A build or launch failure raises; there is no
 fallback to the plain versions on a CUDA tensor.
+
+A launch made while a CUDA graph is being captured runs nothing: it is
+queued into the graph and runs at each replay. Inside
+`record_launches()` such launches go to the recorder instead of the
+counts, and `add_launches` adds them once per replay
+(engine/graphs.py), so the counts stay the kernels' real launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,6 +48,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# The launch recorder of the thread capturing a CUDA graph, if any.
+_capture = threading.local()
 # ptxas resource reports (registers, shared memory, spills) of the
 # builds this process ran with verbose=True.
 ptxas_reports: dict[str, str] = {}
@@ -153,7 +162,11 @@ class Kernel:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: error {rc} "
                 f"({msg})")
-        self.launches += 1
+        recorder = getattr(_capture, "launches", None)
+        if recorder is not None:
+            recorder[self.name] = recorder.get(self.name, 0) + 1
+        else:
+            self.launches += 1
 
 
 KERNELS: dict[str, Kernel] = {}
@@ -167,6 +180,25 @@ def register(kernel: Kernel) -> Kernel:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Launches this thread queues into a CUDA graph under capture:
+    yields {kernel name: launches}, filled instead of the counts."""
+    recorder: dict[str, int] = {}
+    prev = getattr(_capture, "launches", None)
+    _capture.launches = recorder
+    try:
+        yield recorder
+    finally:
+        _capture.launches = prev
+
+
+def add_launches(recorded: dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded `recorded`."""
+    for name, n in recorded.items():
+        KERNELS[name].launches += n
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

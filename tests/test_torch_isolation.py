@@ -91,8 +91,20 @@ for mod in ("config.load", "lists", "logging_utils", "obs.trace",
             "obs.window", "obs.pipeline", "host.jwt", "host.captcha",
             "host.captcha_frontend", "host.geoip", "host.services",
             "host.discovery", "host.tlsmgr", "host.acme", "host.h2",
-            "host.httpd", "host.server", "host.native_plane", "__main__"):
+            "host.httpd", "host.server", "host.native_plane", "__main__",
+            "engine.graphs"):
     importlib.import_module("pingoo_tpu_torch." + mod)
+# The megastep (PINGOO_MEGASTEP=force, K=4): one window of 4 slices.
+import os
+os.environ["PINGOO_MEGASTEP"] = "force"
+os.environ["PINGOO_MEGASTEP_K"] = "4"
+mega = VerdictService(plan, lists, max_batch=64, device="cpu")
+assert [(v.action, v.matched.tobytes()) for v in
+        mega.evaluate_batch(reqs[:32])] == [
+    (v.action, v.matched.tobytes()) for v in
+    VerdictService(plan, lists, device="cpu").evaluate_batch(reqs[:32])]
+assert mega.pipeline_snapshot()["megastep"]["slices"] == 4
+del os.environ["PINGOO_MEGASTEP"], os.environ["PINGOO_MEGASTEP_K"]
 from pingoo_tpu_torch.config import parse_config
 from pingoo_tpu_torch.lists import load_lists
 from pingoo_tpu_torch.utils.crs import deployment
@@ -194,7 +206,6 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_STAGING", "compact"),
     ("PINGOO_NFA_SPLIT", "1"),
     ("PINGOO_MEGASTEP", "auto"),
-    ("PINGOO_MEGASTEP", "force"),
     ("PINGOO_MESH", "2x1x1"),
     ("PINGOO_SCAN_STRATEGY", "halo"),
     ("PINGOO_SCHED_MODE", "continuous"),
@@ -205,7 +216,6 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_SCAN_PACK", "batch"),
     ("PINGOO_PREFILTER_LEVELS", "4"),
     ("PINGOO_STAGING_DEPTH", "2"),
-    ("PINGOO_MEGASTEP_K", "4"),
     ("PINGOO_DEADLINE_MS", "2"),
 ])
 def test_unported_knobs_raise(monkeypatch, name, value):
@@ -228,7 +238,7 @@ def test_unported_knobs_raise(monkeypatch, name, value):
     ("PINGOO_SCAN_PACK", "fill", "kernel work item 1, lane packing"),
     ("PINGOO_PREFILTER_LEVELS", "2", "item 2, prefilter compact mode"),
     ("PINGOO_STAGING_DEPTH", "1", "item 3, compact staging"),
-    ("PINGOO_MEGASTEP_K", "2", "item 5, megastep and DeviceInputQueue"),
+    ("PINGOO_MEGASTEP", "auto", "item 9, the scheduler"),
     ("PINGOO_DEADLINE_MS", "5", "item 9, the scheduler"),
 ])
 def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
@@ -254,6 +264,8 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     ("PINGOO_PIPELINE", "true"), ("PINGOO_PIPELINE_DEPTH", "3"),
     ("PINGOO_PIPELINE_DEPTH", "1"), ("PINGOO_SCHED_PIPELINE", "2"),
     ("PINGOO_SCHED_PIPELINE", "3"),
+    # The megastep (port queue item 5, ported): `force` and its K cap.
+    ("PINGOO_MEGASTEP", "force"), ("PINGOO_MEGASTEP_K", "4"),
     # Knobs that pick among the JAX package's backends mean nothing here.
     ("PINGOO_NFA_LOOKUP", "pair"), ("PINGOO_DFA_KERNEL", "pallas"),
     ("PINGOO_PREFILTER_KERNEL", "pallas"),
