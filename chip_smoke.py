@@ -47,7 +47,16 @@
    launched through the replays and no epoch echo mismatch, and one
    more pass runs under torch.profiler. It prints the captures and
    their ms, replays, distinct graph keys, the verdict issue per batch
-   and the device's busy share.
+   and the device's busy share. Last, the main path under
+   PINGOO_STAGING=compact (the plan's caps, one packed buffer a batch)
+   and under PINGOO_PREFILTER=compact: each must give the main path's
+   and the oracle's verdicts with all three kernels launched; each
+   prints its staged bytes a request, encode ms a batch and verdict
+   issue beside the main path's, and its device busy share. Compact
+   staging's upload (one pinned copy) and device decode (`unpack_staged`,
+   six contiguous field copies) of one batch are timed at the plan's caps
+   and at PINGOO_STAGING_DEPTH=256, the decode held to full staging's
+   arrays cut to the caps.
 4. Config phase: the port booted from a deployment, as a server does.
    The same corpus is written as a pingoo deployment (its lists as CSV
    files, the rules as pingoo.yml's mapping, two services with `route:`
@@ -87,12 +96,23 @@
    capturing its graph) and counts the captures its warm stream still
    makes; both must give the same
    checksum and bytes, launch every kernel through graph replays and
-   echo every slice's epoch. Prints {"ring": ...}: per arm req/s, wait
+   echo every slice's epoch. Then bench.py's staging pair on the same
+   ring: bench_staging's warm (seed 22) and measured (seed 21) streams
+   of 8,192 requests with its long-URL tail (one request in 200 with a
+   url and path of about 1,800 more bytes), at PINGOO_STAGING_DEPTH=256,
+   through fresh sidecars under PINGOO_STAGING=full, compact, and
+   compact with PINGOO_MEGASTEP=force (after warm_up()). Each measured
+   drive must give checksum 3631441880 (the JAX package's, both modes,
+   BENCH_staging.json), every ticket answered once, a heartbeat under
+   500 ms and launches of all three kernels; the compact arms must
+   re-serve exactly the stream's rows whose url or path passes 256
+   bytes. Prints {"ring": ...}: per arm req/s, wait
    p50/p99, batches, the stage split, the verdict issue per batch, the
    in-issue syncs, launches per batch, peak in flight, overlap_ratio
    and stage occupancy, the megastep arms' warm-up, windows, captures,
    capture ms, replays and window wall, and the on arms' device busy
-   share.
+   share; per staging arm its staged bytes a request, depth-overflow
+   rows and, under force, its distinct graph keys.
 7. Body phase, in a process of its own: streaming body inspection
    (engine/bodyscan.py). (a) bench.py's body stream at the scanner's
    defaults (1,024 flows of 256-12,288 bytes, a payload planted in every
@@ -167,8 +187,9 @@
 10. Prints one JSON line of per-kernel results (with each kernel's
    launches in the config phase, on the ring drive, on the body
    phase's streamed passes, on the listener's measured pass, on the
-   native phase's measured loadgen run, and through the megastep's
-   graph replays in the slice phase and the two ring arms), then, last,
+   native phase's measured loadgen run, through the megastep's graph
+   replays in the slice phase and the two ring arms, in the compact
+   slice arms and in the ring's staging arms), then, last,
    {"ok": true, "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
@@ -1390,24 +1411,33 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
     # main path's mode also under off, one batch at a time, and under
     # PINGOO_MEGASTEP=force at PINGOO_MEGASTEP_K=4 (4 slices of 512 rows
     # a batch) and 1 (one slice of 2048 rows).
-    runs = [(dfa, pf, "on", "off", None) for dfa, pf in MODES]
-    runs.insert(1, (*MODES[0], "off", "off", None))
-    runs.insert(2, (*MODES[0], "on", "force", 4))
-    runs.insert(3, (*MODES[0], "on", "force", 1))
+    # Last, the main path under PINGOO_STAGING=compact and under
+    # PINGOO_PREFILTER=compact, each held to the main path's verdicts.
+    runs = [(dfa, pf, "on", "off", None, "full") for dfa, pf in MODES]
+    runs.insert(1, (*MODES[0], "off", "off", None, "full"))
+    runs.insert(2, (*MODES[0], "on", "force", 4, "full"))
+    runs.insert(3, (*MODES[0], "on", "force", 1, "full"))
+    runs.append((*MODES[0], "on", "off", None, "compact"))
+    runs.append(("auto", "compact", "on", "off", None, "full"))
     cpu_rows = {}
     megas = {}
-    for dfa_mode, pf_mode, pipe_mode, mega_mode, mega_k in runs:
+    compacts = {}
+    for dfa_mode, pf_mode, pipe_mode, mega_mode, mega_k, staging in runs:
         os.environ["PINGOO_DFA"] = dfa_mode
         os.environ["PINGOO_PREFILTER"] = pf_mode
         os.environ["PINGOO_PIPELINE"] = pipe_mode
         os.environ["PINGOO_MEGASTEP"] = mega_mode
+        os.environ["PINGOO_STAGING"] = staging
         if mega_k is not None:
             os.environ["PINGOO_MEGASTEP_K"] = str(mega_k)
         label = (f"PINGOO_DFA={dfa_mode} PINGOO_PREFILTER={pf_mode} "
                  f"PINGOO_PIPELINE={pipe_mode}"
                  + (f" PINGOO_MEGASTEP=force PINGOO_MEGASTEP_K={mega_k}"
-                    if mega_mode == "force" else ""))
-        main = (dfa_mode, pf_mode) == ("auto", "banks")
+                    if mega_mode == "force" else "")
+                 + (" PINGOO_STAGING=compact" if staging == "compact"
+                    else ""))
+        main = (dfa_mode, pf_mode, staging) == ("auto", "banks", "full")
+        compact = "compact" in (pf_mode, staging)
         # A warm-up pass over the same batches (each new field width
         # costs a first call) outside the timings, then a fresh service;
         # under the megastep the warmed service itself, whose graphs the
@@ -1466,6 +1496,23 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
                 verdict_alone_ms=alone, req_per_s=N_REQUESTS / wall)
             if mega["echo_mismatch"]:
                 fail(f"{label}: {mega['echo_mismatch']} epoch echoes differ")
+        stats = service.stats
+        staging_cols = dict(
+            staged_bytes_per_request=stats.staged_bytes / N_REQUESTS,
+            encode_ms=stats.stages["encode"].summary(),
+            verdict_ms=stats.stages["verdict"].summary())
+        if main and (pipe_mode, mega_mode) == ("on", "off"):
+            main_staging = staging_cols
+        if compact:
+            if (matched != main_out[0]).any() or (act != main_out[1]).any() \
+                    or (vb != main_out[2]).any():
+                fail(f"{label}: verdicts differ from the main path's")
+            missing = [k for k, n in counts.items() if n == 0]
+            if missing:
+                fail(f"{label}: the main path launched no {missing} kernel")
+            compacts["staging" if staging == "compact" else "prefilter"] = \
+                dict(label=label, launches=counts, req_per_s=N_REQUESTS / wall,
+                     caps=service.stage_caps, **staging_cols)
         # The port's CPU path on the same batches, once per mode.
         if (dfa_mode, pf_mode) not in cpu_rows:
             cpu = []
@@ -1506,8 +1553,29 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
         if mega_mode == "force":
             mega["busy"] = profile_main_path(plan, lists, reqs, dev,
                                              service=service)
+        if compact:
+            compacts["staging" if staging == "compact" else "prefilter"][
+                "busy"] = profile_main_path(plan, lists, reqs, dev,
+                                            service=service)
         os.environ.pop("PINGOO_MEGASTEP")
         os.environ.pop("PINGOO_MEGASTEP_K", None)
+        os.environ.pop("PINGOO_STAGING")
+    for name, c in compacts.items():
+        print(f"compact {name} (slice phase, {c['label']}): verdicts equal "
+              f"the main path's and the oracle; {c['req_per_s']:.0f} req/s; "
+              f"staged {c['staged_bytes_per_request']:.1f} B a request "
+              f"(full: {main_staging['staged_bytes_per_request']:.1f}); "
+              f"encode p50 {c['encode_ms']['p50_ms']:.3f} ms mean "
+              f"{c['encode_ms']['mean_ms']:.3f} ms a batch (full: p50 "
+              f"{main_staging['encode_ms']['p50_ms']:.3f} mean "
+              f"{main_staging['encode_ms']['mean_ms']:.3f}); verdict issue "
+              f"p50 {c['verdict_ms']['p50_ms']:.3f} ms (full: "
+              f"{main_staging['verdict_ms']['p50_ms']:.3f}); device busy "
+              + (f"{c['busy']:.2f}%" if isinstance(c["busy"], float)
+                 else str(c["busy"]))
+              + f" under the profiler; caps {c['caps']}; launches "
+              f"{c['launches']}", flush=True)
+    compacts["decode"] = decode_phase(plan, reqs, dev)
     os.environ["PINGOO_DFA"], os.environ["PINGOO_PREFILTER"] = MODES[0]
     profile_main_path(plan, lists, reqs, dev)
     os.environ.pop("PINGOO_DFA")
@@ -1533,7 +1601,68 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
               f"{mega['snapshot']['windows']} of K {mega['snapshot']['k']}, "
               f"echo mismatches {mega['echo_mismatch']}, device busy "
               f"{mega['busy']}", flush=True)
-    return main_counts, main_out, megas
+    return main_counts, main_out, megas, compacts
+
+
+def decode_phase(plan, reqs, dev) -> dict:
+    """Compact staging's upload and device decode of one main-path batch
+    (B rows of `reqs`), at the plan's caps and at PINGOO_STAGING_DEPTH=
+    256: the packed buffer's one pinned copy and upload
+    (`packed_tensor`) and `unpack_staged`, which makes each of the six
+    string fields contiguous once (the NFA and DFA launchers take
+    unit-stride rows), each timed by CUDA events; the decoded arrays
+    must equal the full-staging arrays cut to the caps."""
+    import numpy as np
+
+    from pingoo_tpu_torch.engine.batch import (StagingEncoder,
+                                               batch_tensors, packed_tensor,
+                                               resolve_stage_caps,
+                                               stage_overflow_thresholds)
+    from pingoo_tpu_torch.engine.verdict import unpack_staged
+
+    out = {}
+    full = StagingEncoder(B, plan.field_specs, nbuf=1).encode_requests(
+        reqs[:B], pad_to=B, into=0)
+    full_dev = batch_tensors(full.arrays, dev)
+    for depth in ("0", "256"):
+        os.environ["PINGOO_STAGING"] = "compact"
+        os.environ["PINGOO_STAGING_DEPTH"] = depth
+        caps = resolve_stage_caps(plan)
+        enc = StagingEncoder(B, plan.field_specs, nbuf=1, stage_caps=caps,
+                             overflow_thresholds=stage_overflow_thresholds(
+                                 plan, caps))
+        os.environ.pop("PINGOO_STAGING")
+        os.environ.pop("PINGOO_STAGING_DEPTH")
+        b = enc.encode_requests(reqs[:B], pad_to=B, into=0)
+        packed = packed_tensor(b.packed, dev)
+        dec = unpack_staged(packed, b.layout)
+        for key, t in dec.items():
+            want = full_dev[key]
+            if key.endswith("_bytes"):
+                w = min(t.shape[1], want.shape[1])
+                ok = bool((t[:, :w] == want[:, :w]).all()) \
+                    and not bool(t[:, w:].any())
+            else:
+                ok = bool((t == want.to(t.dtype)).all())
+            if not ok:
+                fail(f"unpack_staged's {key} differs from full staging's "
+                     f"at caps {caps}")
+        contiguous = sum(1 for k, t in dec.items()
+                         if k.endswith("_bytes") and t.is_contiguous())
+        out[depth] = dict(
+            caps=caps, width=b.layout.width, bytes=int(b.packed.nbytes),
+            flagged=int(b.overflow.sum()),
+            upload_ms=cuda_ms(lambda: packed_tensor(b.packed, dev), 15),
+            decode_ms=cuda_ms(lambda: unpack_staged(packed, b.layout), 15),
+            contiguous_fields=contiguous)
+        print(f"compact decode (B={B}, PINGOO_STAGING_DEPTH={depth}): row "
+              f"{b.layout.width} B, buffer {b.packed.nbytes} B, "
+              f"{out[depth]['flagged']} rows flagged; one pinned copy and "
+              f"upload {out[depth]['upload_ms']:.4f} ms, unpack_staged "
+              f"{out[depth]['decode_ms']:.4f} ms ({contiguous} fields made "
+              f"contiguous), equal to full staging cut to the caps",
+              flush=True)
+    return out
 
 
 EXPLAIN_REQUESTS = 64
@@ -1743,12 +1872,43 @@ def stage_a_child() -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])["stage_a"]
 
 
+# The ring phase's staging pair: bench.py's `bench_staging` streams
+# (generate_traffic(8192), seeds 22 warm and 21 measured, each with its
+# long-URL tail) under PINGOO_STAGING_DEPTH=256; the crc32 of the
+# measured stream's verdict bytes is the JAX package's under full and
+# compact staging alike (BENCH_staging.json).
+STAGING_REQUESTS = 8192
+STAGING_DEPTH = "256"
+STAGING_CHECKSUM = 3631441880
+STAGING_TAIL_EVERY = 200
+STAGING_TAIL_PAD = 1800
+# arm -> (PINGOO_STAGING, PINGOO_MEGASTEP); the force arm at K=4.
+STAGING_ARMS = {"full": ("full", "off"), "compact": ("compact", "off"),
+                "compact_force": ("compact", "force")}
+
+
+def tail_requests(reqs, seed: int):
+    """bench.py's long-URL tail (`_staging_bench_child._tail`): one
+    request of every STAGING_TAIL_EVERY gets a url and a path of about
+    STAGING_TAIL_PAD more bytes (at most 2,040)."""
+    rng = random.Random(seed)
+    out = list(reqs)
+    for i in range(0, len(out), STAGING_TAIL_EVERY):
+        j = min(len(out) - 1, i + rng.randrange(STAGING_TAIL_EVERY))
+        r = out[j]
+        pad = "".join(rng.choice("abcdefgh") for _ in range(STAGING_TAIL_PAD))
+        out[j] = dataclasses.replace(r, url=(r.path + "?q=" + pad)[:2040],
+                                     path=(r.path + "/" + pad)[:2040])
+    return out
+
+
 def ring_producer(path: str) -> int:
     """The data plane's side, in a process of its own as the httpd is:
-    attach the ring at `path`; for each line "seed requests every" read
-    from stdin, drive generate_traffic(requests, seed) of the ring
-    phase's set-up through the ring, every `every`-th request with a body
-    of `body_ring_bodies` (none when 0), and write the drive as one JSON
+    attach the ring at `path`; for each line "seed requests every tail"
+    read from stdin, drive generate_traffic(requests, seed) of the ring
+    phase's set-up through the ring (with `tail_requests(.., tail)` when
+    tail is not 0), every `every`-th request with a body of
+    `body_ring_bodies` (none when 0), and write the drive as one JSON
     line. Ends at the end of stdin."""
     from pingoo_tpu_torch import native_ring as nr
     from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
@@ -1757,8 +1917,10 @@ def ring_producer(path: str) -> int:
     ring = nr.Ring(path, capacity=RING_CAPACITY)
     try:
         for line in sys.stdin:
-            seed, n, every = map(int, line.split())
+            seed, n, every, tail = map(int, line.split())
             reqs = generate_traffic(n, lists=lists, seed=seed)
+            if tail:
+                reqs = tail_requests(reqs, tail)
             r = nr.drive_stream(ring, nr.pack_requests(reqs),
                                 body_ring_bodies(n) if every else None)
             print(json.dumps(dict(
@@ -1782,10 +1944,11 @@ class ChildProducer:
              path], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)
 
-    def drive(self, seed: int, n: int = RING_REQUESTS, every: int = 0):
+    def drive(self, seed: int, n: int = RING_REQUESTS, every: int = 0,
+              tail: int = 0):
         from pingoo_tpu_torch import native_ring as nr
 
-        self.proc.stdin.write(f"{seed} {n} {every}\n")
+        self.proc.stdin.write(f"{seed} {n} {every} {tail}\n")
         self.proc.stdin.flush()
         line = self.proc.stdout.readline()
         if not line:
@@ -1864,12 +2027,14 @@ class SyncTimer:
                 for k, v in self.ms.items()}
 
 
-def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
+def ring_drive(sidecar, drive, want, profiled: bool = False,
+               checksum: int = RING_CHECKSUM) -> dict:
     """Run `drive()` (-> DriveResult) with the kernels' launch counts set
     to 0 just before and read just after; hold the verdicts to the
-    checksum, to `want` (byte for byte, in stream order) and the
-    heartbeat's age to the data plane's limit. Unprofiled drives time
-    the in-issue syncs (`SyncTimer`). Returns the drive's numbers."""
+    checksum, to `want` (byte for byte, in stream order; None: the
+    checksum alone) and the heartbeat's age to the data plane's limit.
+    Unprofiled drives time the in-issue syncs (`SyncTimer`). Returns the
+    drive's numbers, the bytes staged and depth-overflow rows included."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1877,6 +2042,8 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
     from pingoo_tpu_torch.ops import _build
 
     b0 = sidecar.batches
+    staged0 = sidecar.staged_bytes
+    over0 = sidecar.depth_overflow_rows
     s0 = {k: v.count for k, v in sidecar.stage_ms.items()}
     g0 = sidecar.stats()["megastep"]["graphs"]
     syncs = SyncTimer()
@@ -1891,9 +2058,10 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
             r = drive()
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
     batches = sidecar.batches - b0
-    if r.checksum != RING_CHECKSUM:
-        fail(f"ring drive checksum {r.checksum}, not {RING_CHECKSUM}")
-    if r.actions != want:
+    n = len(r.actions)
+    if r.checksum != checksum:
+        fail(f"ring drive checksum {r.checksum}, not {checksum}")
+    if want is not None and r.actions != want:
         bad = sum(a != b for a, b in zip(r.actions, want))
         fail(f"{bad} ring verdict bytes differ from VerdictService's")
     if r.max_heartbeat_age_ms >= HEARTBEAT_LIMIT_MS:
@@ -1904,10 +2072,12 @@ def ring_drive(sidecar, drive, want: bytes, profiled: bool = False) -> dict:
         fail(f"the ring drive launched no {missing} kernel")
     waits = np.array(r.waits_ms)
     out = dict(
-        req_per_s=len(want) / r.seconds, seconds=r.seconds,
+        req_per_s=n / r.seconds, seconds=r.seconds,
         wait_p50_ms=float(np.percentile(waits, 50)),
         wait_p99_ms=float(np.percentile(waits, 99)), batches=batches,
-        rows_per_batch=len(want) / batches,
+        rows_per_batch=n / batches,
+        staged_bytes_per_request=(sidecar.staged_bytes - staged0) / n,
+        depth_overflow_rows=sidecar.depth_overflow_rows - over0,
         stage_p50_ms={k: float(np.percentile(v.since(s0[k]), 50))
                       for k, v in sidecar.stage_ms.items()},
         max_heartbeat_age_ms=r.max_heartbeat_age_ms, checksum=r.checksum,
@@ -2008,6 +2178,63 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
                 drives=drives)
 
 
+def staging_arm(ring, producer, plan, lists, dev, staging: str,
+                megastep: str = "off") -> dict:
+    """One arm of the ring phase's staging pair: a RingSidecar(max_batch=
+    B, pipeline_depth=3) under PINGOO_PIPELINE=on,
+    PINGOO_STAGING=`staging`, PINGOO_STAGING_DEPTH=256 (which full
+    staging ignores) and PINGOO_MEGASTEP=`megastep` (after `warm_up()`
+    under force) drains the ring while the producer drives bench.py's
+    warm staging stream, then the measured one, which must give
+    STAGING_CHECKSUM. Returns the arm's numbers."""
+    import threading
+
+    from pingoo_tpu_torch import native_ring as nr
+
+    env = {"PINGOO_PIPELINE": "on", "PINGOO_MEGASTEP": megastep,
+           "PINGOO_STAGING": staging, "PINGOO_STAGING_DEPTH": STAGING_DEPTH}
+    os.environ.update(env)
+    try:
+        sidecar = nr.RingSidecar(ring, plan, lists, max_batch=B,
+                                 device=dev, pipeline_depth=3)
+    finally:
+        for name in env:
+            os.environ.pop(name)
+    t_arm = time.monotonic()
+    warm_up = None
+    if megastep == "force":
+        warm_up = dict(windows=sidecar.warm_up(),
+                       graphs=sidecar.stats()["megastep"]["graphs"])
+    thread = threading.Thread(target=sidecar.run, daemon=True)
+    thread.start()
+    try:
+        t0 = time.monotonic()
+        producer.drive(22, STAGING_REQUESTS, 0, 2)
+        warm_s = time.monotonic() - t0
+        drive = ring_drive(
+            sidecar, lambda: producer.drive(21, STAGING_REQUESTS, 0, 1),
+            None, checksum=STAGING_CHECKSUM)
+    finally:
+        sidecar.stop()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        fail(f"the staging arm's ({staging}, {megastep}) drain loop did "
+             f"not stop")
+    stats = sidecar.stats()
+    if megastep == "force" and (stats["megastep"]["echo_mismatch"]
+                                or not stats["megastep"]["windows"]):
+        fail(f"the compact megastep arm ran {stats['megastep']['windows']} "
+             f"windows with {stats['megastep']['echo_mismatch']} epoch "
+             f"echo mismatches")
+    return dict(staging=staging, megastep=megastep, caps=sidecar.stage_caps,
+                warm_up=warm_up, warm_s=warm_s,
+                arm_s=time.monotonic() - t_arm, drive=drive,
+                peak_inflight=sidecar._pipe.peak_inflight,
+                megastep_stats=stats["megastep"],
+                graph_keys=(sorted(sidecar._mega_runner.keys)
+                            if megastep == "force" else None))
+
+
 def ring_phase() -> int:
     """The native plane on the card: the ring library built from the
     port's copy, the 500-rule plan with its lists, a ring of
@@ -2047,6 +2274,7 @@ def ring_phase() -> int:
                  for lo in range(0, RING_REQUESTS, B)
                  for v in service.evaluate_batch(reqs[lo:lo + B]))
     arms = {}
+    staging = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ring")
         ring = nr.Ring(path, capacity=RING_CAPACITY, create=True)
@@ -2064,6 +2292,10 @@ def ring_phase() -> int:
                 arms["force_256"] = ring_arm(ring, producer, plan, lists,
                                              want, dev, "on", "force",
                                              max_batch=RING_MANY_SLICES)
+                # The staging pair, and compact under the megastep.
+                for arm, (mode, mega) in STAGING_ARMS.items():
+                    staging[arm] = staging_arm(ring, producer, plan, lists,
+                                               dev, mode, mega)
                 producer.close()
                 time.sleep(0.2)
                 if ring.poll_verdict() is not None:
@@ -2105,11 +2337,42 @@ def ring_phase() -> int:
                   + (f", device busy {d['device_busy_ms']} ms = "
                      f"{d['device_busy_pct']}% of the wall"
                      if "device_busy_pct" in d else ""), flush=True)
+    # Every arm of the staging pair re-serves the measured stream's rows
+    # past a clamped cap: with the corpus's caps at depth 256, those whose
+    # url or path passes 256 bytes.
+    tail = tail_requests(generate_traffic(STAGING_REQUESTS, lists=lists,
+                                          seed=21), 1)
+    over = sum(1 for r in tail if max(len(r.url.encode("latin-1")),
+                                      len(r.path.encode("latin-1"))) > 256)
+    for arm, st in staging.items():
+        d = st["drive"]
+        want_over = 0 if st["staging"] == "full" else over
+        if d["depth_overflow_rows"] != want_over:
+            fail(f"staging arm {arm}: {d['depth_overflow_rows']} "
+                 f"depth-overflow rows re-served, not {want_over}")
+        print(f"ring staging arm {arm}: PINGOO_STAGING={st['staging']} "
+              f"PINGOO_STAGING_DEPTH={STAGING_DEPTH} PINGOO_MEGASTEP="
+              f"{st['megastep']} (caps {st['caps']}; {st['arm_s']:.1f} s, "
+              f"warm drive {st['warm_s']:.2f} s): {STAGING_REQUESTS} "
+              f"requests, checksum {d['checksum']}, {d['req_per_s']:.0f} "
+              f"req/s, wait p50 {d['wait_p50_ms']:.2f} ms p99 "
+              f"{d['wait_p99_ms']:.2f} ms, staged "
+              f"{d['staged_bytes_per_request']:.1f} B a request, "
+              f"depth-overflow rows {d['depth_overflow_rows']}, "
+              f"{d['batches']} batches of {d['rows_per_batch']:.1f} rows, "
+              f"stage p50 ms {d['stage_p50_ms']}, verdict issue "
+              f"{d['verdict_issue_ms_per_batch']:.3f} ms a batch, heartbeat "
+              f"age max {d['max_heartbeat_age_ms']} ms, launches "
+              f"{d['launches']}, peak in flight {st['peak_inflight']}"
+              + (f"; megastep {d['megastep']}, warm_up() {st['warm_up']}, "
+                 f"{len(st['graph_keys'])} distinct graph keys "
+                 f"{st['graph_keys']}" if st["megastep"] == "force" else ""),
+              flush=True)
     print(json.dumps({"ring": dict(
         requests=RING_REQUESTS, max_batch=B, capacity=RING_CAPACITY,
         rules=500, build_s=build_s, warm_s=arms["on"]["warm_s"],
         processed=arms["on"]["processed"], drives=arms["on"]["drives"],
-        arms=arms)}), flush=True)
+        arms=arms, staging=staging)}), flush=True)
     return 0
 
 
@@ -4237,8 +4500,8 @@ def main() -> int:
     body = body_child()
     listener = listener_child()
     native = native_child()
-    counts, main_path, megas = slice_phase(plan, rules, lists, reqs, dev,
-                                           oracle)
+    counts, main_path, megas, compacts = slice_phase(plan, rules, lists,
+                                                     reqs, dev, oracle)
     config_counts = config_phase(rules, lists, reqs, oracle, main_path, dev)
     calls, launched = capture_main_path(plan, lists, reqs, dev)
     batches = -(-N_REQUESTS // B)
@@ -4287,6 +4550,12 @@ def main() -> int:
                 "launches"][name],
             "ring_megastep_256_launches": ring["arms"]["force_256"][
                 "drives"][0]["launches"][name],
+            "compact_staging_launches": compacts["staging"]["launches"][name],
+            "compact_prefilter_launches": compacts["prefilter"]["launches"][
+                name],
+            **{f"ring_staging_{arm}_launches": ring["staging"][arm][
+                "drive"]["launches"][name]
+               for arm in ("full", "compact", "compact_force")},
             **{k: v for k, v in r.items() if k not in (
                 "route", "source", "replaces", "max_abs_err", "ms",
                 "plain_ms", "work")}})

@@ -9,7 +9,9 @@ plus loaded lists and produces a `RulesetPlan`:
     per-field NFA banks and their bitsplit-DFA lowerings, window banks,
     the Stage-A literal prefilter, and CIDR/int membership tables;
   * rules outside the subset keep their compiled Program and are
-    interpreted on the host over the same truncated request view.
+    interpreted on the host over the same truncated request view;
+  * `derive_staging_caps` records, per field, how deep the scanners
+    read, which compact staging stages (engine/batch.py).
 
 The tables, the scan-plan records and the prefilter metadata are the
 JAX package's, key for key and field for field; here every table is a
@@ -30,6 +32,7 @@ import torch
 from ..config.schema import Action, RuleConfig
 from ..device import check_env, resolve_device
 from ..expr import Program
+from ..expr import ast as expr_ast
 from ..expr.values import Ip
 from ..ops import bitsplit_dfa, cidr, match_ops, nfa_scan, prefilter, \
     window_match
@@ -50,7 +53,10 @@ from .lowering import (
     LeafRegistry,
     Lowerer,
     LowerError,
+    NBin,
     NfaPred,
+    NLen,
+    NNeg,
     NumCmp,
     StrListPred,
     StrPred,
@@ -255,6 +261,10 @@ class RulesetPlan:
     dfa_default_mode: str = "auto"
     # Lowered window banks: "win_<field>" -> "dfa_win_<field>".
     win_dfa: dict[str, str] = dc_field(default_factory=dict)
+    # Compact staging: per field, the deepest byte any scanner depends
+    # on, and that depth on the rung ladder (`derive_staging_caps`).
+    staging_required: dict[str, int] = dc_field(default_factory=dict)
+    staging_caps: dict[str, int] = dc_field(default_factory=dict)
     device: torch.device = torch.device("cpu")
 
     def to(self, device) -> "RulesetPlan":
@@ -347,7 +357,113 @@ def compile_ruleset(
             for e in plan.scan_plans.values() if e.dfa_key)
         + sum(plan.np_tables[k].num_states for k in plan.win_dfa.values()),
     }
+    derive_staging_caps(plan)
     return plan.to(dev)
+
+
+# -- compact staging caps -------------------------------------------------------
+#
+# Most rulesets read only a short prefix of most fields. The pass below
+# derives, per field, the deepest byte a compiled scanner depends on;
+# PINGOO_STAGING=compact stages only that prefix, quantized up this rung
+# ladder so plans whose caps land on the same rungs share one layout
+# (and, on the card, one set of megastep graph shapes).
+STAGING_RUNGS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+
+
+def quantize_stage_cap(depth: int, spec: int) -> int:
+    """The smallest rung >= depth, clamped to the field's spec (a
+    2-byte country code is never padded out to 16)."""
+    for rung in STAGING_RUNGS:
+        if rung >= depth:
+            return min(rung, spec)
+    return spec
+
+
+def _num_ir_len_fields(ir) -> set[str]:
+    """The fields whose length() an arithmetic IR reads (NLen nodes)."""
+    out: set[str] = set()
+    stack = [ir]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, NLen):
+            out.add(node.field)
+        elif isinstance(node, NBin):
+            stack.append(node.left)
+            stack.append(node.right)
+        elif isinstance(node, NNeg):
+            stack.append(node.x)
+    return out
+
+
+def derive_staging_caps(plan: RulesetPlan) -> None:
+    """Set plan.staging_required (per field, the deepest byte any
+    compiled scanner reads) and plan.staging_caps (that depth on
+    STAGING_RUNGS, clamped to the spec), as the JAX package does.
+
+    The staged view may only drop bytes no scanner reads:
+
+      * eq needs |pattern| + 1 bytes: the device compares the true
+        lengths, and the extra byte keeps an interpreter context built
+        from staged bytes exact (a value cut at |pattern| + 1 or more
+        is still longer than the pattern);
+      * prefix needs |pattern| bytes;
+      * suffix reads the end of the true string: the full spec;
+      * contains/regex (NFA, DFA and window banks, and the Stage-A
+        prefilter over them) scan the whole field: the full spec;
+      * length() in device arithmetic pins its field, so that contexts
+        built from staged bytes agree with the device's true lengths;
+      * host rules and host routes run on contexts built from the
+        staged bytes, so every string field they name is pinned.
+
+    A row whose true length passes a cap set below the required depth
+    (PINGOO_STAGING_DEPTH) is flagged by the encoder and re-interpreted
+    from its untruncated source."""
+    specs = plan.field_specs
+    required: dict[str, int] = {f: 0 for f in specs}
+
+    def need(field: str, depth: int) -> None:
+        if field in required:
+            required[field] = max(required[field], int(depth))
+
+    def pin(field: str) -> None:
+        if field in required:
+            required[field] = int(specs[field])
+
+    for leaf in plan.leaves:
+        if isinstance(leaf, StrPred):
+            if leaf.kind == "eq":
+                need(leaf.field, len(leaf.pattern) + 1)
+            elif leaf.kind == "prefix":
+                need(leaf.field, len(leaf.pattern))
+            else:
+                pin(leaf.field)
+        elif isinstance(leaf, StrListPred):
+            need(leaf.field, max((len(e) for e in leaf.entries),
+                                 default=0) + 1)
+        elif isinstance(leaf, NfaPred):
+            pin(leaf.field)
+        elif isinstance(leaf, NumCmp):
+            for f in _num_ir_len_fields(leaf.left) \
+                    | _num_ir_len_fields(leaf.right):
+                pin(f)
+        elif isinstance(leaf, IntListPred):
+            for f in _num_ir_len_fields(leaf.probe):
+                pin(f)
+    for rule in plan.rules:
+        if not rule.host or rule.program is None:
+            continue
+        for node in expr_ast.walk(rule.program.root):
+            if not isinstance(node, expr_ast.Member) \
+                    or not isinstance(node.obj, expr_ast.Ident):
+                continue
+            if node.obj.name == "http_request" and node.attr in specs:
+                pin(node.attr)
+            elif node.obj.name == "client" and node.attr == "country":
+                pin("country")
+    plan.staging_required = dict(required)
+    plan.staging_caps = {f: quantize_stage_cap(required[f], spec)
+                         for f, spec in specs.items()}
 
 
 def _assemble_tables(plan: RulesetPlan) -> None:

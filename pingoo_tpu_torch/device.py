@@ -18,16 +18,10 @@ import torch
 # Three knobs of the JAX package are not here: PINGOO_NFA_LOOKUP,
 # PINGOO_DFA_KERNEL and PINGOO_PREFILTER_KERNEL choose among its JAX
 # backends (lax.scan lookups, Pallas or XLA) and mean nothing in the
-# port, whose only device route is its CUDA kernels.
+# port, whose only device route is its CUDA kernels; nor is
+# PINGOO_PREFILTER_LEVELS, the depth of the JAX package's compact row
+# ladder: the port's compact mode gathers exactly its candidate rows.
 _UNPORTED = (
-    ("PINGOO_PREFILTER_LEVELS", lambda v: v != "",
-     "port queue item 2, prefilter compact mode"),
-    ("PINGOO_PREFILTER", lambda v: v == "compact",
-     "port queue item 2, prefilter compact mode"),
-    ("PINGOO_STAGING", lambda v: v.strip().lower() == "compact",
-     "port queue item 3, compact staging"),
-    ("PINGOO_STAGING_DEPTH", lambda v: v not in ("", "0"),
-     "port queue item 3, compact staging"),
     ("PINGOO_NFA_SPLIT", lambda v: v not in ("", "0"),
      "port queue item 4, halo split"),
     ("PINGOO_SCAN_STRATEGY", lambda v: v == "halo",

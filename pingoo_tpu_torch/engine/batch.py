@@ -7,8 +7,20 @@ capped at its plan capacity (compiler/lowering.DEFAULT_FIELD_SPECS); a
 request whose field exceeds it is flagged in `overflow` and re-evaluated
 by the interpreter over the untruncated strings (engine/service.py).
 `batch_to_contexts` rebuilds the strings the device saw (the parity
-oracle's view). Only full staging is ported: every field is staged at
-its full width, then `bucket_arrays` trims the columns to a power of two.
+oracle's view).
+
+Two staging modes (PINGOO_STAGING, as in the JAX package):
+
+  * `full` (the default): every field is staged at its full width, then
+    `bucket_arrays` trims the columns to a power of two;
+  * `compact`: each field is staged at the plan's cap
+    (`RulesetPlan.staging_caps`, clamped by PINGOO_STAGING_DEPTH), all of
+    a row in one packed byte row (`PackedLayout`) whose metadata tail
+    holds the true lengths, the IP bytes and the numbers, so a batch
+    uploads as one copy and the device decodes it
+    (engine/verdict.py `unpack_staged`). A row longer than a cap set
+    below the plan's required depth is flagged in `overflow` and
+    re-interpreted from its untruncated source.
 
 Two encode paths give the same arrays: the one-batch chain
 (`encode_requests` -> `bucket_arrays` -> `pad_batch`, or the ring's
@@ -22,14 +34,16 @@ from __future__ import annotations
 
 import ipaddress
 import math
+import os
 import threading
 from dataclasses import dataclass
-from typing import Mapping, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..compiler.lowering import DEFAULT_FIELD_SPECS
+from ..compiler.plan import quantize_stage_cap
 from ..expr import Context, Ip
 from ..ops.cidr import ip_to_words
 
@@ -59,11 +73,19 @@ class RequestTuple:
 @dataclass
 class RequestBatch:
     """Fixed-shape encoded batch (numpy arrays in `.arrays`); `overflow`
-    flags rows whose fields exceeded device capacity."""
+    flags rows whose fields exceeded device capacity. Under compact
+    staging `packed` is the [size, layout.width] uint8 buffer that the
+    device decodes, and the byte matrices of `arrays` are views of it
+    (host rules and overflow rows read the same bytes). `staged_bytes`
+    is what the encoder staged for the device: the packed rows, or the
+    arrays' bytes under full staging (the JAX package's measure)."""
 
     size: int
     arrays: dict
     overflow: Optional[np.ndarray] = None
+    packed: Optional[np.ndarray] = None
+    layout: Optional["PackedLayout"] = None
+    staged_bytes: int = 0
 
     def __getitem__(self, key: str):
         return self.arrays[key]
@@ -180,6 +202,93 @@ def pad_batch(batch: RequestBatch, to_size: int) -> RequestBatch:
     return RequestBatch(size=to_size, arrays=arrays, overflow=overflow)
 
 
+# -- compact staging -----------------------------------------------------------
+
+
+def resolve_staging_mode() -> str:
+    """PINGOO_STAGING: `full` (the default) or `compact`."""
+    mode = os.environ.get("PINGOO_STAGING", "full").strip().lower()
+    return "compact" if mode == "compact" else "full"
+
+
+def resolve_stage_caps(plan) -> Optional[dict[str, int]]:
+    """The per-field staged widths a plan serves under, or None under
+    full staging: the plan's caps, clamped by PINGOO_STAGING_DEPTH (0,
+    unset or not an integer: no clamp) on the rung ladder."""
+    if resolve_staging_mode() != "compact":
+        return None
+    specs = dict(getattr(plan, "field_specs", None) or DEFAULT_FIELD_SPECS)
+    caps = dict(getattr(plan, "staging_caps", None) or {})
+    try:
+        depth = int(os.environ.get("PINGOO_STAGING_DEPTH", "0"))
+    except ValueError:
+        depth = 0
+    eff: dict[str, int] = {}
+    for field in STRING_FIELDS:
+        spec = int(specs.get(field, 256))
+        cap = min(int(caps.get(field, spec)), spec)
+        if depth > 0:
+            cap = min(cap, quantize_stage_cap(min(depth, spec), spec))
+        eff[field] = max(1, cap)
+    return eff
+
+
+def stage_overflow_thresholds(plan,
+                              eff: Mapping[str, int]) -> dict[str, int]:
+    """Per field, the true length past which a row is re-interpreted
+    from its untruncated source: the spec where the cap covers the
+    plan's required depth (full staging's rule), else the cap itself
+    (a clamped cap drops bytes a scanner reads)."""
+    specs = dict(getattr(plan, "field_specs", None) or DEFAULT_FIELD_SPECS)
+    required = getattr(plan, "staging_required", None) or {}
+    out: dict[str, int] = {}
+    for field in STRING_FIELDS:
+        spec = int(specs.get(field, 256))
+        need = min(int(required.get(field, spec)), spec)
+        cap = int(eff.get(field, spec))
+        out[field] = cap if cap < need else spec
+    return out
+
+
+class PackedLayout(NamedTuple):
+    """The byte layout of one packed staging row: each string field's
+    capped bytes, then a metadata tail of the u16 little-endian true
+    lengths, the 16 big-endian IP bytes and the int64 little-endian asn
+    and remote_port."""
+
+    fields: tuple  # ((field, offset, width), ...)
+    lens: tuple  # ((field, offset), ...)
+    ip_off: int
+    asn_off: int
+    port_off: int
+    width: int  # the row's stride in bytes
+
+
+_LAYOUT_CACHE: dict[tuple, PackedLayout] = {}
+
+
+def build_packed_layout(stage_caps: Mapping[str, int]) -> PackedLayout:
+    """The PackedLayout of a caps assignment, one instance per tuple of
+    widths (plans whose caps land on the same rungs share it)."""
+    widths = tuple(int(stage_caps[f]) for f in STRING_FIELDS)
+    cached = _LAYOUT_CACHE.get(widths)
+    if cached is not None:
+        return cached
+    fields, off = [], 0
+    for field, w in zip(STRING_FIELDS, widths):
+        fields.append((field, off, w))
+        off += w
+    lens = []
+    for field in STRING_FIELDS:
+        lens.append((field, off))
+        off += 2
+    layout = PackedLayout(fields=tuple(fields), lens=tuple(lens),
+                          ip_off=off, asn_off=off + 16, port_off=off + 24,
+                          width=off + 32)
+    _LAYOUT_CACHE[widths] = layout
+    return layout
+
+
 class StagingEncoder:
     """Reused staging buffers for the pipelined executor.
 
@@ -204,8 +313,12 @@ class StagingEncoder:
     Two fill paths: `encode_requests` from RequestTuples (the Python
     plane) and `encode_slots` from request-slot rows (the sidecar),
     the latter with one strided copy per field and no per-slot Python.
-    Only full staging is ported: the packed layout of compact staging
-    (`stage_caps`) raises (ROADMAP.md, port queue item 3).
+
+    With `stage_caps` (compact staging) each set also owns a packed
+    buffer sized at the installed layout's width (a `set_stage_caps`
+    that widens it reallocates); a batch fills and ships its [P, width]
+    prefix. The thresholds (`stage_overflow_thresholds`) decide which
+    rows are flagged.
     """
 
     def __init__(self, max_batch: int,
@@ -213,8 +326,6 @@ class StagingEncoder:
                  nbuf: int = 2,
                  stage_caps: Optional[Mapping[str, int]] = None,
                  overflow_thresholds: Optional[Mapping[str, int]] = None):
-        if stage_caps is not None or overflow_thresholds is not None:
-            self.set_stage_caps(stage_caps, overflow_thresholds)
         specs = dict(field_specs or DEFAULT_FIELD_SPECS)
         self.max_batch = int(max_batch)
         self.specs = specs
@@ -235,12 +346,48 @@ class StagingEncoder:
             bufs["remote_port"] = np.zeros(self.max_batch, dtype=np.int64)
             bufs["overflow"] = np.zeros(self.max_batch, dtype=bool)
             self._bufs.append(bufs)
+        self.stage_caps: Optional[dict[str, int]] = None
+        self._thresholds: dict[str, int] = dict(specs)
+        self._layout: Optional[PackedLayout] = None
+        self._packed = stage_caps is not None
+        if self._packed:
+            self.set_stage_caps(stage_caps, overflow_thresholds)
 
-    def set_stage_caps(self, stage_caps, overflow_thresholds=None) -> None:
-        raise NotImplementedError(
-            "compact staging (StagingEncoder stage_caps) is not supported "
-            "by pingoo_tpu_torch yet (ROADMAP.md: port queue item 3, "
-            "compact staging)")
+    def set_stage_caps(
+            self, stage_caps: Mapping[str, int],
+            overflow_thresholds: Optional[Mapping[str, int]] = None
+    ) -> None:
+        """Install a plan's staged widths (each clamped to its spec) and
+        overflow thresholds. Only between batches: it raises while a set
+        is checked out, so that no batch is encoded under one layout and
+        read under another; a layout wider than the packed buffers
+        reallocates them. An encoder built without `stage_caps` stages
+        in full and raises."""
+        if not self._packed:
+            raise ValueError(
+                "this encoder was built without packed staging (stage_caps)")
+        with self._cv:
+            if len(self._free) != self.nbuf:
+                raise RuntimeError(
+                    "set_stage_caps while a staging set is checked out: "
+                    "caps change only between batches")
+            caps = {f: min(int(stage_caps.get(f, self.specs.get(f, 256))),
+                           self.specs.get(f, 256)) for f in STRING_FIELDS}
+            thresholds = dict(self.specs)
+            if overflow_thresholds is not None:
+                for f in STRING_FIELDS:
+                    thresholds[f] = min(
+                        int(overflow_thresholds.get(
+                            f, self.specs.get(f, 256))),
+                        self.specs.get(f, 256))
+            layout = build_packed_layout(caps)
+            size = self.max_batch * layout.width
+            for bufs in self._bufs:
+                if "packed" not in bufs or bufs["packed"].size < size:
+                    bufs["packed"] = np.zeros(size, dtype=np.uint8)
+            self.stage_caps = caps
+            self._layout = layout
+            self._thresholds = thresholds
 
     def checkout(self, block: bool = True) -> int:
         """A free buffer set for one batch, held until `release`.
@@ -276,6 +423,8 @@ class StagingEncoder:
         B = len(requests)
         P = self._check_shape(B, pad_to)
         buf = self._bufs[into]
+        if self._layout is not None:
+            return self._encode_requests_packed(requests, B, P, buf)
         arrays: dict = {}
         overflow = buf["overflow"][:P]
         overflow[:] = False
@@ -317,7 +466,80 @@ class StagingEncoder:
             port[i] = _clamp_i64(req.remote_port)
         arrays["asn"] = asn
         arrays["remote_port"] = port
-        return RequestBatch(size=P, arrays=arrays, overflow=overflow)
+        return RequestBatch(size=P, arrays=arrays, overflow=overflow,
+                            staged_bytes=_nbytes(arrays))
+
+    def _packed_rows(self, buf: dict, P: int):
+        """The set's packed buffer as [P, width] rows, zeroed."""
+        W = self._layout.width
+        pk = buf["packed"][:P * W].reshape(P, W)
+        pk[:] = 0
+        return pk
+
+    def _encode_requests_packed(self, requests, B: int, P: int,
+                                buf: dict) -> RequestBatch:
+        """Compact staging from RequestTuples: each field's capped
+        prefix and the metadata tail into one [P, width] buffer. The
+        byte matrices handed out are views of it; the lengths are the
+        true ones (up to the spec), as the device's length predicates
+        need. A row longer than its field's threshold is flagged."""
+        layout = self._layout
+        pk = self._packed_rows(buf, P)
+        arrays: dict = {}
+        overflow = buf["overflow"][:P]
+        overflow[:] = False
+        for field, off, w in layout.fields:
+            spec = self.specs.get(field, 256)
+            limit = self._thresholds.get(field, spec)
+            data = pk[:, off:off + w]
+            lens = buf[f"{field}_len"][:P]
+            lens[B:] = 0
+            for i, req in enumerate(requests):
+                full = _to_bytes(getattr(req, field))
+                if len(full) > limit:
+                    overflow[i] = True
+                raw = full[:w]
+                data[i, :len(raw)] = np.frombuffer(raw, dtype=np.uint8)
+                lens[i] = min(len(full), spec)
+            arrays[f"{field}_bytes"] = data
+            arrays[f"{field}_len"] = lens
+        ip = buf["ip"][:P]
+        ip[B:] = 0
+        for i, req in enumerate(requests):
+            try:
+                ip[i], _ = ip_to_words(Ip(req.ip))
+            except Exception:
+                ip[i] = 0  # unparseable -> never matches any predicate
+        arrays["ip"] = ip
+        asn = buf["asn"][:P]
+        port = buf["remote_port"][:P]
+        asn[B:] = 0
+        port[B:] = 0
+        for i, req in enumerate(requests):
+            asn[i] = _clamp_i64(req.asn)
+            port[i] = _clamp_i64(req.remote_port)
+        arrays["asn"] = asn
+        arrays["remote_port"] = port
+        self._pack_meta(pk, P, buf)
+        return RequestBatch(size=P, arrays=arrays, overflow=overflow,
+                            packed=pk, layout=layout,
+                            staged_bytes=pk.nbytes)
+
+    def _pack_meta(self, pk: np.ndarray, P: int, buf: dict) -> None:
+        """The metadata tail of every packed row, from the side arrays:
+        u16 little-endian lengths, big-endian IP bytes, int64 asn and
+        remote_port in little-endian byte order."""
+        layout = self._layout
+        for field, off in layout.lens:
+            lens = buf[f"{field}_len"][:P]
+            pk[:, off] = lens & 0xFF
+            pk[:, off + 1] = (lens >> 8) & 0xFF
+        pk[:, layout.ip_off:layout.ip_off + 16] = \
+            buf["ip"][:P].astype(">u4").view(np.uint8)
+        for key, off in (("asn", layout.asn_off),
+                         ("remote_port", layout.port_off)):
+            pk[:, off:off + 8] = \
+                buf[key][:P].astype("<i8").view(np.uint8).reshape(P, 8)
 
     def encode_slots(self, slots: np.ndarray,
                      pad_to: Optional[int] = None, *,
@@ -331,6 +553,8 @@ class StagingEncoder:
         n = len(slots)
         P = self._check_shape(n, pad_to)
         buf = self._bufs[into]
+        if self._layout is not None:
+            return self._encode_slots_packed(slots, n, P, buf)
         arrays: dict = {}
         for field, len_key in SLOT_LEN_KEYS.items():
             cap = self.specs.get(field, 256)
@@ -363,7 +587,58 @@ class StagingEncoder:
             col[:n] = slots[key]
             col[n:] = 0
             arrays[key] = col
-        return RequestBatch(size=P, arrays=arrays, overflow=None)
+        return RequestBatch(size=P, arrays=arrays, overflow=None,
+                            staged_bytes=_nbytes(arrays))
+
+    def _encode_slots_packed(self, slots: np.ndarray, n: int, P: int,
+                             buf: dict) -> RequestBatch:
+        """Compact staging from slot rows: each field's capped prefix
+        copied straight from the slots into the packed buffer, one
+        strided copy per field. Rows whose true slot length passes a
+        clamped field's threshold are flagged (depth overflow); with
+        unclamped caps the thresholds are the slot caps and no row is
+        (rows past the slot caps ride the ring's truncated and spill
+        flags instead)."""
+        layout = self._layout
+        pk = self._packed_rows(buf, P)
+        arrays: dict = {}
+        overflow = buf["overflow"][:P]
+        overflow[:] = False
+        for field, off, w in layout.fields:
+            data = pk[:, off:off + w]
+            lens = buf[f"{field}_len"][:P]
+            if field == "country":
+                data[:n] = np.frombuffer(slots["country"].tobytes(),
+                                         dtype=np.uint8).reshape(-1, 2)[:, :w]
+                lens[:n] = 2
+                lens[n:] = 0
+            else:
+                spec = self.specs.get(field, 256)
+                limit = self._thresholds.get(field, spec)
+                lens[:n] = slots[SLOT_LEN_KEYS[field]]
+                lens[n:] = 0
+                if limit < spec:
+                    overflow[:n] |= lens[:n] > limit
+                data[:n] = slots[field][:, :w]
+            arrays[f"{field}_bytes"] = data
+            arrays[f"{field}_len"] = lens
+        ip = buf["ip"][:P]
+        ip[:n] = slots["ip"].view(">u4")
+        ip[n:] = 0
+        arrays["ip"] = ip
+        for key in ("asn", "remote_port"):
+            col = buf[key][:P]
+            col[:n] = slots[key]
+            col[n:] = 0
+            arrays[key] = col
+        self._pack_meta(pk, P, buf)
+        return RequestBatch(size=P, arrays=arrays, overflow=overflow,
+                            packed=pk, layout=layout,
+                            staged_bytes=pk.nbytes)
+
+
+def _nbytes(arrays: Mapping) -> int:
+    return sum(a.nbytes for a in arrays.values())
 
 
 # The megastep's per-slice words, beside the stacked batch arrays.
@@ -622,6 +897,16 @@ def batch_tensors(arrays: Mapping, device) -> dict[str, torch.Tensor]:
             t = t.pin_memory().to(device, non_blocking=True)
         out[key] = t
     return out
+
+
+def packed_tensor(packed: np.ndarray, device) -> torch.Tensor:
+    """A packed staging buffer ([P, width] uint8) on `device`: on the
+    card one pinned copy and one non-blocking upload, whatever the
+    number of fields."""
+    t = torch.from_numpy(np.ascontiguousarray(packed))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def batch_to_contexts(

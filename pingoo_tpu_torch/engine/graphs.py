@@ -7,7 +7,9 @@ dispatch for K batch slices. The counterpart here is a CUDA graph:
 hundreds of kernel launches cost the host one call.
 
   * One graph per (kind, k_ship, rows, per-field byte widths): the
-    window's shape as `DeviceInputQueue.window_shape` gives it. Its
+    window's shape as `DeviceInputQueue.window_shape` gives it. Under
+    compact staging every slice arrives at the plan's capped widths, so
+    one caps tuple gives one width tuple per (kind, K, rows). Its
     static inputs are views of one flat device buffer, filled by
     `DeviceInputQueue.ship` (one copy) on the current stream right
     before each replay; its outputs are static tensors, overwritten by the next

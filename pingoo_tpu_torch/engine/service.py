@@ -22,6 +22,14 @@ The executor (PINGOO_PIPELINE, as in the JAX package):
   * `off`, `0` or `false`: one batch at a time through the allocating
     chain (`encode_requests` -> `bucket_arrays` -> `pad_batch`).
 
+Under PINGOO_STAGING=compact (with `on`; the one-batch chain always
+stages in full, as in the JAX package) the encoder stages each field at
+the plan's cap (`resolve_stage_caps`) into one packed buffer per batch,
+which uploads as one copy and is decoded on the device
+(`make_packed_verdict_fn`); rows longer than a clamped cap
+(PINGOO_STAGING_DEPTH) are flagged and re-interpreted from their
+untruncated tuples, as rows past the field capacity are.
+
 Under PINGOO_MEGASTEP=force (either executor) a batch's device work is
 one megastep window: its padded rows split into K slices (the largest
 rung of the PINGOO_MEGASTEP_K ladder that divides them; K is 1 unless
@@ -59,13 +67,15 @@ from ..obs.pipeline import PipelineStats
 from ..obs.trace import tuple_digest
 from ..obs.window import WINDOW, TimingWindow
 from .batch import (DeviceInputQueue, RequestBatch, RequestTuple,
-                    StagingEncoder, bucket_arrays, encode_requests,
-                    pad_batch, pow2_batch_size, tuple_to_context)
+                    StagingEncoder, _nbytes, bucket_arrays, encode_requests,
+                    pad_batch, pow2_batch_size, resolve_stage_caps,
+                    stage_overflow_thresholds, tuple_to_context)
 from .graphs import MegastepRunner
 from .verdict import (_host_array, _resolve_megastep_mode, action_lanes,
                       finish_batch, finish_megastep, interpret_rules_row,
-                      make_megastep_fn, make_verdict_fn, megastep_k_cap,
-                      megastep_k_ladder, to_host_async)
+                      make_megastep_fn, make_packed_verdict_fn,
+                      make_verdict_fn, megastep_k_cap, megastep_k_ladder,
+                      to_host_async)
 
 
 # PINGOO_MEGASTEP_K's default here. A window is one graph replay at any
@@ -120,6 +130,9 @@ class ServiceStats:
         self.wait = TimingWindow(window)  # evaluate() -> resolved
         self.batch = TimingWindow(window)  # one batch's wall time
         self.stages = {k: TimingWindow(window) for k in STAGES}
+        # Bytes staged for the device (`RequestBatch.staged_bytes`),
+        # under the staging that `VerdictService.stage_caps` names.
+        self.staged_bytes = 0
 
     def snapshot(self) -> dict:
         """O(window), whatever the uptime. The counts of features the
@@ -183,9 +196,24 @@ class VerdictService:
         # most `_pipeline_depth` batches are in flight, and a set is
         # never refilled while its batch reads it, whatever order the
         # batches finish in.
-        self._staging = StagingEncoder(
-            max_batch, plan.field_specs, nbuf=self._pipeline_depth) \
+        # Compact staging: the plan's caps and the packed program where
+        # the staging encoder takes them (under `on`), else None: the
+        # one-batch chain stages in full.
+        self.stage_caps = resolve_stage_caps(plan) \
             if self.pipeline_mode == "on" else None
+        self._packed_verdict_fn = None
+        self._staging = None
+        if self.pipeline_mode == "on":
+            if self.stage_caps is None:
+                self._staging = StagingEncoder(
+                    max_batch, plan.field_specs, nbuf=self._pipeline_depth)
+            else:
+                self._packed_verdict_fn = make_packed_verdict_fn(plan)
+                self._staging = StagingEncoder(
+                    max_batch, plan.field_specs, nbuf=self._pipeline_depth,
+                    stage_caps=self.stage_caps,
+                    overflow_thresholds=stage_overflow_thresholds(
+                        plan, self.stage_caps))
         # Host stages are serialized across batches (the dispatch token
         # covers the whole issue, the verdict function's lazily built
         # constants included), while a batch waiting for its result
@@ -442,6 +470,7 @@ class VerdictService:
                 fast = pad_batch(
                     RequestBatch(size=n, arrays=bucket_arrays(batch.arrays)),
                     P)
+                fast.staged_bytes = _nbytes(fast.arrays)
             t1 = time.monotonic()
         mega = self._mega_runner is not None
         with tokens["dispatch"]:
@@ -451,6 +480,9 @@ class VerdictService:
             t2 = time.monotonic()
             if mega:
                 dev, echo, slices = self._issue_megastep(fast, n)
+            elif fast.packed is not None:
+                dev = to_host_async(self._packed_verdict_fn(
+                    self.plan.np_tables, fast.packed, fast.layout))
             else:
                 dev = to_host_async(self._verdict_fn(self.plan.np_tables,
                                                      fast.arrays))
@@ -481,6 +513,7 @@ class VerdictService:
         stats.stages["finish"].append((t5 - t3) * 1e3)
         stats.batches += 1
         stats.requests += n
+        stats.staged_bytes += fast.staged_bytes
         return verdicts
 
     def _issue_megastep(self, fast: RequestBatch, n: int):

@@ -27,8 +27,15 @@ over K stacked batch slices, each through the same body with Stage B
 taken on the device (no host sync, so that engine/graphs.py can capture
 the whole window as one CUDA graph).
 
-Environment: PINGOO_DFA=off|auto|force and PINGOO_PREFILTER=off|banks,
-read per call as in the JAX package; PINGOO_MEGASTEP and
+Compact staging: `make_packed_verdict_fn` and `make_packed_lane_fn` take
+a batch's packed buffer (engine/batch.py `PackedLayout`), decode it on
+the device (`unpack_staged`) and run the same body, so full and compact
+staging share every predicate by construction.
+
+Environment: PINGOO_DFA=off|auto|force and PINGOO_PREFILTER=off|banks|
+compact, read per call as in the JAX package (PINGOO_PREFILTER_LEVELS,
+the depth of the JAX package's row ladder, is accepted and means nothing
+here: compact gathers exactly its candidates); PINGOO_MEGASTEP and
 PINGOO_MEGASTEP_K, read where the planes decide; knobs of unported
 features raise (device.check_env).
 """
@@ -68,7 +75,7 @@ from ..ops.match_ops import eq_match, prefix_match, suffix_match
 from ..ops.nfa_scan import extract_slots, init_scan_state, scan_chunk
 from ..ops.prefilter import prefilter_scan_fields
 from ..ops.window_match import window_hits
-from .batch import batch_tensors
+from .batch import PackedLayout, batch_tensors, packed_tensor
 
 I64_MIN = -(2**63)
 LANE_NONE = np.int32(2**30)  # "no rule": sorts after every real index
@@ -79,7 +86,7 @@ def _resolve_pf_mode(plan: RulesetPlan) -> str:
     if pf is None or not pf.fields:
         return "off"
     mode = os.environ.get("PINGOO_PREFILTER", "") or pf.default_mode
-    return mode if mode in ("off", "banks") else "banks"
+    return mode if mode in ("off", "banks", "compact") else "banks"
 
 
 def _resolve_dfa_mode(plan: RulesetPlan) -> str:
@@ -198,7 +205,9 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
     `sync_free` takes Stage B on the device, with no host sync: each
     gated bank scans its candidate rows only (`gathered_rows`), as the
     JAX package's compact mode does, where the per-batch path decides
-    for all banks at once on the host."""
+    for all banks at once on the host: under `banks` from each bank's
+    "any candidate" flag, under `compact` from each bank's candidate
+    count (`compact_rows` then gathers exactly the candidates)."""
     dev = plan.device
     results: dict[int, tuple] = {}
     no_err = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -211,7 +220,7 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
 
     # -- Stage A: every field's prefilter scan in one call ------------------
     pf_hits: dict[str, torch.Tensor] = {}
-    if pf is not None and pf_mode == "banks":
+    if pf is not None and pf_mode != "off":
         names = list(pf.fields)
         pf_hits = dict(zip(names, prefilter_scan_fields(
             [tables[pf.fields[f].table_key] for f in names],
@@ -252,15 +261,23 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
              for key in list(nfa_groups) + list(win_groups)}
     gated = [k for k, c in cands.items() if c is not None]
     run: dict[str, bool] = {}
+    counts: dict[str, int] = {}
     if gated and not sync_free:
-        flags = torch.stack([cands[k].any() for k in gated]).tolist()
-        run = dict(zip(gated, flags))
+        if pf_mode == "compact":
+            counts = dict(zip(gated, torch.stack(
+                [cands[k].sum() for k in gated]).tolist()))
+        else:
+            flags = torch.stack([cands[k].any() for k in gated]).tolist()
+            run = dict(zip(gated, flags))
 
     def gated_scan(key, data, lens, scan_rows, base_fn):
         if cands.get(key) is None:
             return scan_rows(data, lens)
         if sync_free:
             return gathered_rows(scan_rows, base_fn, data, lens, cands[key])
+        if pf_mode == "compact":
+            return compact_rows(scan_rows, base_fn, data, lens, cands[key],
+                                counts[key])
         return scan_rows(data, lens) if run[key] else base_fn()
 
     def gathered_rows(scan_rows, base_fn, data, lens, cand):
@@ -283,18 +300,24 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
         back = hits.index_select(0, pos.clamp(min=0))
         return torch.where(cand[:, None], back, base_fn())
 
-    def compact_rows(scan_rows, base_fn, data, lens, cand):
+    def compact_rows(scan_rows, base_fn, data, lens, cand, count=None):
         """Scan only the candidate rows and scatter their hits over the
         skip base. The JAX package gathers them into a power-of-two
         bucket chosen by a `lax.switch` ladder (so some non-candidates
-        ride along); `nonzero` here gathers exactly the candidates. The
-        bits are identical either way: a non-candidate row's exact scan
-        IS the skip base."""
-        idx = torch.nonzero(cand).squeeze(1)
-        n = idx.numel()
-        if n == 0:
+        ride along); here exactly the candidates are gathered: by
+        `nonzero`, or, where the host already holds their `count`
+        (Stage B's decision under compact), as the first `count` rows
+        of a stable sort that puts them first, with no sync. The bits
+        are identical either way: a non-candidate row's exact scan IS
+        the skip base."""
+        if count is None:
+            idx = torch.nonzero(cand).squeeze(1)
+            count = idx.numel()
+        elif 0 < count < data.shape[0]:
+            idx = torch.argsort((~cand).to(torch.int32), stable=True)[:count]
+        if count == 0:
             return base_fn()
-        if n == data.shape[0]:
+        if count == data.shape[0]:
             return scan_rows(data, lens)
         hits = scan_rows(data.index_select(0, idx), lens.index_select(0, idx))
         out = base_fn().clone()
@@ -515,6 +538,49 @@ def make_verdict_fn(plan: RulesetPlan):
     return verdict
 
 
+def unpack_staged(packed: torch.Tensor, layout: PackedLayout) -> dict:
+    """Decode one packed staging buffer on its device: [B, width] uint8
+    -> the arrays `batch_tensors` gives under full staging. Each string
+    field is made contiguous once here (the NFA and DFA launchers take
+    unit-stride rows, and would copy a strided view at every bank call);
+    the u16 little-endian lengths become lo + 256 * hi in int32; the 16
+    big-endian IP bytes the [B, 4] int64 words of uint32 values; asn and
+    remote_port are the int64 of their 8 little-endian bytes."""
+    arrays = {}
+    for name, off, w in layout.fields:
+        arrays[f"{name}_bytes"] = packed[:, off:off + w].contiguous()
+    l0 = layout.lens[0][1]
+    nf = len(layout.lens)
+    lb = packed[:, l0:l0 + 2 * nf].to(torch.int32).view(-1, nf, 2)
+    lens = lb[:, :, 0] + 256 * lb[:, :, 1]
+    for i, (name, _) in enumerate(layout.lens):
+        arrays[f"{name}_len"] = lens[:, i]
+    ipb = packed[:, layout.ip_off:layout.ip_off + 16].to(torch.int64) \
+        .view(-1, 4, 4)
+    arrays["ip"] = ((ipb[:, :, 0] << 24) | (ipb[:, :, 1] << 16)
+                    | (ipb[:, :, 2] << 8) | ipb[:, :, 3])
+    for key, off in (("asn", layout.asn_off),
+                     ("remote_port", layout.port_off)):
+        # A bitcast of the bytes: exact for every int64, negatives too.
+        arrays[key] = packed[:, off:off + 8].contiguous() \
+            .view(torch.int64)[:, 0]
+    return arrays
+
+
+def make_packed_verdict_fn(plan: RulesetPlan):
+    """`make_verdict_fn` under compact staging: (tables, packed, layout)
+    -> [B, R_dev] bool, `packed` a batch's [B, width] numpy buffer. One
+    upload, `unpack_staged`, then the same body as `make_verdict_fn`'s."""
+    consts: dict = {}
+
+    def verdict(tables, packed, layout):
+        check_env()
+        return _matched_cols(plan, tables, unpack_staged(
+            packed_tensor(packed, plan.device), layout), consts)
+
+    return verdict
+
+
 def make_lane_fn(plan: RulesetPlan, services: list[str] | None = None,
                  service_groups: list[list[str]] | None = None,
                  with_rule_hits: bool = False):
@@ -527,6 +593,20 @@ def make_lane_fn(plan: RulesetPlan, services: list[str] | None = None,
     groups = (service_groups if service_groups is not None
               else ([services] if services else []))
     return _make_lane_body(plan, groups, with_rule_hits)
+
+
+def make_packed_lane_fn(plan: RulesetPlan,
+                        service_groups: list[list[str]] | None = None):
+    """`make_lane_fn(plan, service_groups=...)` under compact staging:
+    (tables, packed, layout, n_valid=None) -> the same lanes, through
+    `unpack_staged` and the same body."""
+    lanes = _make_lane_body(plan, service_groups or [], False)
+
+    def lanes_packed(tables, packed, layout, n_valid=None):
+        return lanes(tables, unpack_staged(
+            packed_tensor(packed, plan.device), layout), n_valid=n_valid)
+
+    return lanes_packed
 
 
 def _make_lane_body(plan: RulesetPlan, groups: list[list[str]],

@@ -58,14 +58,16 @@ from .engine.bodyscan import (BodyScanner, BodyWindow, body_inspect_enabled,
                               body_max_flows, body_window_bytes,
                               merge_actions, split_payload)
 from .engine.batch import (DeviceInputQueue, RequestBatch, RequestTuple,
-                           StagingEncoder, batch_to_contexts, bucket_arrays,
-                           pad_batch, pow2_batch_size, tuple_to_context)
+                           StagingEncoder, _nbytes, batch_to_contexts,
+                           bucket_arrays, pad_batch, pow2_batch_size, resolve_stage_caps,
+                           stage_overflow_thresholds, tuple_to_context)
 from .engine.graphs import MegastepRunner
 from .engine.verdict import (LANE_NONE, _host_array, _resolve_megastep_mode,
                              action_lanes, host_rule_lanes,
                              interpret_rules_row, make_lane_fn,
-                             make_megastep_fn, megastep_k_cap,
-                             megastep_k_ladder, merge_lanes, to_host_async)
+                             make_megastep_fn, make_packed_lane_fn,
+                             megastep_k_cap, megastep_k_ladder, merge_lanes,
+                             to_host_async)
 from .expr import execute_as_bool
 from .obs.pipeline import PipelineStats
 from .obs.window import WINDOW, TimingWindow
@@ -759,6 +761,16 @@ class RingSidecar:
     before the next pass. Completion in FIFO order keeps the posted
     tickets a prefix. A staging error raises as a device error does.
 
+    Compact staging (PINGOO_STAGING=compact, under `on`): the encoder
+    copies each field's capped prefix (`resolve_stage_caps`) straight
+    from the slots into one packed buffer, which uploads as one copy
+    and is decoded on the device (`make_packed_lane_fn`); megastep
+    slices take the capped views. Rows whose true length passes a cap
+    clamped below the plan's required depth (PINGOO_STAGING_DEPTH) are
+    flagged and re-served from their full slot bytes through the
+    interpreter (`depth_overflow_rows`). An encoder that cannot take the
+    caps raises; nothing falls back to full staging.
+
     The megastep (PINGOO_MEGASTEP=force at construction; PINGOO_MEGASTEP_K
     caps K, default 4): a pass that dequeued a batch with no window open
     opens one, checking out a `DeviceInputQueue` set; while a window is
@@ -841,6 +853,13 @@ class RingSidecar:
         self.pipeline_mode = pipeline_mode()
         on = self.pipeline_mode == "on"
         self.pipeline_depth = _env_depth(pipeline_depth) if on else 1
+        # Compact staging: the plan's caps and the packed lane program
+        # where the staging encoder takes them (under `on`), else None:
+        # the one-batch chain stages in full.
+        self.stage_caps = resolve_stage_caps(plan) if on else None
+        self._packed_lane_fn = make_packed_lane_fn(
+            plan, service_groups=self._groups or None) \
+            if self.stage_caps is not None else None
         self._pipe = PipelineStats("sidecar", self.pipeline_depth)
         # Under `on`: a staging set per batch in flight (a pass issues
         # only when fewer than `pipeline_depth` are), and a slot buffer
@@ -869,8 +888,11 @@ class RingSidecar:
                 self._mega_k, max_batch, field_specs=caps,
                 nbuf=self.pipeline_depth + 1)
         if on:
-            self._staging = StagingEncoder(max_batch, field_specs=caps,
-                                           nbuf=self.pipeline_depth)
+            self._staging = StagingEncoder(
+                max_batch, field_specs=caps, nbuf=self.pipeline_depth,
+                stage_caps=self.stage_caps,
+                overflow_thresholds=None if self.stage_caps is None
+                else stage_overflow_thresholds(plan, self.stage_caps))
             per_batch = self._mega_k if self._mega_runner is not None else 1
             for _ in range(self.pipeline_depth * per_batch + 1):
                 self._slot_pool.append(
@@ -879,6 +901,11 @@ class RingSidecar:
         self.batches = 0
         self.truncated_rows = 0
         self.spilled_rows = 0  # overflow rows re-evaluated untruncated
+        # Rows past a clamped compact cap, re-served from the slot bytes.
+        self.depth_overflow_rows = 0
+        # Bytes staged for the device (`RequestBatch.staged_bytes`),
+        # under the staging that `stage_caps` names.
+        self.staged_bytes = 0
         self.device_wait_s = 0.0  # waiting for the lanes after host rules
         # Per batch (ms), the newest WINDOW of each: slots to padded
         # batch arrays ("decode"), the lane function's issue up to the
@@ -1078,24 +1105,38 @@ class RingSidecar:
                 slots, pad_to=pow2_batch_size(n, self.max_batch),
                 into=staged)
             # The unpadded rows of the same views: every consumer of
-            # `raw` reads data[:len], and the bucketed columns hold
-            # every row's length.
+            # `raw` reads data[:len], and the columns hold every row's
+            # bytes up to its length or its field's cap. The flags of
+            # rows past a clamped cap ride along to `_finish`.
             raw = RequestBatch(size=n, arrays={
-                k: v[:n] for k, v in batch.arrays.items()})
+                k: v[:n] for k, v in batch.arrays.items()},
+                overflow=None if batch.overflow is None
+                else batch.overflow[:n])
         else:
             slots = parts[0][1] if len(parts) == 1 else np.concatenate(
                 [s for _, s in parts])
             raw, batch = self._decode(slots)
         t1 = time.monotonic()
         with self._hb_busy():
-            dev = to_host_async(self._lane_fn(self.plan.np_tables,
-                                              batch.arrays))
+            dev = to_host_async(self._issue_lanes(batch))
         t2 = time.monotonic()
+        self._count_staged(batch)
         self.stage_ms["decode"].append((t1 - t0) * 1e3)
         self.stage_ms["verdict"].append((t2 - t1) * 1e3)
         self._pipe.note_stage(slot, "encode", t0, t1)
         self._pipe.note_stage(slot, "dispatch", t1, t2)
         return parts, slots, raw, dev, t2, slot_buf, staged, slot
+
+    def _issue_lanes(self, batch: RequestBatch):
+        """The lane program on one padded batch: its packed buffer under
+        compact staging, its arrays otherwise."""
+        if batch.packed is not None:
+            return self._packed_lane_fn(self.plan.np_tables, batch.packed,
+                                        batch.layout)
+        return self._lane_fn(self.plan.np_tables, batch.arrays)
+
+    def _count_staged(self, batch: RequestBatch) -> None:
+        self.staged_bytes += batch.staged_bytes
 
     # -- the megastep -------------------------------------------------------
 
@@ -1120,11 +1161,12 @@ class RingSidecar:
             slots = parts[0][1] if len(parts) == 1 else np.concatenate(
                 [s for _, s in parts])
         j = len(self._mega_staged)
-        self._encode_mega_slice(slots, self._mega_buf_id, j)
+        overflow = self._encode_mega_slice(slots, self._mega_buf_id, j,
+                                           count=True)
         rec = _MegaSlice()
         rec.parts, rec.slots, rec.n = parts, slots, n
         rec.raw = RequestBatch(size=n, arrays=self._mega_queue.slice_view(
-            self._mega_buf_id, j, n))
+            self._mega_buf_id, j, n), overflow=overflow)
         rec.slot_buf, rec.pipe_slot = slot_buf, slot
         rec.epoch = self.ruleset_epoch
         self._mega_staged.append(rec)
@@ -1132,11 +1174,13 @@ class RingSidecar:
         self.stage_ms["decode"].append((t1 - t0) * 1e3)
         self._pipe.note_stage(slot, "encode", t0, t1)
 
-    def _encode_mega_slice(self, slots: np.ndarray, buf_id: int,
-                           j: int) -> None:
+    def _encode_mega_slice(self, slots: np.ndarray, buf_id: int, j: int,
+                           count: bool = False) -> Optional[np.ndarray]:
         """Encode `slots`, padded to `max_batch`, into slice j of set
         `buf_id`: under `on` through a staging set, released at once (the
-        slice is a copy)."""
+        slice is a copy; under compact staging of the capped views), its
+        bytes counted in `staged_bytes` with `count`. Returns a copy of
+        the rows' depth-overflow flags, or None."""
         n = len(slots)
         if self._staging is None:
             batch = pad_batch(RequestBatch(
@@ -1144,13 +1188,17 @@ class RingSidecar:
                 self.max_batch)
             self._mega_queue.fill_slice(buf_id, j, batch.arrays, n,
                                         self.ruleset_epoch)
-            return
+            return None
         staged = self._staging.checkout(block=False)
         try:
             batch = self._staging.encode_slots(slots, pad_to=self.max_batch,
                                                into=staged)
             self._mega_queue.fill_slice(buf_id, j, batch.arrays, n,
                                         self.ruleset_epoch)
+            if count:
+                self._count_staged(batch)
+            return None if batch.overflow is None \
+                else batch.overflow[:n].copy()
         finally:
             self._staging.release(staged)
 
@@ -1225,6 +1273,7 @@ class RingSidecar:
         batch = pad_batch(
             RequestBatch(size=n, arrays=bucket_arrays(raw.arrays)),
             pow2_batch_size(n, self.max_batch))
+        batch.staged_bytes = _nbytes(batch.arrays)
         return raw, batch
 
     def warm_up(self) -> list[tuple[int, int, float]]:
@@ -1260,8 +1309,7 @@ class RingSidecar:
                                                        into=staged)
                 else:
                     _, batch = self._decode(slots)
-                _host_array(to_host_async(self._lane_fn(
-                    self.plan.np_tables, batch.arrays)))
+                _host_array(to_host_async(self._issue_lanes(batch)))
                 if staged is not None:
                     self._staging.release(staged)
                 out.append((rows, batch.arrays["url_bytes"].shape[1],
@@ -1326,6 +1374,9 @@ class RingSidecar:
             if self.batches else 0.0,
             "truncated_rows": self.truncated_rows,
             "spilled_rows": self.spilled_rows,
+            "depth_overflow_rows": self.depth_overflow_rows,
+            "staging": {"caps": self.stage_caps,
+                        "staged_bytes": self.staged_bytes},
             "body_verdicts": self.body_verdicts,
             "rings": len(self.rings),
             "ring_telemetry": self.ring_telemetry(),
@@ -1456,6 +1507,30 @@ class RingSidecar:
                     self.spilled_rows += 1
                 ring.spill_release(idx)
             off += len(part)
+        # Rows past a compact cap clamped below the plan's required depth
+        # (PINGOO_STAGING_DEPTH): the device saw a prefix too short for
+        # some scanner, so every lane of such a row is served from its
+        # full slot bytes by the interpreter. Spilled rows were served
+        # above; with unclamped caps no row is flagged.
+        over = raw.overflow
+        if over is not None and over[:n].any():
+            off = 0
+            for ring, part in parts:
+                gi = self._ring_group_of.get(id(ring))
+                svcs = self._groups[gi] if gi is not None else None
+                m = len(part)
+                for j in np.nonzero(over[off:off + m]
+                                    & (part["spill_idx"] == SPILL_NONE))[0]:
+                    s = part[j]
+                    unv, vblk, rt = self._interpret_overflow_row(
+                        s, bytes(s["url"][:int(s["url_len"])]),
+                        bytes(s["path"][:int(s["path_len"])]), svcs)
+                    unverified[off + j] = unv
+                    verified_block[off + j] = vblk
+                    if route is not None and gi is not None:
+                        route[off + j] = rt
+                    self.depth_overflow_rows += 1
+                off += m
         actions = unverified | (verified_block.astype(np.int32) << 2)
         if route is not None:
             actions = actions | (np.minimum(route, 31).astype(np.int32) << 3)

@@ -202,8 +202,6 @@ def test_entry_points_raise_without_a_card(no_card):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("PINGOO_PREFILTER", "compact"),
-    ("PINGOO_STAGING", "compact"),
     ("PINGOO_NFA_SPLIT", "1"),
     ("PINGOO_MEGASTEP", "auto"),
     ("PINGOO_MESH", "2x1x1"),
@@ -214,8 +212,6 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_HALO_SPLIT", "1"),
     ("PINGOO_SCAN_PACK", "length"),
     ("PINGOO_SCAN_PACK", "batch"),
-    ("PINGOO_PREFILTER_LEVELS", "4"),
-    ("PINGOO_STAGING_DEPTH", "2"),
     ("PINGOO_DEADLINE_MS", "2"),
 ])
 def test_unported_knobs_raise(monkeypatch, name, value):
@@ -236,8 +232,6 @@ def test_unported_knobs_raise(monkeypatch, name, value):
     ("PINGOO_SCHED_FAILOPEN", "allow", "item 9, the scheduler"),
     ("PINGOO_HALO_SPLIT", "1", "item 4, halo split"),
     ("PINGOO_SCAN_PACK", "fill", "kernel work item 1, lane packing"),
-    ("PINGOO_PREFILTER_LEVELS", "2", "item 2, prefilter compact mode"),
-    ("PINGOO_STAGING_DEPTH", "1", "item 3, compact staging"),
     ("PINGOO_MEGASTEP", "auto", "item 9, the scheduler"),
     ("PINGOO_DEADLINE_MS", "5", "item 9, the scheduler"),
 ])
@@ -266,6 +260,11 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     ("PINGOO_SCHED_PIPELINE", "3"),
     # The megastep (port queue item 5, ported): `force` and its K cap.
     ("PINGOO_MEGASTEP", "force"), ("PINGOO_MEGASTEP_K", "4"),
+    # Compact staging (item 3) and the prefilter's compact mode (item 2),
+    # ported: the values that raised before.
+    ("PINGOO_PREFILTER", "compact"), ("PINGOO_STAGING", "compact"),
+    ("PINGOO_PREFILTER_LEVELS", "4"), ("PINGOO_STAGING_DEPTH", "2"),
+    ("PINGOO_PREFILTER_LEVELS", "2"), ("PINGOO_STAGING_DEPTH", "1"),
     # Knobs that pick among the JAX package's backends mean nothing here.
     ("PINGOO_NFA_LOOKUP", "pair"), ("PINGOO_DFA_KERNEL", "pallas"),
     ("PINGOO_PREFILTER_KERNEL", "pallas"),

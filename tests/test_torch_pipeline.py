@@ -5,7 +5,8 @@
     -> bucket_arrays -> pad_batch) across the seeds, odd sizes, a full
     batch and overflow rows; a batch's views survive nbuf - 1 more
     checkouts and until their set is released, whatever order batches
-    finish in; bad shapes and compact staging raise.
+    finish in; bad shapes raise, and compact staging takes new caps only
+    between batches.
   * `encode_slots` equals both packages' slots_to_arrays -> bucket ->
     pad chain and the JAX package's encoder on slots dequeued from a
     real ring: wrap-around, truncated rows and spill slots.
@@ -188,9 +189,22 @@ def test_bad_shapes_and_compact_staging_raise():
     with pytest.raises(ValueError, match="bad staging shape"):
         enc.encode_slots(np.zeros(0, dtype=nr.REQUEST_SLOT_DTYPE), 8,
                          into=0)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        StagingEncoder(16, stage_caps={"url": 64})
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # Compact staging: an encoder built with caps takes them, and takes
+    # new ones only between batches; one built without packed buffers
+    # raises.
+    packed = StagingEncoder(16, stage_caps={"url": 64})
+    assert packed.stage_caps["url"] == 64
+    assert packed.stage_caps["host"] == 256  # unnamed fields: the spec
+    held = packed.checkout(block=False)
+    got = packed.encode_requests(reqs, pad_to=8, into=held)
+    assert got.arrays["url_bytes"].shape == (8, 64)
+    with pytest.raises(RuntimeError, match="between batches"):
+        packed.set_stage_caps({"url": 128})
+    packed.release(held)
+    packed.set_stage_caps({"url": 128})
+    assert packed.stage_caps["url"] == 128
+    assert got.layout.width < packed._layout.width  # widened
+    with pytest.raises(ValueError, match="packed"):
         enc.set_stage_caps({"url": 64})
 
 
