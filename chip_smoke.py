@@ -112,7 +112,14 @@
    and stage occupancy, the megastep arms' warm-up, windows, captures,
    capture ms, replays and window wall, and the on arms' device busy
    share; per staging arm its staged bytes a request, depth-overflow
-   rows and, under force, its distinct graph keys.
+   rows and, under force, its distinct graph keys. Last, the halo split
+   on the ring: the corpus compiled under PINGOO_NFA_SPLIT=1 serves the
+   measured stream once through a fresh sidecar under each of
+   PINGOO_NFA_SPLIT=1 alone, with PINGOO_SCAN_STRATEGY=halo and with
+   PINGOO_HALO_SPLIT=1, each under PINGOO_PIPELINE=on, off and
+   PINGOO_MEGASTEP=force (after warm_up()): every drive must give the
+   same checksum and VerdictService's bytes, and launch the NFA and
+   prefilter kernels (a split bank runs no DFA).
 7. Body phase, in a process of its own: streaming body inspection
    (engine/bodyscan.py). (a) bench.py's body stream at the scanner's
    defaults (1,024 flows of 256-12,288 bytes, a payload planted in every
@@ -184,12 +191,38 @@
    and added latency p50/p99, the httpd's and the ring's verdict-wait
    percentiles, the sidecar's stages and busy share, rows and launches
    per batch, the largest heartbeat age and the device's busy share.
-10. Prints one JSON line of per-kernel results (with each kernel's
+10. Halo phase: the halo split (ops/nfa_scan.halo_split_scan). The
+   corpus compiled under PINGOO_NFA_SPLIT=1 partitions nfa_url and
+   nfa_path into @short (13 words, H = 14, halo-compatible) and @rest
+   sub-banks. (a) On B rows at full width (2048-byte url and path with
+   planted attacks, the first rows' lengths on and around the @short
+   chunk boundaries), the split verdict under PINGOO_PREFILTER=off must
+   equal the default plan's, each of its NFA launches (the @short halo
+   launches of B x 8 rows of 14 + 256 columns, chunk 0 at offset -14,
+   and the @rest launches) is replayed through kernel and plain version
+   bit for bit, and the url @short halo launch, the same sub-bank over
+   the unsplit rows and the url @rest launch are timed, issued and
+   queued, beside their bounds. The split main path's own @short halo
+   launches (grouped by staged width) are timed queued against the same
+   sub-bank over the same rows unsplit, and so is the url @short
+   sub-bank on seeded rows at each width from 32 to 2048, beside
+   whether the JAX package's rule takes the halo route there and which
+   of the two was faster on the card. (b) The main-path stream through a
+   VerdictService on the split plan under PINGOO_NFA_SPLIT=1 alone, with
+   PINGOO_SCAN_STRATEGY=halo and with PINGOO_HALO_SPLIT=1, each under
+   PINGOO_PIPELINE=on, off and PINGOO_MEGASTEP=force, and on the default
+   plan under the two runtime knobs: every verdict must equal the main
+   path's and the oracle's, and each pass launch the NFA and prefilter
+   kernels. (c) The default main path runs before and after, and with
+   the split main path once under torch.profiler: req/s, launches a
+   batch and device time a pass, in one process. Prints {"halo": ...}.
+11. Prints one JSON line of per-kernel results (with each kernel's
    launches in the config phase, on the ring drive, on the body
    phase's streamed passes, on the listener's measured pass, on the
    native phase's measured loadgen run, through the megastep's graph
    replays in the slice phase and the two ring arms, in the compact
-   slice arms and in the ring's staging arms), then, last,
+   slice arms, in the ring's staging arms, and on the split main path
+   of the halo phase and its ring arm under on), then, last,
    {"ok": true, "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
@@ -205,8 +238,9 @@ tree, and it times an earlier tree beside this one in one chip call.
 line "seed requests every" it reads from stdin), `--body-phase` the
 body phase alone, `--listener-phase` the listener phase alone
 (`--listener-client` and `--listener-pong` are its client and
-upstream; the native phase uses the same client), and `--native-phase`
-the native phase alone.
+upstream; the native phase uses the same client), `--native-phase`
+the native phase alone, and `--halo-phase` the halo phase alone (after
+the build, the oracle and one pass of the main path).
 """
 
 from __future__ import annotations
@@ -1329,24 +1363,31 @@ def session_device(prof) -> tuple[float, int]:
     return us, ours
 
 
+def profile_pass(service, reqs) -> tuple[dict, float]:
+    """One pass of `reqs` through `service` under torch.profiler: the
+    device time by kernel name (µs, `device_time_us`) and the pass's wall
+    time (s)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = asyncio.run(serve(service, reqs))
+        torch.cuda.synchronize()
+    return device_time_us(prof), wall
+
+
 def profile_main_path(plan, lists, reqs, dev, service=None):
     """One more main-path run (through `service`, else a fresh one)
     under torch.profiler: the device's busy share of the wall time and
     the device time by kernel name (printed as "not measured" when the
     profiler records no device time); returns the busy share (%) or
     "not measured"."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from pingoo_tpu_torch.engine.service import VerdictService
 
     if service is None:
         service = VerdictService(plan, lists, max_batch=B, device=dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall = asyncio.run(serve(service, reqs))
-        torch.cuda.synchronize()
-    kernels = device_time_us(prof)
+    kernels, wall = profile_pass(service, reqs)
     busy_ms = sum(kernels.values()) / 1e3
     if busy_ms <= 0:
         print("profile: device time not measured (the profiler recorded "
@@ -1833,6 +1874,426 @@ def config_phase(rules, lists, reqs, oracle, main, dev) -> dict:
     return launches
 
 
+# -- the halo phase: the halo split (ops/nfa_scan.halo_split_scan) ------------
+
+# The halo phase's knob sets: (label, environment read per call, plan
+# compiled under PINGOO_NFA_SPLIT=1). On the corpus the whole url/path
+# banks are not halo-compatible, so the two runtime knobs reach the halo
+# split only through a split plan's @short sub-banks; on the default plan
+# the strategy pin changes the route all the same (it turns PINGOO_DFA=
+# auto's DFAs off, as in the JAX package).
+HALO_KNOBS = (
+    ("PINGOO_NFA_SPLIT=1", {}, True),
+    ("PINGOO_NFA_SPLIT=1 PINGOO_SCAN_STRATEGY=halo",
+     {"PINGOO_SCAN_STRATEGY": "halo"}, True),
+    ("PINGOO_NFA_SPLIT=1 PINGOO_HALO_SPLIT=1", {"PINGOO_HALO_SPLIT": "1"},
+     True),
+    ("PINGOO_SCAN_STRATEGY=halo", {"PINGOO_SCAN_STRATEGY": "halo"}, False),
+    ("PINGOO_HALO_SPLIT=1", {"PINGOO_HALO_SPLIT": "1"}, False),
+)
+# The executors each split-plan knob runs under: (PINGOO_PIPELINE,
+# PINGOO_MEGASTEP); the default plan's knobs run under the first.
+HALO_EXECUTORS = (("on", "off"), ("off", "off"), ("on", "force"))
+# A split url/path bank runs its sub-banks' NFA scans and never the DFA,
+# and the window banks run their correlator on the card: the kernels a
+# split path must launch (it launches no DFA kernel).
+HALO_NEED = ("nfa_scan", "prefilter")
+# Lengths of the kernel batch's first url/path rows: on, just before and
+# just after the @short banks' chunk boundaries at 2048 columns (k = 8,
+# 256 columns a chunk), and the empty and one-byte rows.
+HALO_BOUNDARY_LENS = (0, 1, 255, 256, 257, 511, 512, 513, 1791, 1792,
+                      1793, 2047, 2048)
+
+
+def compile_split(rules, lists, dev):
+    """The corpus's plan compiled under PINGOO_NFA_SPLIT=1."""
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+
+    os.environ["PINGOO_NFA_SPLIT"] = "1"
+    try:
+        return compile_ruleset(rules, lists, device=dev)
+    finally:
+        os.environ.pop("PINGOO_NFA_SPLIT")
+
+
+def halo_kernel_phase(split, plan, reqs, dev, rng) -> dict:
+    """The split plan's NFA launches on one batch at full width: the
+    first B main-path requests, their url and path replaced by 2048-byte
+    seeded rows with planted attacks (`field_batch`), the first rows'
+    lengths HALO_BOUNDARY_LENS. The split verdict (PINGOO_PREFILTER=off,
+    so that each sub-bank scans every row) must equal the default plan's
+    on the same batch; each NFA launch it makes is captured and replayed
+    through the kernel and the plain version (bit equality). Each @short
+    launch must be a halo launch: B * k rows of H + Lc columns at per-row
+    offsets i * Lc - H. Times the url @short halo launch, the same
+    sub-bank over the unsplit rows and the url @rest launch (issued, and
+    queued on the card), each beside its bound."""
+    import torch
+
+    from pingoo_tpu_torch.engine.batch import encode_requests
+    from pingoo_tpu_torch.engine.verdict import make_verdict_fn
+    from pingoo_tpu_torch.ops import nfa_scan
+
+    arrays = dict(encode_requests(reqs[:B], split.field_specs).arrays)
+    n_fixed = len(HALO_BOUNDARY_LENS)
+    for f in ("url", "path"):
+        width = split.field_specs[f]
+        data, lens = field_batch(rng, width, dev)
+        lens[:n_fixed] = torch.tensor(HALO_BOUNDARY_LENS, dtype=lens.dtype)
+        live = torch.arange(width, device=dev)[None, :] < lens[:, None]
+        arrays[f"{f}_bytes"] = (data * live).contiguous()
+        arrays[f"{f}_len"] = lens
+    keys = {id(t): k for k, t in split.np_tables.items()}
+    real = nfa_scan.fused_scan_chunk
+    calls = []
+
+    def wrapped(tables, data, lengths, state, t_offset, pair=True):
+        toff = t_offset.clone() if isinstance(t_offset, torch.Tensor) \
+            else t_offset
+        calls.append(dict(key=keys[id(tables)], pair=pair, args=(
+            data.clone(), lengths.clone(), state.clone(), toff)))
+        return real(tables, data, lengths, state, t_offset, pair=pair)
+
+    os.environ["PINGOO_PREFILTER"] = "off"
+    nfa_scan.fused_scan_chunk = wrapped
+    try:
+        got = make_verdict_fn(split)(split.np_tables, arrays)
+    finally:
+        nfa_scan.fused_scan_chunk = real
+    want = make_verdict_fn(plan)(plan.np_tables, arrays)
+    os.environ.pop("PINGOO_PREFILTER")
+    if not torch.equal(got, want) or not bool(got.any()):
+        fail(f"the split verdict on the full-width batch differs from the "
+             f"default plan's in {int((got != want).any(dim=1).sum())} rows "
+             f"({int(got.sum())} matches)")
+    err = 0
+    for c in calls:
+        t = split.np_tables[c["key"]]
+        err = max(err, max_abs_err([(
+            real(t, *c["args"], pair=c["pair"]),
+            nfa_scan.scan_chunk_plain(t, *c["args"], pair=c["pair"]))]))
+    if err:
+        fail(f"the NFA kernel disagrees with its plain version on a "
+             f"captured split-path launch (max_abs_err {err})")
+    shapes = {}
+    for c in calls:
+        t = split.np_tables[c["key"]]
+        data, lens, _, toff = c["args"]
+        shapes[c["key"]] = (int(data.shape[0]), int(data.shape[1]))
+        if c["key"].endswith("@short"):
+            L = split.field_specs[field_of(c["key"].split("@")[0])]
+            k = nfa_scan.halo_split_k(t, L)
+            H, Lc = int(t.max_footprint), L // k
+            offs = (torch.arange(k, device=dev, dtype=torch.int32) * Lc
+                    - H).repeat(B)
+            if k < 2 or shapes[c["key"]] != (B * k, H + Lc) \
+                    or not isinstance(toff, torch.Tensor) \
+                    or not torch.equal(toff.to(torch.int32), offs):
+                fail(f"{c['key']}: a launch of {shapes[c['key']]} rows x "
+                     f"columns, not a halo launch of {B * k} x {H + Lc} "
+                     f"from offset {-H}")
+    if sorted(shapes) != ["nfa_path@rest", "nfa_path@short", "nfa_url@rest",
+                          "nfa_url@short"] or len(calls) != 4:
+        fail(f"the split verdict made the NFA launches {shapes} "
+             f"({len(calls)} calls), not one per sub-bank")
+    ts = split.np_tables["nfa_url@short"]
+    short = next(c for c in calls if c["key"] == "nfa_url@short")
+    rest = next(c for c in calls if c["key"] == "nfa_url@rest")
+    runs = {
+        "short_halo": (ts, short["args"]),
+        "short_unsplit": (ts, (arrays["url_bytes"], arrays["url_len"],
+                               nfa_scan.init_scan_state(
+                                   B, ts.opt.shape[0], dev), 0)),
+        "rest": (split.np_tables["nfa_url@rest"], rest["args"]),
+    }
+    card = card_line()
+    out = dict(max_abs_err=err, launches_replayed=len(calls),
+               shapes={k: list(v) for k, v in shapes.items()}, card=card)
+    for name, (t, args) in runs.items():
+        def fn(t=t, args=args):
+            return real(t, *args)
+        issued = cuda_ms(fn, 40)
+        queued = queued_ms(fn, QUEUED_CALLS)
+        work = nfa_work(t, args[0], args[1], args[3])
+        bound, by = bound_ms(work)
+        out[name] = dict(rows=int(args[0].shape[0]),
+                         columns=int(args[0].shape[1]),
+                         issued_us=issued * 1e3, queued_us=queued * 1e3,
+                         bound_us=bound * 1e3, bound_by=by,
+                         live_bytes=int(live_columns(
+                             args[1], args[3], args[0].shape[1],
+                             False).sum()))
+        bank = "nfa_url@rest" if name == "rest" else "nfa_url@short"
+        print(f"halo kernel {name} ({bank}, "
+              f"{out[name]['rows']} x {out[name]['columns']}): issued "
+              f"{issued * 1e3:.1f} us, queued on the card "
+              f"{queued * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
+              f"({by}), {out[name]['live_bytes']} live columns; {card}",
+              flush=True)
+    print(f"halo kernel: the split verdict on {B} full-width rows equals "
+          f"the default plan's ({int(got.sum())} matches); {len(calls)} "
+          f"NFA launches {out['shapes']} bit-equal to the plain version",
+          flush=True)
+    return out
+
+
+def unsplit_args(t, args):
+    """A captured halo launch's inputs (B * k rows of H + Lc columns at
+    offsets i * Lc - H) as the same rows unsplit: ([B, k * Lc] bytes,
+    [B] lengths, a fresh state, offset 0). Fails unless cutting those
+    rows again gives back the captured chunks."""
+    import torch
+    import torch.nn.functional as F
+
+    from pingoo_tpu_torch.ops import nfa_scan
+
+    data, lens, _, toff = args
+    H = int(t.max_footprint)
+    Lc = int(data.shape[1]) - H
+    n = int((toff == -H).sum())
+    k = int(data.shape[0]) // n
+    rows = data.view(n, k, H + Lc)[:, :, H:].reshape(n, k * Lc)
+    if not torch.equal(F.pad(rows, (H, 0)).unfold(1, H + Lc, Lc)
+                       .reshape(n * k, H + Lc), data):
+        fail(f"a captured halo launch of {tuple(data.shape)} is not the "
+             f"chunks of {n} rows of {k * Lc} columns")
+    return (rows.contiguous(), lens.view(n, k)[:, 0].contiguous(),
+            nfa_scan.init_scan_state(n, t.opt.shape[0], data.device), 0), k
+
+
+def halo_route_phase(split, calls, dev, rng) -> dict:
+    """The halo route against the unsplit scan of the same rows, both
+    queued on the card beside their bounds: (a) the split main path's
+    captured @short halo launches, grouped by sub-bank and staged width
+    L, against the same sub-bank over the rows unsplit (`unsplit_args`);
+    (b) the url @short sub-bank on `field_batch` rows at each bucket
+    width from 32 to 2048, where the JAX package's rule (k =
+    halo_split_k(bank, L, max_k=halo_k) > 1 and L // k + H below the base
+    steps, halved for a pair strategy) takes the halo route or not.
+    Returns per group and width the two times and which was faster."""
+    import torch
+    import torch.nn.functional as F
+
+    from pingoo_tpu_torch.ops import nfa_scan
+
+    real = nfa_scan.fused_scan_chunk
+    card = card_line()
+
+    def timed(t, runs):
+        work = add_work(nfa_work(t, a[0], a[1], a[3]) for a in runs)
+        us = queued_ms(lambda: [real(t, *a) for a in runs],
+                       max(8, QUEUED_CALLS // len(runs))) * 1e3
+        bound, by = bound_ms(work)
+        return dict(queued_us=us, bound_us=bound * 1e3, bound_by=by,
+                    shapes=sorted({f"{a[0].shape[0]}x{a[0].shape[1]}"
+                                   for a in runs}))
+
+    main = {}
+    groups = {}
+    for c in calls:
+        if c["key"].endswith("@short"):
+            t = split.np_tables[c["key"]]
+            flat_args, k = unsplit_args(t, c["args"])
+            L = int(flat_args[0].shape[1])
+            groups.setdefault((c["key"], L, k), []).append(
+                (c["args"], flat_args))
+    if not groups:
+        fail("the split main path made no @short halo launch")
+    for (key, L, k), pairs in sorted(groups.items()):
+        t = split.np_tables[key]
+        halo = timed(t, [h for h, _ in pairs])
+        whole = timed(t, [u for _, u in pairs])
+        main[f"{key} L={L}"] = dict(k=k, launches=len(pairs), halo=halo,
+                                    unsplit=whole,
+                                    halo_faster=halo["queued_us"]
+                                    < whole["queued_us"])
+        print(f"halo route, split main path {key} at L={L} (k={k}, "
+              f"{len(pairs)} launches): halo {halo['shapes']} queued "
+              f"{halo['queued_us']:.1f} us (bound {halo['bound_us']:.2f}), "
+              f"unsplit {whole['shapes']} {whole['queued_us']:.1f} us "
+              f"(bound {whole['bound_us']:.2f}); {card}", flush=True)
+    ts = split.np_tables["nfa_url@short"]
+    strat = split.scan_plans["nfa_url"].short_strategy
+    H = int(ts.max_footprint)
+    widths = {}
+    for L in (32, 64, 128, 256, 512, 1024, 2048):
+        data, lens = field_batch(rng, L, dev)
+        k = nfa_scan.halo_split_k(ts, L, max_k=strat.halo_k)
+        base = (L + 1) // 2 if strat.pair else L
+        rule = k > 1 and L // k + H < base
+        flat_args = (data, lens,
+                     nfa_scan.init_scan_state(B, ts.opt.shape[0], dev), 0)
+        whole = timed(ts, [flat_args])
+        row = dict(k=k, rule_takes_halo=rule, unsplit=whole)
+        if k > 1:
+            Lc = L // k
+            chunks = (F.pad(data, (H, 0)).unfold(1, H + Lc, Lc)
+                      .reshape(B * k, H + Lc).contiguous(),
+                      lens[:, None].expand(B, k).reshape(B * k).contiguous(),
+                      nfa_scan.init_scan_state(B * k, ts.opt.shape[0], dev),
+                      (torch.arange(k, device=dev, dtype=torch.int32) * Lc
+                       - H).repeat(B))
+            row["halo"] = timed(ts, [chunks])
+            row["halo_faster"] = row["halo"]["queued_us"] \
+                < whole["queued_us"]
+        widths[L] = row
+        print(f"halo route, nfa_url@short at L={L} on {B} rows: the rule "
+              f"{'takes' if rule else 'does not take'} the halo route "
+              f"(k={k}, {L // k} + {H} against {base} base steps); "
+              f"unsplit queued {whole['queued_us']:.1f} us (bound "
+              f"{whole['bound_us']:.2f})"
+              + (f", halo {B * k}x{H + L // k} {row['halo']['queued_us']:.1f}"
+                 f" us (bound {row['halo']['bound_us']:.2f}): "
+                 f"{'halo' if row['halo_faster'] else 'unsplit'} faster"
+                 if k > 1 else "") + f"; {card}", flush=True)
+    return dict(main_path=main, widths=widths, card=card)
+
+
+def halo_service_arm(plan, lists, reqs, dev, oracle, main_out, label: str,
+                     env: dict, pipe: str, mega: str,
+                     profiled: bool = False) -> dict:
+    """`reqs` through a VerdictService(max_batch=B) on `plan` under `env`,
+    PINGOO_PIPELINE=`pipe` and PINGOO_MEGASTEP=`mega` (K = 1): a warm-up
+    pass (under force, the warmed service itself, whose graphs it
+    captured, serves the measured pass), then the measured pass with the
+    kernels' launch counts set to 0 just before it and read just after.
+    Every verdict must equal the main path's and the oracle's, and the
+    pass must launch the kernels of HALO_NEED; `profiled` adds one pass
+    under torch.profiler (the device time). Returns the arm's numbers."""
+    import numpy as np
+
+    from pingoo_tpu_torch.engine.service import VerdictService
+    from pingoo_tpu_torch.ops import _build
+
+    arm_env = dict(env, PINGOO_PIPELINE=pipe, PINGOO_MEGASTEP=mega)
+    os.environ.update(arm_env)
+    try:
+        service = VerdictService(plan, lists, max_batch=B, device=dev)
+        if mega == "force":
+            service._mega_runner.capture_mode = "global"
+        t0 = time.monotonic()
+        for lo in range(0, N_REQUESTS, B):
+            service.evaluate_batch(reqs[lo:lo + B])
+        warm_s = time.monotonic() - t0
+        if mega == "force":
+            service._mega_runner.capture_mode = "thread_local"
+        else:
+            service = VerdictService(plan, lists, max_batch=B, device=dev)
+        _build.reset_launch_counts()
+        verdicts, wall = asyncio.run(serve(service, reqs))
+        launches = {k: v.launches for k, v in _build.KERNELS.items()}
+        busy = None
+        if profiled:
+            kernels, p_wall = profile_pass(service, reqs)
+            busy_ms = sum(kernels.values()) / 1e3
+            busy = dict(device_ms=busy_ms, wall_ms=p_wall * 1e3,
+                        busy_pct=100 * busy_ms / (p_wall * 1e3)) \
+                if busy_ms > 0 else "not measured"
+    finally:
+        for name in arm_env:
+            os.environ.pop(name)
+    matched = np.stack([v.matched for v in verdicts])
+    act = np.array([v.action for v in verdicts])
+    vb = np.array([v.verified_block for v in verdicts])
+    o_act, o_vb = main_out[1], main_out[2]
+    if (matched != main_out[0]).any() or (act != o_act).any() \
+            or (vb != o_vb).any() or (matched != oracle).any():
+        fail(f"halo arm {label} {pipe}/{mega}: "
+             f"{int((matched != main_out[0]).any(axis=1).sum())} rows "
+             f"differ from the main path's, "
+             f"{int((matched != oracle).any(axis=1).sum())} from the "
+             f"oracle, actions {int((act != o_act).sum())}")
+    missing = [k for k in HALO_NEED if launches[k] == 0]
+    if missing:
+        fail(f"halo arm {label} {pipe}/{mega} launched no {missing} kernel")
+    if mega == "force" and (service.mega_echo_mismatch or not
+                            service.pipeline_snapshot()["megastep"][
+                                "windows"]):
+        fail(f"halo arm {label} under force ran no window or mismatched "
+             f"{service.mega_echo_mismatch} epoch echoes")
+    batches = -(-N_REQUESTS // B)
+    return dict(label=label, pipeline=pipe, megastep=mega,
+                req_per_s=N_REQUESTS / wall, warm_s=warm_s,
+                launches=launches,
+                launches_per_batch={k: n / batches
+                                    for k, n in launches.items()},
+                device=busy)
+
+
+def halo_phase(plan, rules, lists, reqs, dev, oracle, main_out, rng) -> dict:
+    """The halo split on the card: the corpus compiled under
+    PINGOO_NFA_SPLIT=1, its NFA launches held and timed at full width
+    (`halo_kernel_phase`), then the main-path stream on the Python plane
+    under every knob of HALO_KNOBS (the split plan's under every executor
+    of HALO_EXECUTORS), each verdict held to the main path's and the
+    oracle's. The default plan's main path runs first and last, and with
+    the split main path (PINGOO_NFA_SPLIT=1, on) once under the profiler,
+    for their req/s and device time in one process; the split main
+    path's NFA launches are captured and replayed (`main_path_phase`),
+    its @short and its @rest launches apart. Returns the phase's
+    numbers; `launches` are the split main path's."""
+    t0 = time.monotonic()
+    split = compile_split(rules, lists, dev)
+    compile_s = time.monotonic() - t0
+    entries = {k: (e.split, e.short_strategy.halo_k if e.short_strategy
+                   else None) for k, e in split.scan_plans.items()}
+    print(f"halo: split plan compiled in {compile_s:.1f} s, scan plans "
+          f"{entries}, sub-bank words "
+          + ", ".join(f"{k} {split.np_tables[k].num_words} (H "
+                      f"{split.np_tables[k].max_footprint}, halo_ok "
+                      f"{split.np_tables[k].halo_ok})"
+                      for k in split.np_tables if "@" in k), flush=True)
+    kernel = halo_kernel_phase(split, plan, reqs, dev, rng)
+    # The split main path's own NFA launches (L = the batch's bucket),
+    # replayed and timed per sub-bank kind.
+    calls, launched = capture_main_path(split, lists, reqs, dev)
+    if launched["nfa_scan"] != len(calls["nfa_scan"]):
+        fail(f"the split main path made {len(calls['nfa_scan'])} NFA calls "
+             f"and {launched['nfa_scan']} launches")
+    for kind in ("@short", "@rest"):
+        mine = [c for c in calls["nfa_scan"] if c["key"].endswith(kind)]
+        m = main_path_phase(split, "nfa_scan", mine, len(mine),
+                            label=f"split main path {kind}")
+        if m.pop("max_abs_err") != 0:
+            fail(f"the NFA kernel disagrees with its plain version on a "
+                 f"captured split main-path {kind} launch")
+        kernel[f"main_path{kind.replace('@', '_')}"] = m
+    kernel["route"] = halo_route_phase(split, calls["nfa_scan"], dev, rng)
+    arms = [halo_service_arm(plan, lists, reqs, dev, oracle, main_out,
+                             "default", {}, "on", "off", profiled=True)]
+    for label, env, on_split in HALO_KNOBS:
+        for pipe, mega in (HALO_EXECUTORS if on_split
+                           else HALO_EXECUTORS[:1]):
+            arms.append(halo_service_arm(
+                split if on_split else plan, lists, reqs, dev, oracle,
+                main_out, label, env, pipe, mega,
+                profiled=(label, pipe, mega) == (HALO_KNOBS[0][0], "on",
+                                                 "off")))
+    arms.append(halo_service_arm(plan, lists, reqs, dev, oracle, main_out,
+                                 "default", {}, "on", "off"))
+    for a in arms:
+        print(f"halo arm {a['label']} PINGOO_PIPELINE={a['pipeline']} "
+              f"PINGOO_MEGASTEP={a['megastep']}: {N_REQUESTS} verdicts "
+              f"equal the main path's and the oracle; "
+              f"{a['req_per_s']:.0f} req/s (warm-up pass "
+              f"{a['warm_s']:.2f} s), launches {a['launches']} ("
+              + ", ".join(f"{k} {v:.2f}"
+                          for k, v in a["launches_per_batch"].items())
+              + " a batch)"
+              + (f", device {a['device']}" if a["device"] else ""),
+              flush=True)
+    split_main = arms[1]
+    defaults = [arms[0], arms[-1]]
+    print(f"halo: split main path {split_main['req_per_s']:.0f} req/s "
+          f"against the default's {defaults[0]['req_per_s']:.0f} and "
+          f"{defaults[1]['req_per_s']:.0f} (before and after, one "
+          f"process); device time a pass {split_main['device']} against "
+          f"{defaults[0]['device']}; {time.monotonic() - t0:.1f} s in all; "
+          f"{card_line()}", flush=True)
+    return dict(kernel=kernel, arms=arms, launches=split_main["launches"],
+                compile_s=compile_s, phase_s=time.monotonic() - t0)
+
+
 def stage_a_of(tree: str) -> int:
     """Time one batch's Stage A as the port in `tree` issues it (one
     `prefilter_scan` call per field, and the grouped call where that tree
@@ -2028,11 +2489,12 @@ class SyncTimer:
 
 
 def ring_drive(sidecar, drive, want, profiled: bool = False,
-               checksum: int = RING_CHECKSUM) -> dict:
+               checksum: int = RING_CHECKSUM, need=None) -> dict:
     """Run `drive()` (-> DriveResult) with the kernels' launch counts set
     to 0 just before and read just after; hold the verdicts to the
     checksum, to `want` (byte for byte, in stream order; None: the
-    checksum alone) and the heartbeat's age to the data plane's limit.
+    checksum alone), the heartbeat's age to the data plane's limit and
+    each kernel of `need` (default: all three) to one launch or more.
     Unprofiled drives time the in-issue syncs (`SyncTimer`). Returns the
     drive's numbers, the bytes staged and depth-overflow rows included."""
     import numpy as np
@@ -2067,7 +2529,8 @@ def ring_drive(sidecar, drive, want, profiled: bool = False,
     if r.max_heartbeat_age_ms >= HEARTBEAT_LIMIT_MS:
         fail(f"the heartbeat aged {r.max_heartbeat_age_ms} ms during a "
              f"drive (the data plane fails open at {HEARTBEAT_LIMIT_MS})")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items() if n == 0
+               and (need is None or k in need)]
     if missing:
         fail(f"the ring drive launched no {missing} kernel")
     waits = np.array(r.waits_ms)
@@ -2108,13 +2571,18 @@ def ring_drive(sidecar, drive, want, profiled: bool = False,
 
 
 def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
-             megastep: str = "off", max_batch: int = B) -> dict:
+             megastep: str = "off", max_batch: int = B, quick: bool = False,
+             need=None) -> dict:
     """One arm of the ring phase: a RingSidecar(max_batch,
     pipeline_depth=3) under PINGOO_PIPELINE=`mode` and
     PINGOO_MEGASTEP=`megastep` drains the ring in a thread while the
     producer drives the warm stream, then the measured one (and under
     `on` the measured one again under torch.profiler); then the sidecar
-    stops. Returns the arm's numbers."""
+    stops. A `quick` arm drives the measured stream once, with no warm
+    stream before it (the process's earlier arms have warmed the card),
+    and is not held to two batches in flight.
+    `need` names the kernels each drive must launch (`ring_drive`).
+    Returns the arm's numbers."""
     import threading
 
     from pingoo_tpu_torch import native_ring as nr
@@ -2141,15 +2609,16 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
     thread.start()
     try:
         t0 = time.monotonic()
-        producer.drive(12)
+        if not quick:
+            producer.drive(12)
         warm_s = time.monotonic() - t0
         if warm_up is not None:
             warm_up["warm_drive_captures"] = sidecar.stats()["megastep"][
                 "graphs"]["captures"] - warm_up["graphs"]["captures"]
         drives = [ring_drive(sidecar, lambda: producer.drive(11), want,
-                             profiled)
+                             profiled, need=need)
                   for profiled in ((False, True) if mode == "on"
-                                   else (False,))]
+                                   and not quick else (False,))]
     finally:
         sidecar.stop()
         thread.join(timeout=30)
@@ -2158,7 +2627,7 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
     stats = sidecar.stats()
     pipe = stats["pipeline"]
     peak = sidecar._pipe.peak_inflight
-    if mode == "on" and peak < 2:
+    if mode == "on" and peak < 2 and not quick:
         fail(f"the on arm never had two batches in flight (peak {peak})")
     if megastep == "force":
         mega = stats["megastep"]
@@ -2275,6 +2744,7 @@ def ring_phase() -> int:
                  for v in service.evaluate_batch(reqs[lo:lo + B]))
     arms = {}
     staging = {}
+    halo = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ring")
         ring = nr.Ring(path, capacity=RING_CAPACITY, create=True)
@@ -2296,6 +2766,19 @@ def ring_phase() -> int:
                 for arm, (mode, mega) in STAGING_ARMS.items():
                     staging[arm] = staging_arm(ring, producer, plan, lists,
                                                dev, mode, mega)
+                # The halo split: the split plan under each knob and
+                # executor, one measured drive each.
+                split = compile_split(rules, lists, dev)
+                for label, env, _ in HALO_KNOBS[:3]:
+                    os.environ.update(env)
+                    try:
+                        for pipe, mega in HALO_EXECUTORS:
+                            halo[f"{label} {pipe}/{mega}"] = ring_arm(
+                                ring, producer, split, lists, want, dev,
+                                pipe, mega, quick=True, need=HALO_NEED)
+                    finally:
+                        for name in env:
+                            os.environ.pop(name)
                 producer.close()
                 time.sleep(0.2)
                 if ring.poll_verdict() is not None:
@@ -2368,11 +2851,21 @@ def ring_phase() -> int:
                  f"{len(st['graph_keys'])} distinct graph keys "
                  f"{st['graph_keys']}" if st["megastep"] == "force" else ""),
               flush=True)
+    for label, arm in halo.items():
+        d = arm["drives"][0]
+        print(f"ring halo arm {label} (max_batch {arm['max_batch']}, "
+              f"{arm['arm_s']:.1f} s): {RING_REQUESTS} requests, checksum "
+              f"{d['checksum']} and VerdictService's bytes, "
+              f"{d['req_per_s']:.0f} req/s, wait p50 {d['wait_p50_ms']:.2f} "
+              f"ms, {d['batches']} batches, heartbeat age max "
+              f"{d['max_heartbeat_age_ms']} ms, launches {d['launches']}"
+              + (f", megastep {d['megastep']}" if "megastep" in d else ""),
+              flush=True)
     print(json.dumps({"ring": dict(
         requests=RING_REQUESTS, max_batch=B, capacity=RING_CAPACITY,
         rules=500, build_s=build_s, warm_s=arms["on"]["warm_s"],
         processed=arms["on"]["processed"], drives=arms["on"]["drives"],
-        arms=arms, staging=staging)}), flush=True)
+        arms=arms, staging=staging, halo=halo)}), flush=True)
     return 0
 
 
@@ -2381,7 +2874,7 @@ def ring_child() -> dict:
     t0 = time.monotonic()
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--ring-phase"],
-        capture_output=True, text=True, timeout=600)
+        capture_output=True, text=True, timeout=900)
     print(proc.stdout.rstrip(), flush=True)
     if proc.returncode != 0:
         fail(f"the ring phase exited {proc.returncode}: "
@@ -4408,47 +4901,18 @@ def native_child() -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])["native"]
 
 
-def main() -> int:
-    # The listener phase's helper processes, which need no card.
-    if sys.argv[1:] == ["--listener-pong"]:
-        return listener_pong()
-    if sys.argv[1:] == ["--listener-client"]:
-        return listener_client()
-    try:
-        import torch
-    except ImportError:
-        fail("PyTorch is not installed")
-    if not torch.cuda.is_available():
-        fail("no CUDA device: the port's smoke run needs one card")
-    if len(sys.argv) == 3 and sys.argv[1] == "--stage-a-of":
-        return stage_a_of(os.path.abspath(sys.argv[2]))
-    if not os.path.isdir(os.path.join(REPO, "pingoo_tpu_torch")):
-        fail("pingoo_tpu_torch/ is not beside chip_smoke.py")
-    sys.path.insert(0, REPO)
-    if sys.argv[1:] == ["--ring-phase"]:
-        return ring_phase()
-    if sys.argv[1:] == ["--body-phase"]:
-        return body_phase()
-    if sys.argv[1:] == ["--listener-phase"]:
-        return listener_phase()
-    if sys.argv[1:] == ["--native-phase"]:
-        return native_phase()
-    if len(sys.argv) == 3 and sys.argv[1] == "--ring-producer":
-        return ring_producer(sys.argv[2])
+def build_with_oracle(rules, lists, reqs):
+    """Build the three kernels (printing ptxas's registers and spills per
+    instantiation) while the interpreter oracle of `reqs` runs in
+    SLICE_ORACLE_WORKERS processes of its own; returns the oracle's
+    match rows."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     import numpy as np
 
-    from pingoo_tpu_torch.compiler.plan import compile_ruleset
     from pingoo_tpu_torch.ops import _build
-    from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
 
-    card = card_line()
-    print(card, flush=True)
-    rules, lists = generate_ruleset(500)
-    reqs = generate_traffic(N_REQUESTS, attack_fraction=0.3, seed=SEED,
-                            lists=lists)
     oracle_pool = ProcessPoolExecutor(
         SLICE_ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
         initializer=slice_oracle_init, initargs=(rules, lists))
@@ -4489,10 +4953,83 @@ def main() -> int:
             parts.append(f"{label}{regs[1] if regs else '?'}/{spill}")
         print(f"  ptxas {name}: registers/spill bytes per instantiation "
               f"{' '.join(parts)}", flush=True)
+    return oracle
 
+
+def setup():
+    """The card line, the 500-rule corpus, the main-path stream, the
+    built kernels and the oracle, and the corpus's plan on the card."""
+    import torch
+
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+
+    print(card_line(), flush=True)
+    rules, lists = generate_ruleset(500)
+    reqs = generate_traffic(N_REQUESTS, attack_fraction=0.3, seed=SEED,
+                            lists=lists)
+    oracle = build_with_oracle(rules, lists, reqs)
     dev = torch.device("cuda")
     plan = compile_ruleset(rules, lists, device=dev)
     print(f"plan: {plan.stats}", flush=True)
+    return rules, lists, reqs, oracle, dev, plan
+
+
+def halo_alone() -> int:
+    """The halo phase alone (`--halo-phase`): `setup()`, the main path's
+    verdicts (one pass of a VerdictService under the defaults, held to
+    the oracle), then `halo_phase`. Prints {"halo": ...}, but no result
+    line."""
+    import numpy as np
+
+    from pingoo_tpu_torch.engine.service import VerdictService
+
+    rules, lists, reqs, oracle, dev, plan = setup()
+    verdicts, _ = asyncio.run(serve(VerdictService(plan, lists, max_batch=B,
+                                                   device=dev), reqs))
+    main = (np.stack([v.matched for v in verdicts]),
+            np.array([v.action for v in verdicts]),
+            np.array([v.verified_block for v in verdicts]))
+    if (main[0] != oracle).any():
+        fail("the main path's verdicts differ from the oracle")
+    halo = halo_phase(plan, rules, lists, reqs, dev, oracle, main,
+                      np.random.default_rng(SEED))
+    print(json.dumps({"halo": halo}), flush=True)
+    return 0
+
+
+def main() -> int:
+    # The listener phase's helper processes, which need no card.
+    if sys.argv[1:] == ["--listener-pong"]:
+        return listener_pong()
+    if sys.argv[1:] == ["--listener-client"]:
+        return listener_client()
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the port's smoke run needs one card")
+    if len(sys.argv) == 3 and sys.argv[1] == "--stage-a-of":
+        return stage_a_of(os.path.abspath(sys.argv[2]))
+    if not os.path.isdir(os.path.join(REPO, "pingoo_tpu_torch")):
+        fail("pingoo_tpu_torch/ is not beside chip_smoke.py")
+    sys.path.insert(0, REPO)
+    if sys.argv[1:] == ["--ring-phase"]:
+        return ring_phase()
+    if sys.argv[1:] == ["--body-phase"]:
+        return body_phase()
+    if sys.argv[1:] == ["--listener-phase"]:
+        return listener_phase()
+    if sys.argv[1:] == ["--native-phase"]:
+        return native_phase()
+    if sys.argv[1:] == ["--halo-phase"]:
+        return halo_alone()
+    if len(sys.argv) == 3 and sys.argv[1] == "--ring-producer":
+        return ring_producer(sys.argv[2])
+    import numpy as np
+
+    rules, lists, reqs, oracle, dev, plan = setup()
     rng = np.random.default_rng(SEED)
     results = kernel_phase(plan, dev, rng)
     results["prefilter"]["stage_a"] = stage_a_child()
@@ -4527,6 +5064,10 @@ def main() -> int:
                  f"captured megastep launch")
         results[name].update({k.replace("main_path", "megastep_path"): v
                               for k, v in m.items()})
+    halo = halo_phase(plan, rules, lists, reqs, dev, oracle, main_path, rng)
+    results["nfa_scan"]["halo"] = halo["kernel"]
+    print(json.dumps({"halo": halo}), flush=True)
+    ring_halo = ring["halo"][f"{HALO_KNOBS[0][0]} on/off"]["drives"][0]
     out = []
     for name in ("nfa_scan", "bitsplit_dfa", "prefilter"):
         r = results[name]
@@ -4556,6 +5097,8 @@ def main() -> int:
             **{f"ring_staging_{arm}_launches": ring["staging"][arm][
                 "drive"]["launches"][name]
                for arm in ("full", "compact", "compact_force")},
+            "halo_launches": halo["launches"][name],
+            "ring_halo_launches": ring_halo["launches"][name],
             **{k: v for k, v in r.items() if k not in (
                 "route", "source", "replaces", "max_abs_err", "ms",
                 "plain_ms", "work")}})

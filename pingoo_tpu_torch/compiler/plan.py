@@ -102,8 +102,13 @@ class NfaScanPlan:
     """Plan-time decisions for one field's NFA bank. `dfa_key` names the
     bank's bitsplit-DFA tables when it lowered within the state budget;
     `dfa_auto` records whether the cost model prefers the DFA (what
-    PINGOO_DFA=auto follows). `split`/`slot_perm` belong to the halo
-    partition, which the port does not build yet."""
+    PINGOO_DFA=auto follows).
+
+    Under PINGOO_NFA_SPLIT=1 a bank that is not halo-compatible may be
+    partitioned: `split` names the two sub-bank keys ("<key>@short",
+    halo-splittable, and "<key>@rest", the residual) and `slot_perm[p]`
+    is the column of logical slot p in concat(short_hits, rest_hits);
+    the whole-bank table stays at `key`."""
 
     key: str
     strategy: ScanStrategy
@@ -139,6 +144,52 @@ def _dfa_lower_enabled() -> bool:
     return os.environ.get("PINGOO_DFA_LOWER", "1") != "0"
 
 
+def _halo_fp_budget() -> int:
+    """PINGOO_HALO_FP_BUDGET: the largest footprint a pattern of a
+    partition's @short sub-bank may have (default 16)."""
+    return int(os.environ.get("PINGOO_HALO_FP_BUDGET", "16"))
+
+
+def _split_enabled() -> bool:
+    """PINGOO_NFA_SPLIT: partition banks that are not halo-compatible
+    into @short/@rest sub-banks (off unless set to other than 0)."""
+    return os.environ.get("PINGOO_NFA_SPLIT", "0") != "0"
+
+
+def _halo_partition(patterns, field_len: int):
+    """Footprint extension and partition of one field's patterns, as in
+    the JAX package: a pattern that is rep-free, or bounds under
+    repat.extend_footprint (exact over the field's byte cap), with a
+    footprint within the halo budget joins the `short` set in its bounded
+    form; the rest keep their original form. Returns (short_idx,
+    rest_idx, short_pats, rest_pats), or None when either set is empty."""
+    from .nfa import MAX_SCAN_BITS, pattern_footprint, scan_bits_needed
+
+    budget = _halo_fp_budget()
+    short_idx, rest_idx = [], []
+    short_pats, rest_pats = [], []
+    for i, lp in enumerate(patterns):
+        cand = lp
+        if repat.has_unbounded_rep(lp):
+            cand = repat.extend_footprint(lp, field_len)
+        ok = cand is not None and not repat.has_unbounded_rep(cand)
+        if ok:
+            try:
+                ok = (pattern_footprint(cand) <= budget
+                      and scan_bits_needed(cand) <= MAX_SCAN_BITS)
+            except repat.Unsupported:
+                ok = False
+        if ok:
+            short_idx.append(i)
+            short_pats.append(cand)
+        else:
+            rest_idx.append(i)
+            rest_pats.append(lp)
+    if not short_idx or not rest_idx:
+        return None
+    return short_idx, rest_idx, short_pats, rest_pats
+
+
 # -- literal-prefilter cascade (Stage A metadata) -----------------------------
 
 PF_ALWAYS = -1  # slot has no extractable factor: its bank always scans
@@ -170,8 +221,11 @@ class PrefilterPlan:
 
 
 def _plan_field_prefilter(plan: "RulesetPlan", field: str,
-                          bank_slots: dict[str, list]) -> None:
-    """Extract + pack one field's factors; register per-bank masks."""
+                          bank_slots: dict[str, list],
+                          split_idx=None) -> None:
+    """Extract + pack one field's factors; register per-bank masks, and
+    with `split_idx` those of the NFA bank's @short/@rest sub-banks (the
+    subsets of its slot codes), so that Stage B gates each on its own."""
     pf = plan.prefilter
     if pf is None or not bank_slots:
         return
@@ -201,7 +255,7 @@ def _plan_field_prefilter(plan: "RulesetPlan", field: str,
     pf.fields[field] = FieldFactors(
         field=field, table_key=table_key, num_factors=len(factors),
         factors=tuple(factors))
-    for bkey, codes in bank_codes.items():
+    def register(bkey: str, codes) -> None:
         codes = tuple(codes)
         mask = np.zeros(len(factors), dtype=bool)
         for c in codes:
@@ -211,6 +265,13 @@ def _plan_field_prefilter(plan: "RulesetPlan", field: str,
         pf.bank_masks[bkey] = mask
         pf.bank_gated[bkey] = all(c != PF_ALWAYS for c in codes)
         pf.slot_codes[bkey] = codes
+
+    for bkey, codes in bank_codes.items():
+        register(bkey, codes)
+    if split_idx is not None:
+        nfa_codes = bank_codes[f"nfa_{field}"]
+        register(f"nfa_{field}@short", [nfa_codes[i] for i in split_idx[0]])
+        register(f"nfa_{field}@rest", [nfa_codes[i] for i in split_idx[1]])
 
 
 @dataclass
@@ -543,8 +604,9 @@ def _assemble_tables(plan: RulesetPlan) -> None:
             plan.bindings[leaf_id] = LeafBinding(
                 kind="nfa", field=field, span=(start, len(patterns)),
                 table_key=f"nfa_{field}")
+        split_idx = None
         if patterns:
-            _plan_nfa_bank(plan, field, patterns)
+            split_idx = _plan_nfa_bank(plan, field, patterns)
         if win_patterns:
             plan.np_tables[f"win_{field}"] = build_window_table(win_patterns)
             # The window slots' sources also lower to a bitsplit DFA; the
@@ -563,7 +625,7 @@ def _assemble_tables(plan: RulesetPlan) -> None:
             bank_slots[f"nfa_{field}"] = patterns
         if win_patterns:
             bank_slots[f"win_{field}"] = win_srcs
-        _plan_field_prefilter(plan, field, bank_slots)
+        _plan_field_prefilter(plan, field, bank_slots, split_idx)
 
     if ip_preds:
         nets = np.zeros((len(ip_preds), 4), dtype=np.uint32)
@@ -578,13 +640,20 @@ def _assemble_tables(plan: RulesetPlan) -> None:
                                                             masks=masks)
 
 
-def _plan_nfa_bank(plan: RulesetPlan, field: str, patterns: list) -> None:
-    """Build one field's NFA tables, its DFA lowering and scan record.
+def _plan_nfa_bank(plan: RulesetPlan, field: str, patterns: list):
+    """Build one field's NFA tables, its DFA lowering and scan record;
+    returns the halo partition's (short_idx, rest_idx) slot subsets, or
+    None when the bank is not partitioned.
 
     When a bank is not halo-compatible as built, every unbounded
     repetition is rewritten by repat.extend_footprint (exact over the
     field's byte cap); if that makes the whole bank halo-compatible the
-    rewritten bank replaces it, as in the JAX package."""
+    rewritten bank replaces it, as in the JAX package. Otherwise, under
+    PINGOO_NFA_SPLIT=1, the patterns whose bounded footprint fits the
+    halo budget form an `@short` sub-bank and the rest an `@rest` one
+    (`_halo_partition`); the whole-bank table stays at `key`. A split
+    bank runs its sub-banks' NFA scans, never the DFA (the hits are
+    recombined per slot)."""
     from .nfa import MAX_SCAN_BITS, scan_bits_needed
 
     key = f"nfa_{field}"
@@ -627,17 +696,42 @@ def _plan_nfa_bank(plan: RulesetPlan, field: str, patterns: list) -> None:
             dfa_key = f"dfa_{field}"
             plan.np_tables[dfa_key] = dfa_to_tables(dfa_bank)
             dfa_strategy = select_dfa_strategy()
+    split = None
+    short_strategy = rest_strategy = None
+    slot_perm = None
+    split_idx = None
+    if _split_enabled() and not tables.halo_ok:
+        parts = _halo_partition(patterns, field_len)
+        if parts is not None:
+            short_idx, rest_idx, short_pats, rest_pats = parts
+            split_idx = (short_idx, rest_idx)
+            short_tables = bank_to_tables(build_bank(short_pats))
+            rest_tables = bank_to_tables(build_bank(rest_pats))
+            plan.np_tables[f"{key}@short"] = short_tables
+            plan.np_tables[f"{key}@rest"] = rest_tables
+            perm = [0] * len(patterns)
+            for col, p in enumerate(short_idx + rest_idx):
+                perm[p] = col
+            slot_perm = tuple(perm)
+            split = (f"{key}@short", f"{key}@rest")
+            short_strategy = select_scan_strategy(short_tables)
+            rest_strategy = select_scan_strategy(rest_tables)
     strategy = select_scan_strategy(tables)
     if dfa_strategy is not None:
         dfa_auto = dfa_strategy.cost < strategy.cost
     plan.scan_plans[key] = NfaScanPlan(
         key=key,
         strategy=strategy,
+        split=split,
+        short_strategy=short_strategy,
+        rest_strategy=rest_strategy,
+        slot_perm=slot_perm,
         extended=extended,
         dfa_key=dfa_key,
         dfa_strategy=dfa_strategy,
         dfa_auto=dfa_auto,
     )
+    return split_idx
 
 
 # -- tables carried across from a JAX-package plan ----------------------------

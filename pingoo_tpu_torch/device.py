@@ -22,12 +22,6 @@ import torch
 # PINGOO_PREFILTER_LEVELS, the depth of the JAX package's compact row
 # ladder: the port's compact mode gathers exactly its candidate rows.
 _UNPORTED = (
-    ("PINGOO_NFA_SPLIT", lambda v: v not in ("", "0"),
-     "port queue item 4, halo split"),
-    ("PINGOO_SCAN_STRATEGY", lambda v: v == "halo",
-     "port queue item 4, halo split"),
-    ("PINGOO_HALO_SPLIT", lambda v: v not in ("", "0"),
-     "port queue item 4, halo split"),
     # The JAX package's lane and row packing of lax.scan banks.
     ("PINGOO_SCAN_PACK", lambda v: v not in ("", "field"),
      "section 2, kernel work item 1, lane packing"),

@@ -32,12 +32,23 @@ a batch's packed buffer (engine/batch.py `PackedLayout`), decode it on
 the device (`unpack_staged`) and run the same body, so full and compact
 staging share every predicate by construction.
 
+The halo split: a halo-compatible NFA bank (or the @short sub-bank of a
+bank the plan partitioned under PINGOO_NFA_SPLIT=1) runs as k chunks of
+its rows (ops/nfa_scan.halo_split_scan) wherever the JAX package's rule
+takes that route at the width the batch was staged at: k =
+halo_split_k(bank, L, max_k=halo_k) > 1 and L / k + H below the base
+stepping's count of steps.
+
 Environment: PINGOO_DFA=off|auto|force and PINGOO_PREFILTER=off|banks|
 compact, read per call as in the JAX package (PINGOO_PREFILTER_LEVELS,
 the depth of the JAX package's row ladder, is accepted and means nothing
-here: compact gathers exactly its candidates); PINGOO_MEGASTEP and
-PINGOO_MEGASTEP_K, read where the planes decide; knobs of unported
-features raise (device.check_env).
+here: compact gathers exactly its candidates); PINGOO_SCAN_STRATEGY (a
+pin of every bank's strategy record: scan, pair, pallas, pallas_pair,
+pallas_single keep the plan's halo_k; halo keeps the kind and sets
+halo_k to 8) and PINGOO_HALO_SPLIT (a halo_k of 1 attempts k up to 8),
+read per call too, where the JAX package reads the latter at import;
+PINGOO_MEGASTEP and PINGOO_MEGASTEP_K, read where the planes decide;
+knobs of unported features raise (device.check_env).
 """
 
 from __future__ import annotations
@@ -72,7 +83,8 @@ from ..ops.bitsplit_dfa import dfa_row_candidates, dfa_scan, dfa_skip_hits
 from ..ops.cidr import (cidr_contains, int_set_contains, ip_one_matrix,
                         v4_buckets_contains)
 from ..ops.match_ops import eq_match, prefix_match, suffix_match
-from ..ops.nfa_scan import extract_slots, init_scan_state, scan_chunk
+from ..ops.nfa_scan import (extract_slots, halo_split_k, halo_split_scan,
+                            init_scan_state, scan_chunk)
 from ..ops.prefilter import prefilter_scan_fields
 from ..ops.window_match import window_hits
 from .batch import PackedLayout, batch_tensors, packed_tensor
@@ -92,6 +104,43 @@ def _resolve_pf_mode(plan: RulesetPlan) -> str:
 def _resolve_dfa_mode(plan: RulesetPlan) -> str:
     mode = os.environ.get("PINGOO_DFA", "") or plan.dfa_default_mode
     return mode if mode in ("off", "auto", "force") else "auto"
+
+
+# PINGOO_SCAN_STRATEGY pins: value -> (kind, pair), as in the JAX package.
+# On the card every kind runs the one CUDA kernel; the record still
+# decides the halo split's rule (the pair flag halves the base steps).
+_ENV_STRATEGIES = {
+    "scan": ("scan", False),
+    "pair": ("scan", True),
+    "pallas": ("pallas", True),
+    "pallas_pair": ("pallas", True),
+    "pallas_single": ("pallas", False),
+}
+
+
+def _resolve_strategy(strat: ScanStrategy) -> ScanStrategy:
+    """A bank's strategy record under PINGOO_SCAN_STRATEGY: unset keeps
+    the plan's; `halo` keeps the kind and pair flag and attempts k up to
+    8; another pin sets the kind and pair flag and keeps the plan's
+    halo_k. An unknown value raises."""
+    env = os.environ.get("PINGOO_SCAN_STRATEGY", "")
+    if not env:
+        return strat
+    if env == "halo":
+        return ScanStrategy(kind=strat.kind, pair=strat.pair, halo_k=8,
+                            source="env")
+    if env not in _ENV_STRATEGIES:
+        raise ValueError(f"PINGOO_SCAN_STRATEGY={env} is none of halo, "
+                         f"{', '.join(_ENV_STRATEGIES)}")
+    kind, pair = _ENV_STRATEGIES[env]
+    return ScanStrategy(kind=kind, pair=pair, halo_k=strat.halo_k,
+                        source="env")
+
+
+def _halo_split_forced() -> bool:
+    """PINGOO_HALO_SPLIT: a bank whose strategy has halo_k 1 attempts
+    the halo split up to k = 8 all the same."""
+    return os.environ.get("PINGOO_HALO_SPLIT", "0") not in ("", "0")
 
 
 def _dfa_bank_active(plan: RulesetPlan, entry: NfaScanPlan, mode: str) -> bool:
@@ -214,6 +263,7 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
     pf = plan.prefilter
     pf_mode = _resolve_pf_mode(plan)
     dfa_mode = _resolve_dfa_mode(plan)
+    halo_forced = _halo_split_forced()
 
     def field_data(field):
         return arrays[f"{field}_bytes"], arrays[f"{field}_len"]
@@ -257,8 +307,13 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
                 (leaf_id, binding.span))
 
     # -- Stage B: one host decision for every gated bank --------------------
+    # A split NFA bank is gated as its two sub-banks, each on its own mask.
+    scan_keys = []
+    for key in nfa_groups:
+        split = plan.scan_plans[key].split
+        scan_keys.extend(split if split is not None else (key,))
     cands = {key: bank_candidates(key)
-             for key in list(nfa_groups) + list(win_groups)}
+             for key in scan_keys + list(win_groups)}
     gated = [k for k, c in cands.items() if c is not None]
     run: dict[str, bool] = {}
     counts: dict[str, int] = {}
@@ -325,6 +380,18 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
         return out
 
     def bank_hits(bank, strat: ScanStrategy, data, lens):
+        """One bank's [B, P] hits: the halo split where the JAX package's
+        rule takes it at this width (the record's pair flag sets the base
+        step count, though the CUDA kernel steps one column at a time
+        either way), else one scan of the whole rows."""
+        L = data.shape[1]
+        k_cap = strat.halo_k if strat.halo_k > 1 else (8 if halo_forced
+                                                        else 1)
+        if k_cap > 1:
+            k = halo_split_k(bank, L, max_k=k_cap)
+            base_iters = (L + 1) // 2 if strat.pair else L
+            if k > 1 and L // k + int(bank.max_footprint) < base_iters:
+                return halo_split_scan(bank, data, lens, k, pair=strat.pair)
         state = scan_chunk(bank, data, lens,
                            init_scan_state(data.shape[0], bank.opt.shape[0],
                                            dev), 0, pair=strat.pair)
@@ -354,21 +421,36 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
                                  cand)
         return compact_rows(recheck_rows, recheck_base, data, lens, cand)
 
+    def bank_scan(bank, strat, lens):
+        """(scan_rows, base_fn) of one NFA bank under `strat`."""
+        return (lambda d, l: bank_hits(bank, strat, d, l),
+                lambda: bank_skip_result(bank, lens))
+
     def nfa_bank_result(key, field):
         data, lens = field_data(field)
         bank = tables[key]
         entry = plan.scan_plans[key]
-        strat = entry.strategy
+        if entry.split is not None:
+            # The @short and @rest sub-banks, each under its own strategy,
+            # Stage-B mask and skip result, then the slots back in order.
+            # (The JAX package's legacy HALO_SPLIT branch of its
+            # non-field PINGOO_SCAN_PACK modes has no counterpart: the
+            # port refuses those modes, device.check_env.)
+            hits = [gated_scan(sub, data, lens,
+                               *bank_scan(tables[sub], _resolve_strategy(st),
+                                          lens))
+                    for sub, st in zip(entry.split, (entry.short_strategy,
+                                                     entry.rest_strategy))]
+            perm = _const(consts, ("slot_perm", key), lambda: torch.tensor(
+                entry.slot_perm, dtype=torch.long, device=dev))
+            return torch.cat(hits, dim=1).index_select(1, perm)
+        scan = bank_scan(bank, _resolve_strategy(entry.strategy), lens)
         if _dfa_bank_active(plan, entry, dfa_mode) \
                 and tables[entry.dfa_key].num_slots \
                 == bank.accept_member.shape[1]:
-            return dfa_cascade_hits(
-                key, tables[entry.dfa_key], data, lens,
-                lambda d, l: bank_hits(bank, strat, d, l),
-                lambda: bank_skip_result(bank, lens))
-        return gated_scan(key, data, lens,
-                          lambda d, l: bank_hits(bank, strat, d, l),
-                          lambda: bank_skip_result(bank, lens))
+            return dfa_cascade_hits(key, tables[entry.dfa_key], data, lens,
+                                    *scan)
+        return gated_scan(key, data, lens, *scan)
 
     def window_result(key, field):
         data, lens = field_data(field)

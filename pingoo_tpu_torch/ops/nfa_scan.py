@@ -16,6 +16,11 @@ most 512 words, and takes CUDA tensors only. `scan_chunk` sends a CUDA
 tensor to the kernel and a CPU tensor to the plain version. Tables hold
 uint32 words as int32 bits (ops/_tables.py); the plain loop widens them
 to int64.
+
+`halo_split_scan` runs a halo-compatible bank over k chunks of each row
+as k times the rows (each chunk led by the H bytes before it, at per-row
+offsets, chunk 0's negative), one `scan_chunk` call: the serial walk per
+row shrinks from L to L / k + H columns. `halo_split_k` picks k.
 """
 
 from __future__ import annotations
@@ -341,10 +346,16 @@ def init_scan_state(B: int, W: int, device) -> torch.Tensor:
 
 
 def extract_slots(tables: NfaTables, state: torch.Tensor,
-                  lengths: torch.Tensor) -> torch.Tensor:
-    """Per-pattern verdicts [B, P] bool from the final state."""
-    lanes = state.index_select(1, tables.accept_word.long())  # [B, J]
-    pair_hit = (lanes & tables.accept_mask[None, :]) != 0
+                  lengths: torch.Tensor,
+                  pair_hit: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-pattern verdicts [B, P] bool from the final state.
+
+    `pair_hit` [B, J] replaces the per-accept-pair hits read from the
+    state: the halo scan passes its sticky/owner-gated pairs and reuses
+    the same pair -> slot reduction and empty/always lanes."""
+    if pair_hit is None:
+        lanes = state.index_select(1, tables.accept_word.long())  # [B, J]
+        pair_hit = (lanes & tables.accept_mask[None, :]) != 0
     if tables.identity_accept:
         hit = pair_hit
     else:
@@ -366,3 +377,67 @@ def nfa_scan(tables: NfaTables, data: torch.Tensor, lengths: torch.Tensor,
                        init_scan_state(B, tables.opt.shape[0], data.device),
                        0, pair=pair)
     return extract_slots(tables, state, lengths)
+
+
+# -- the halo split: a row's length axis as k chunks of extra rows ------------
+
+
+def halo_split_k(tables: NfaTables, L: int, max_k: int = 8) -> int:
+    """The largest power-of-two split factor k <= max_k that divides L
+    with the halo (the bank's footprint H) fitting in a chunk of L / k
+    columns; 1 when the bank is not halo-compatible or k chunks of
+    L / k + H steps would not be shorter than L."""
+    if not tables.halo_ok:
+        return 1
+    H = int(tables.max_footprint)
+    best = 1
+    k = 2
+    while k <= max_k and L % k == 0 and H <= L // k:
+        best = k
+        k *= 2
+    return best if best > 1 and (L // best + H) < L else 1
+
+
+def halo_split_scan(tables: NfaTables, data: torch.Tensor,
+                    lengths: torch.Tensor, k: int,
+                    pair: bool = False) -> torch.Tensor:
+    """The bank over [B, L] rows cut into k chunks that become B * k rows
+    of H + L / k columns, each led by the H bytes before it (zeros before
+    position 0), with per-row offsets i * L / k - H (chunk 0's are
+    negative: those columns are not live, and the t == 0 injection
+    happens once). Accepts split as in the JAX package's
+    `halo_split_scan`: sticky bits OR across a row's chunks, positional
+    accepts come from the chunk holding the row's last byte. Exact for a
+    halo-compatible bank with H <= L / k. On the card the chunks go to
+    the NFA kernel in one launch; nothing here waits on the device."""
+    B, L = data.shape
+    if L % k:
+        raise ValueError(f"a halo split of {L} columns into {k} chunks")
+    Lc = L // k
+    H = int(tables.max_footprint)
+    if not tables.halo_ok or H > Lc:
+        raise ValueError(f"halo {H} with chunks of {Lc} columns "
+                         f"(halo_ok={tables.halo_ok})")
+    dev = data.device
+    lens = lengths.to(torch.int32)
+    # [B, H + L] -> the k windows of H + Lc columns at strides of Lc.
+    rows = F.pad(data, (H, 0)).unfold(1, H + Lc, Lc) \
+        .reshape(B * k, H + Lc).contiguous()
+    row_lens = lens[:, None].expand(B, k).reshape(B * k)
+    offs = (torch.arange(k, dtype=torch.int32, device=dev) * Lc - H) \
+        .repeat(B)
+    state = scan_chunk(tables, rows, row_lens,
+                       init_scan_state(B * k, tables.opt.shape[0], dev),
+                       offs, pair=pair)
+    lanes = state.index_select(1, tables.accept_word.long()) \
+        .view(B, k, -1)  # [B, k, J]
+    masks = tables.accept_mask[None, None, :]
+    sticky_j = tables.sticky.index_select(
+        0, tables.accept_word.long())[None, None, :]
+    sticky_hit = ((lanes & masks & sticky_j) != 0).any(dim=1)  # [B, J]
+    owner = torch.div(lens.long() - 1, Lc, rounding_mode="floor") \
+        .clamp(0, k - 1)  # [B]
+    end_lanes = lanes.gather(
+        1, owner[:, None, None].expand(B, 1, lanes.shape[2]))[:, 0]
+    end_hit = (end_lanes & masks[0] & ~sticky_j[0]) != 0
+    return extract_slots(tables, state, lens, pair_hit=sticky_hit | end_hit)

@@ -202,14 +202,11 @@ def test_entry_points_raise_without_a_card(no_card):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("PINGOO_NFA_SPLIT", "1"),
     ("PINGOO_MEGASTEP", "auto"),
     ("PINGOO_MESH", "2x1x1"),
-    ("PINGOO_SCAN_STRATEGY", "halo"),
     ("PINGOO_SCHED_MODE", "continuous"),
     ("PINGOO_SCHED_MODE", "deadline"),
     ("PINGOO_SCHED_FAILOPEN", "allow"),
-    ("PINGOO_HALO_SPLIT", "1"),
     ("PINGOO_SCAN_PACK", "length"),
     ("PINGOO_SCAN_PACK", "batch"),
     ("PINGOO_DEADLINE_MS", "2"),
@@ -227,10 +224,8 @@ def test_unported_knobs_raise(monkeypatch, name, value):
 
 
 @pytest.mark.parametrize("name,value,item", [
-    ("PINGOO_SCAN_STRATEGY", "halo", "item 4, halo split"),
     ("PINGOO_SCHED_MODE", "continuous", "item 9, the scheduler"),
     ("PINGOO_SCHED_FAILOPEN", "allow", "item 9, the scheduler"),
-    ("PINGOO_HALO_SPLIT", "1", "item 4, halo split"),
     ("PINGOO_SCAN_PACK", "fill", "kernel work item 1, lane packing"),
     ("PINGOO_MEGASTEP", "auto", "item 9, the scheduler"),
     ("PINGOO_DEADLINE_MS", "5", "item 9, the scheduler"),
@@ -265,6 +260,9 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     ("PINGOO_PREFILTER", "compact"), ("PINGOO_STAGING", "compact"),
     ("PINGOO_PREFILTER_LEVELS", "4"), ("PINGOO_STAGING_DEPTH", "2"),
     ("PINGOO_PREFILTER_LEVELS", "2"), ("PINGOO_STAGING_DEPTH", "1"),
+    # The halo split (item 4, ported): the values that raised before.
+    ("PINGOO_NFA_SPLIT", "1"), ("PINGOO_SCAN_STRATEGY", "halo"),
+    ("PINGOO_HALO_SPLIT", "1"),
     # Knobs that pick among the JAX package's backends mean nothing here.
     ("PINGOO_NFA_LOOKUP", "pair"), ("PINGOO_DFA_KERNEL", "pallas"),
     ("PINGOO_PREFILTER_KERNEL", "pallas"),
