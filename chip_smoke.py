@@ -216,13 +216,46 @@
    kernels. (c) The default main path runs before and after, and with
    the split main path once under torch.profiler: req/s, launches a
    batch and device time a pass, in one process. Prints {"halo": ...}.
-11. Prints one JSON line of per-kernel results (with each kernel's
+11. Bot phase: the bot head (models/botscore.py), its weights drawn
+   from a seeded torch.Generator, saved to npz and loaded onto the card.
+   Under PINGOO_PIPELINE=off, on, on with PINGOO_STAGING=compact and
+   PINGOO_MEGASTEP=force, VerdictService(bot_score_params=) scores the
+   8,192 requests within 1e-5 of the head's plain CPU computation over
+   the arrays that arm stages, with verdicts equal to the oracle's and
+   to the same service's without the head, and every kernel launched.
+   Prints the scorer's µs a full-width batch (queued and issued) and the
+   main path's req/s without and with the head in turn. Prints
+   {"bot": ...}.
+12. Swap phase: hot-swap (engine/hotswap.py) and the artifact cache
+   (compiler/cache.py). Epoch 1 is generate_ruleset(500, seed=5), whose
+   tables have other shapes; compile_ruleset_cached gives it cold
+   (compile, proof, write) and warm (a hit placed on the card), timed,
+   the hit's tables bit-equal to a fresh compile's. The interpreter's
+   oracle of epoch 1 runs in processes of its own meanwhile. The Python
+   plane under PINGOO_PIPELINE=off, on and PINGOO_MEGASTEP=force: half
+   the stream, then swap_plan while bursts keep arriving, then the
+   rest; every verdict equals its epoch's oracle. The ring under on and
+   force, each after warm_up(): a producer child drives one stream of
+   2,048 requests again and again, a thread calls request_swap once
+   1,024 are processed (the new state built, and under force its graphs
+   captured, on that thread), and two drives follow the flip; every
+   ticket is posted once on its epoch's oracle, the heartbeat stays
+   under 500 ms and no epoch echo differs. Each force arm then swaps
+   back to epoch 0's plan (epoch 2) with the capture lock held by the
+   swap's first capture until a serving capture of a new window shape
+   waits for it (`HeldCaptureLock`): both captures must succeed, the
+   serving side's verdict equal epoch 1's oracle, and the serving
+   runner's wait for the lock is printed. Prints each swap's pause and
+   {"swap": ...}.
+13. Prints one JSON line of per-kernel results (with each kernel's
    launches in the config phase, on the ring drive, on the body
    phase's streamed passes, on the listener's measured pass, on the
    native phase's measured loadgen run, through the megastep's graph
    replays in the slice phase and the two ring arms, in the compact
-   slice arms, in the ring's staging arms, and on the split main path
-   of the halo phase and its ring arm under on), then, last,
+   slice arms, in the ring's staging arms, on the split main path
+   of the halo phase and its ring arm under on, on the bot phase's
+   main path with the head, and on the swap phase's Python `on` arm and
+   ring `force` arm), then, last,
    {"ok": true, "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
@@ -239,13 +272,16 @@ line "seed requests every" it reads from stdin), `--body-phase` the
 body phase alone, `--listener-phase` the listener phase alone
 (`--listener-client` and `--listener-pong` are its client and
 upstream; the native phase uses the same client), `--native-phase`
-the native phase alone, and `--halo-phase` the halo phase alone (after
-the build, the oracle and one pass of the main path).
+the native phase alone, `--halo-phase` the halo phase alone (after
+the build, the oracle and one pass of the main path), and `--bot-phase`
+and `--swap-phase` the bot and swap phases alone (after the build and
+the oracle).
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import json
 import os
@@ -254,6 +290,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import zlib
 
@@ -1503,7 +1540,8 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
             mega = megas[mega_k] = {}
             mega["warm_s"] = warm_s
             mega["warm_graphs"] = service._mega_runner.snapshot()
-            service.stats = type(service.stats)(service.WINDOW)
+            service.stats = type(service.stats)(service.WINDOW,
+                                                service.stats.epoch)
             service._pipe = type(service._pipe)("python",
                                                 service._pipeline_depth)
         else:
@@ -2370,16 +2408,23 @@ def ring_producer(path: str) -> int:
     phase's set-up through the ring (with `tail_requests(.., tail)` when
     tail is not 0), every `every`-th request with a body of
     `body_ring_bodies` (none when 0), and write the drive as one JSON
-    line. Ends at the end of stdin."""
+    line. A fifth field of 1 drives `swap_ring_requests()` instead. Ends
+    at the end of stdin."""
     from pingoo_tpu_torch import native_ring as nr
     from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
 
     _, lists = generate_ruleset(500, with_lists=True, list_sizes=(4096, 512))
     ring = nr.Ring(path, capacity=RING_CAPACITY)
     try:
+        swap_reqs = None
         for line in sys.stdin:
-            seed, n, every, tail = map(int, line.split())
-            reqs = generate_traffic(n, lists=lists, seed=seed)
+            seed, n, every, tail, *swap = map(int, line.split())
+            if swap and swap[0]:
+                if swap_reqs is None:
+                    swap_reqs = swap_ring_requests()
+                reqs = swap_reqs
+            else:
+                reqs = generate_traffic(n, lists=lists, seed=seed)
             if tail:
                 reqs = tail_requests(reqs, tail)
             r = nr.drive_stream(ring, nr.pack_requests(reqs),
@@ -2406,10 +2451,10 @@ class ChildProducer:
             stderr=subprocess.PIPE, text=True)
 
     def drive(self, seed: int, n: int = RING_REQUESTS, every: int = 0,
-              tail: int = 0):
+              tail: int = 0, swap: int = 0):
         from pingoo_tpu_torch import native_ring as nr
 
-        self.proc.stdin.write(f"{seed} {n} {every} {tail}\n")
+        self.proc.stdin.write(f"{seed} {n} {every} {tail} {swap}\n")
         self.proc.stdin.flush()
         line = self.proc.stdout.readline()
         if not line:
@@ -4901,6 +4946,813 @@ def native_child() -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])["native"]
 
 
+# -- the bot phase: the bot-score head (models/botscore.py) ------------------
+
+# Executor arms of the bot and swap phases: (PINGOO_PIPELINE,
+# PINGOO_STAGING, PINGOO_MEGASTEP).
+BOT_ARMS = {"off": ("off", "full", "off"), "on": ("on", "full", "off"),
+            "compact": ("on", "compact", "off"),
+            "force": ("on", "full", "force")}
+BOT_TOLERANCE = 1e-5
+# Scorer calls queued behind one sleep: the head is about a hundred
+# small launches a call, and the stream's launch queue holds about a
+# thousand.
+BOT_QUEUED_CALLS = 6
+
+
+def set_executor(arm) -> None:
+    pipe, staging, mega = arm
+    os.environ.update(PINGOO_PIPELINE=pipe, PINGOO_STAGING=staging,
+                      PINGOO_MEGASTEP=mega)
+
+
+def clear_executor() -> None:
+    for name in ("PINGOO_PIPELINE", "PINGOO_STAGING", "PINGOO_MEGASTEP"):
+        os.environ.pop(name, None)
+
+
+def warmed_service(plan, lists, reqs, dev, **kw):
+    """A VerdictService(max_batch=B) under the current executor, after a
+    warm-up pass of `reqs` one batch at a time (under the megastep its
+    graphs captured in the global mode, where any call of the slice body
+    illegal under capture would raise), its statistics started afresh."""
+    from pingoo_tpu_torch.engine.service import VerdictService
+
+    service = VerdictService(plan, lists, max_batch=B, device=dev, **kw)
+    if service._mega_runner is not None:
+        service._mega_runner.capture_mode = "global"
+    for lo in range(0, len(reqs), B):
+        service.evaluate_batch(reqs[lo:lo + B])
+    if service._mega_runner is not None:
+        service._mega_runner.capture_mode = "thread_local"
+    service.stats = type(service.stats)(service.WINDOW,
+                                        service.stats.epoch)
+    return service
+
+
+def plain_scores(params, plan, reqs, staging: str):
+    """The head's scores of `reqs` on the CPU (the plain computation),
+    over the arrays the service stages under `staging`: the bucketed
+    full-width batch, or the compact encoder's capped views at the
+    plan's caps."""
+    import numpy as np
+
+    from pingoo_tpu_torch.engine.batch import (StagingEncoder, batch_tensors,
+                                               bucket_arrays, encode_requests,
+                                               pow2_batch_size,
+                                               resolve_stage_caps,
+                                               stage_overflow_thresholds)
+    from pingoo_tpu_torch.models import botscore
+
+    cpu = params.to("cpu")
+    enc = None
+    if staging == "compact":
+        os.environ["PINGOO_STAGING"] = "compact"
+        caps = resolve_stage_caps(plan)
+        os.environ.pop("PINGOO_STAGING")
+        enc = StagingEncoder(B, plan.field_specs, nbuf=1, stage_caps=caps,
+                             overflow_thresholds=stage_overflow_thresholds(
+                                 plan, caps))
+    out = []
+    for lo in range(0, len(reqs), B):
+        chunk = reqs[lo:lo + B]
+        staged = None
+        if enc is None:
+            arrays = bucket_arrays(encode_requests(chunk,
+                                                   plan.field_specs).arrays)
+        else:
+            staged = enc.checkout()
+            arrays = enc.encode_requests(
+                chunk, pad_to=pow2_batch_size(len(chunk), B),
+                into=staged).arrays
+        out.append(botscore.score(cpu, batch_tensors(
+            arrays, "cpu")).numpy()[:len(chunk)].copy())
+        if staged is not None:
+            enc.release(staged)
+    return np.concatenate(out)
+
+
+def bot_phase(plan, lists, reqs, dev, oracle) -> dict:
+    """The bot head on the 500-rule corpus at max_batch B and full width:
+    weights from a seeded torch.Generator, saved to npz and loaded back
+    onto the card. Under PINGOO_PIPELINE=off, on (full), on with compact
+    staging and PINGOO_MEGASTEP=force, the scores of all N_REQUESTS equal
+    the plain CPU computation within BOT_TOLERANCE, and the verdicts the
+    oracle's and those of the same service without the head. Then the
+    scorer's µs a batch (queued and issued) and req/s of the main path
+    with and without the head, in turn, in this process. Returns the
+    phase's numbers, the kernels' launches of the head's main-path pass
+    included."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pingoo_tpu_torch.engine.batch import batch_tensors, bucket_arrays, \
+        encode_requests
+    from pingoo_tpu_torch.engine.verdict import action_lanes
+    from pingoo_tpu_torch.models import botscore
+    from pingoo_tpu_torch.ops import _build
+
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "head.npz")
+        botscore.save_params(botscore.init_params(
+            torch.Generator().manual_seed(SEED), device="cpu"), path)
+        params = botscore.load_params(path, device=dev)
+    o_act, o_vb = action_lanes(plan, oracle)
+    arms = {}
+    plain = {}
+    for name, arm in BOT_ARMS.items():
+        set_executor(arm)
+        try:
+            runs = {}
+            for head in (None, params):
+                service = warmed_service(plan, lists, reqs, dev,
+                                         bot_score_params=head)
+                _build.reset_launch_counts()
+                verdicts, wall = asyncio.run(serve(service, reqs))
+                launches = {k: v.launches for k, v in _build.KERNELS.items()}
+                runs[head is not None] = (verdicts, wall, launches, service)
+        finally:
+            clear_executor()
+        (v0, wall0, _, _), (v1, wall1, launches, service) = \
+            runs[False], runs[True]
+        matched = np.stack([v.matched for v in v1])
+        act = np.array([v.action for v in v1])
+        vb = np.array([v.verified_block for v in v1])
+        if (matched != np.stack([v.matched for v in v0])).any() \
+                or (act != np.array([v.action for v in v0])).any():
+            fail(f"bot arm {name}: verdicts with the head differ from "
+                 f"those without it")
+        if (matched != oracle).any() or (act != o_act).any() \
+                or (vb != o_vb).any():
+            fail(f"bot arm {name}: verdicts differ from the oracle")
+        staging = arm[1]
+        if staging not in plain:
+            plain[staging] = plain_scores(params, plan, reqs, staging)
+        got = np.array([v.bot_score for v in v1])
+        err = float(np.abs(got - plain[staging]).max())
+        if not err <= BOT_TOLERANCE or not np.isfinite(got).all():
+            fail(f"bot arm {name}: scores differ from the plain CPU "
+                 f"computation by {err} (limit {BOT_TOLERANCE})")
+        if any(v.bot_score != 0.0 for v in v0):
+            fail(f"bot arm {name}: a service without the head scored")
+        if service.stats.snapshot()["score_errors"] != 0:
+            fail(f"bot arm {name}: score_errors moved")
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            fail(f"bot arm {name}: the path launched no {missing} kernel")
+        arms[name] = dict(max_abs_err=err, req_per_s=N_REQUESTS / wall1,
+                          req_per_s_without=N_REQUESTS / wall0,
+                          launches=launches,
+                          mean_score=float(got.mean()),
+                          scores_over_half=int((got > 0.5).sum()))
+        print(f"bot arm {name} (PINGOO_PIPELINE={arm[0]} PINGOO_STAGING="
+              f"{arm[1]} PINGOO_MEGASTEP={arm[2]}): {N_REQUESTS} scores "
+              f"within {err:.3g} of the plain CPU computation, verdicts "
+              f"equal the oracle's and the headless service's; "
+              f"{N_REQUESTS / wall1:.0f} req/s with the head, "
+              f"{N_REQUESTS / wall0:.0f} without; launches {launches}",
+              flush=True)
+    # The scorer alone on one full-width batch, and the main path (`on`)
+    # with and without the head in turn: without, with, with, without.
+    arrays = batch_tensors(bucket_arrays(
+        encode_requests(reqs[:B], plan.field_specs).arrays), dev)
+
+    def score():
+        botscore.score(params, arrays)
+
+    queued = queued_ms(score, BOT_QUEUED_CALLS)
+    issued = cuda_ms(score, 15)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        score()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    timed = []
+    set_executor(BOT_ARMS["on"])
+    try:
+        for head in (None, params, params, None):
+            service = warmed_service(plan, lists, reqs, dev,
+                                     bot_score_params=head)
+            _, wall = asyncio.run(serve(service, reqs))
+            timed.append((head is not None, N_REQUESTS / wall))
+    finally:
+        clear_executor()
+    with_head = [r for h, r in timed if h]
+    without = [r for h, r in timed if not h]
+    out = dict(arms=arms, launches=arms["on"]["launches"],
+               score_queued_us=queued * 1e3, score_issued_us=issued * 1e3,
+               score_device_ops=kernels,
+               req_per_s_with=with_head, req_per_s_without=without,
+               seconds=time.monotonic() - t_phase)
+    print(f"bot head: {queued * 1e3:.1f} µs queued, {issued * 1e3:.1f} µs "
+          f"issued a batch of {B} full-width rows, {kernels} device "
+          f"kernels and copies a call (torch.profiler); the main path (on) "
+          f"without / with / with / without the head: "
+          + " / ".join(f"{r:.0f}" for _, r in timed)
+          + f" req/s; phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# -- the swap phase: hot-swap and the artifact cache ---------------------------
+
+# Epoch 1's ruleset: generate_ruleset(500, seed=SWAP_SEED), whose pf_url,
+# dfa_win_url and ASN bitset have other shapes than epoch 0's.
+SWAP_SEED = 5
+SWAP_ARMS = {k: BOT_ARMS[k] for k in ("off", "on", "force")}
+SWAP_RING_ARMS = {"on": "off", "force": "force"}  # arm: PINGOO_MEGASTEP
+# The ring arms' producer stream, driven again and again until the swap
+# has flipped, then twice more.
+SWAP_RING_SEED = 31
+SWAP_RING_CHUNK = 2048
+SWAP_RING_MAX_CHUNKS = 2000
+SWAP_RING_AFTER = 1024  # requests processed before the swap is asked for
+
+
+def swap_ring_requests():
+    """The ring swap arms' stream: generate_traffic(SWAP_RING_CHUNK,
+    seed=SWAP_RING_SEED) over the corpus's lists, every second request's
+    address taken from an IP list, epoch 0's and epoch 1's in turn. The
+    two rulesets come from one generator and block the same attacks, so
+    those addresses are what tells the epochs' verdicts apart."""
+    from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+
+    lists = (generate_ruleset(500)[1],
+             generate_ruleset(500, seed=SWAP_SEED)[1])
+    reqs = generate_traffic(SWAP_RING_CHUNK, lists=lists[0],
+                            seed=SWAP_RING_SEED)
+    for i, r in enumerate(reqs):
+        if i % 2:
+            ips = lists[(i // 2) % 2]["blocked_ips"]
+            r.ip = str(ips[(i * 7919) % len(ips)]).split("/")[0]
+    return reqs
+
+
+def table_arrays(plan) -> dict:
+    return {k: (v.numpy_arrays(), v.meta()) for k, v in
+            plan.np_tables.items()}
+
+
+def tables_equal(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    if sorted(a) != sorted(b):
+        return False
+    for key, (arrs, meta) in a.items():
+        other, other_meta = b[key]
+        if meta != other_meta or sorted(arrs) != sorted(other):
+            return False
+        for name, x in arrs.items():
+            y = other[name]
+            if x.dtype != y.dtype or x.shape != y.shape \
+                    or not np.array_equal(x, y):
+                return False
+    return True
+
+
+def swap_cache(rules, lists, plan0, dev, tmp) -> tuple:
+    """Epoch 1's plan through the artifact cache: a cold call (compile,
+    prove, write) and a warm one (load, place on the card), timed, the
+    proof timed inside the cold one; the hit's tables on the card and
+    bit-equal to a fresh compile's and the cold call's."""
+    from pingoo_tpu_torch.compiler import cache as cache_mod
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+
+    prove_s = []
+    real = cache_mod.prove_plan
+
+    def timed_prove(plan, fingerprint=""):
+        t0 = time.monotonic()
+        out = real(plan, fingerprint)
+        prove_s.append(time.monotonic() - t0)
+        return out
+
+    cache_mod.prove_plan = timed_prove
+    try:
+        t0 = time.monotonic()
+        cold = cache_mod.compile_ruleset_cached(rules, lists, cache_dir=tmp,
+                                                device=dev)
+        cold_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        warm = cache_mod.compile_ruleset_cached(rules, lists, cache_dir=tmp,
+                                                device=dev)
+        warm_s = time.monotonic() - t0
+    finally:
+        cache_mod.prove_plan = real
+    if len(prove_s) != 1:
+        fail(f"the cold and warm cache calls proved {len(prove_s)} times, "
+             f"not once")
+    t0 = time.monotonic()
+    fresh = compile_ruleset(rules, lists, device=dev)
+    fresh_s = time.monotonic() - t0
+    if warm is cold or any(t.device.type != "cuda"
+                           for t in warm.np_tables.values()):
+        fail("the cache's hit is not a plan with its tables on the card")
+    want = table_arrays(fresh)
+    if not tables_equal(table_arrays(warm), want) \
+            or not tables_equal(table_arrays(cold), want):
+        fail("the cache's plan differs from a fresh compile's")
+    a0 = table_arrays(plan0)
+    reshaped = sorted(k for k in set(a0) | set(want)
+                      if k not in a0 or k not in want
+                      or {n: x.shape for n, x in a0[k][0].items()}
+                      != {n: x.shape for n, x in want[k][0].items()})
+    if not reshaped:
+        fail("epoch 1's tables have the shapes of epoch 0's")
+    size = sum(os.path.getsize(os.path.join(tmp, f))
+               for f in os.listdir(tmp))
+    out = dict(cold_s=cold_s, warm_s=warm_s, prove_s=prove_s[0],
+               fresh_compile_s=fresh_s, artifact_bytes=size,
+               reshaped_tables=reshaped)
+    print(f"cache: epoch 1's plan cold {cold_s:.2f} s (proof "
+          f"{prove_s[0]:.2f} s), warm {warm_s:.2f} s, a fresh compile "
+          f"{fresh_s:.2f} s; the hit's tables on the card and bit-equal to "
+          f"the fresh compile's; artifact {size} bytes; tables of other "
+          f"shapes than epoch 0's: {reshaped}", flush=True)
+    return warm, out
+
+
+# The force arms' capture-overlap step: how long the swap's first capture
+# may hold the lock waiting for a serving capture, and the seeds tried for
+# a ring request whose window shape the served runner has not captured.
+OVERLAP_WAIT_S = 30.0
+OVERLAP_RING_SEEDS = range(900, 932)
+
+
+class HeldCaptureLock:
+    """Stands in for engine/graphs.py's `_CAPTURE_LOCK` in a force arm's
+    overlap step. The first thread to take it (a swap's warm-up: the
+    serving side has then captured every shape it has served) holds it,
+    before its capture, until a second thread waits for it, at most
+    OVERLAP_WAIT_S: so a serving capture of a new window shape surely
+    meets the swap's capture in progress. `met` says whether one did."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._count = threading.Lock()
+        self.arrived = 0
+        self.holding = threading.Event()
+        self.met = False
+
+    def __enter__(self):
+        with self._count:
+            self.arrived += 1
+        self._lock.acquire()
+        if not self.holding.is_set():
+            self.holding.set()
+            deadline = time.monotonic() + OVERLAP_WAIT_S
+            while self.arrived < 2 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            self.met = self.arrived >= 2
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        return False
+
+
+@contextlib.contextmanager
+def held_capture_lock():
+    from pingoo_tpu_torch.engine import graphs
+
+    held, real = HeldCaptureLock(), graphs._CAPTURE_LOCK
+    graphs._CAPTURE_LOCK = held
+    try:
+        yield held
+    finally:
+        graphs._CAPTURE_LOCK = real
+
+
+def lone_want(plan, lists, req) -> tuple:
+    """(matched row, action, verified_block) of one request under `plan`,
+    by the interpreter."""
+    from pingoo_tpu_torch.engine.batch import tuple_to_context
+    from pingoo_tpu_torch.engine.verdict import (action_lanes,
+                                                 interpret_rules_row)
+
+    row = interpret_rules_row(plan, tuple_to_context(req, lists))
+    act, vb = action_lanes(plan, row[None])
+    return row, int(act[0]), bool(vb[0])
+
+
+def overlap_report(label, held, before, after, res_pause_ms) -> dict:
+    """Fails unless the serving capture met the swap's and was made;
+    returns and prints the serving runner's wait for the lock."""
+    made = after["captures"] - before["captures"]
+    if not held.met or made < 1:
+        fail(f"{label}: no serving capture met the swap's capture "
+             f"(met {held.met}, serving captures {made})")
+    wait_ms = after["capture_wait_ms_total"] - before["capture_wait_ms_total"]
+    out = dict(serving_captures=made, serving_wait_ms=wait_ms,
+               swap_pause_ms=res_pause_ms)
+    print(f"{label}: a serving capture of a new window shape met the swap's "
+          f"capture in progress; both made; the serving side waited "
+          f"{wait_ms:.3f} ms for the capture lock over {made} capture(s); "
+          f"the swap back to epoch 0's plan paused {res_pause_ms:.3f} ms",
+          flush=True)
+    return out
+
+
+async def service_overlap(service, plan, lists, served) -> dict:
+    """The Python force arm's overlap step on a started `service` serving
+    epoch 1 (`served` = (plan, lists)): swap_plan back to `plan` (epoch
+    2) under `held_capture_lock`; once the swap's capture holds the lock,
+    a lone request with a 300-byte url and every other field empty (a
+    window shape no batch of the stream had) is admitted, and its batch
+    captures on the served runner. Its verdict must equal epoch 1's
+    oracle, and the swap must succeed."""
+    from pingoo_tpu_torch.engine.batch import RequestTuple
+
+    runner = service._mega_runner
+    before = runner.snapshot()
+    req = RequestTuple(path="/" + "o" * 299, url="/" + "o" * 299)
+    loop = asyncio.get_running_loop()
+    with held_capture_lock() as held:
+        swap = asyncio.ensure_future(service.swap_plan(plan, lists=lists,
+                                                       tenant="epoch2"))
+        if not await loop.run_in_executor(None, held.holding.wait,
+                                          OVERLAP_WAIT_S):
+            fail("Python force overlap: the swap never took the capture "
+                 "lock")
+        verdict = await service.evaluate(req)
+        res = await swap
+    after = runner.snapshot()
+    row, act, vb = lone_want(*served, req)
+    if verdict.epoch != 1 or (verdict.matched != row).any() \
+            or verdict.action != act or verdict.verified_block != vb:
+        fail(f"Python force overlap: the lone verdict (epoch "
+             f"{verdict.epoch}) differs from epoch 1's oracle")
+    if res["epoch"] != 2 or service.ruleset_epoch != 2:
+        fail(f"Python force overlap: the swap back ended {res}")
+    return overlap_report("Python force overlap", held, before, after,
+                          res["pause_ms"])
+
+
+def ring_overlap(sidecar, producer, plans, lists) -> dict:
+    """The ring force arm's overlap step on a running sidecar serving
+    epoch 1: a thread calls request_swap back to epoch 0's plan (epoch 2)
+    under `held_capture_lock`; once its first capture holds the lock, the
+    producer drives lone requests (seeds OVERLAP_RING_SEEDS) until one's
+    window shape is new to the served runner, whose capture then waits
+    for the swap's. Each lone ticket's action must equal epoch 1's
+    oracle, and the swap must flip."""
+    from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+
+    ring_lists = generate_ruleset(500, with_lists=True,
+                                  list_sizes=(4096, 512))[1]
+    runner = sidecar._mega_runner
+    before = runner.snapshot()
+    got = {}
+
+    def requester():
+        try:
+            got["handle"] = sidecar.request_swap(plans[0], lists=lists[0],
+                                                 tenant="epoch2")
+        except Exception as exc:
+            got["error"] = exc
+
+    thread = threading.Thread(target=requester, name="swap-requester")
+    ages = []
+    with held_capture_lock() as held:
+        thread.start()
+        if not held.holding.wait(OVERLAP_WAIT_S):
+            fail("ring force overlap: the swap never took the capture lock")
+        for seed in OVERLAP_RING_SEEDS:
+            r = producer.drive(seed, 1)
+            req = generate_traffic(1, lists=ring_lists, seed=seed)[0]
+            _, act, vb = lone_want(plans[1], lists[1], req)
+            if r.actions != bytes([act | (int(vb) << 2)]):
+                fail(f"ring force overlap: the lone ticket of seed {seed} "
+                     f"differs from epoch 1's oracle")
+            ages.append(r.max_heartbeat_age_ms)
+            if held.met:
+                break
+        thread.join(120)
+    if "handle" not in got or not got["handle"].wait(60) \
+            or got["handle"].result != "ok" or sidecar.ruleset_epoch != 2:
+        fail(f"ring force overlap: the swap back failed: {got}")
+    after = runner.snapshot()
+    out = overlap_report("ring force overlap", held, before, after,
+                         got["handle"].pause_ms)
+    out.update(lone_drives=len(ages), max_heartbeat_age_ms=max(ages))
+    return out
+
+
+def swap_service_arm(name, plans, lists, reqs, dev, oracles, lanes) -> dict:
+    """The Python plane under SWAP_ARMS[name]: a warmed service on epoch
+    0 gets the first half of `reqs`, then `swap_plan` to epoch 1 while
+    bursts of 256 more arrive every 2 ms until the flip (or up to three
+    quarters of `reqs`), then the rest.
+    Every verdict equals its epoch's oracle; every future resolves once."""
+    import numpy as np
+
+    from pingoo_tpu_torch.ops import _build
+
+    set_executor(SWAP_ARMS[name])
+    try:
+        service = warmed_service(plans[0], lists[0], reqs, dev)
+    finally:
+        clear_executor()
+    n = len(reqs)
+
+    async def run():
+        await service.start()
+        try:
+            futs = [asyncio.ensure_future(service.evaluate(r))
+                    for r in reqs[:n // 2]]
+            t0 = time.monotonic()
+            swap = asyncio.ensure_future(service.swap_plan(
+                plans[1], lists=lists[1], tenant="epoch1"))
+            i, stop = n // 2, n - n // 4
+            while not swap.done() and i < stop:
+                futs += [asyncio.ensure_future(service.evaluate(r))
+                         for r in reqs[i:min(i + 256, stop)]]
+                i = min(i + 256, stop)
+                await asyncio.sleep(0.002)
+            res = await swap
+            swap_s = time.monotonic() - t0
+            futs += [asyncio.ensure_future(service.evaluate(r))
+                     for r in reqs[i:]]
+            out = await asyncio.gather(*futs), res, swap_s, i
+            launches = {k: v.launches for k, v in _build.KERNELS.items()}
+            overlap = await service_overlap(
+                service, plans[0], lists[0], (plans[1], lists[1])) \
+                if service._mega_runner is not None else None
+            return out + (launches, overlap)
+        finally:
+            await service.stop()
+
+    _build.reset_launch_counts()
+    verdicts, res, swap_s, during, launches, overlap = asyncio.run(run())
+    if len(verdicts) != n:
+        fail(f"swap arm {name}: {len(verdicts)} verdicts for {n} requests")
+    epochs = np.array([v.epoch for v in verdicts])
+    if set(epochs.tolist()) != {0, 1} or res["epoch"] != 1:
+        fail(f"swap arm {name}: epochs {sorted(set(epochs.tolist()))}, "
+             f"swap {res}")
+    bad = 0
+    for i, v in enumerate(verdicts):
+        act, vb = lanes[v.epoch]
+        if (v.matched != oracles[v.epoch][i]).any() \
+                or v.action != act[i] or v.verified_block != vb[i]:
+            bad += 1
+    if bad:
+        fail(f"swap arm {name}: {bad} verdicts differ from their epoch's "
+             f"oracle")
+    if service.mega_echo_mismatch:
+        fail(f"swap arm {name}: {service.mega_echo_mismatch} epoch echoes "
+             f"differ")
+    out = dict(pause_ms=res["pause_ms"], swap_s=swap_s,
+               epoch0=int((epochs == 0).sum()),
+               epoch1=int((epochs == 1).sum()),
+               admitted_during_swap=during - n // 2, launches=launches,
+               overlap=overlap)
+    print(f"swap arm {name} (Python plane, PINGOO_PIPELINE="
+          f"{SWAP_ARMS[name][0]} PINGOO_MEGASTEP={SWAP_ARMS[name][2]}): "
+          f"{n} verdicts equal their epoch's oracle ({out['epoch0']} epoch "
+          f"0, {out['epoch1']} epoch 1, {out['admitted_during_swap']} "
+          f"admitted while the state was built); swap_plan {swap_s:.2f} s, "
+          f"pause {res['pause_ms']:.3f} ms; launches {launches}",
+          flush=True)
+    return out
+
+
+def swap_ring_arm(arm, ring, producer, plans, lists, wants, dev) -> dict:
+    """The sidecar under PINGOO_PIPELINE=on and PINGOO_MEGASTEP=
+    SWAP_RING_ARMS[arm], after warm_up(): the producer drives one stream
+    of SWAP_RING_CHUNK requests again and again; once SWAP_RING_AFTER
+    are processed a thread asks for the swap to epoch 1 (the new state
+    built and warmed there), and after the flip the stream is driven
+    twice more. Each ticket is
+    posted once (drive_stream), the chunks before the flip carry epoch
+    0's oracle, those after epoch 1's, and at most one chunk is split at
+    the flip. The heartbeat stays under the data plane's limit. Under
+    force, `ring_overlap` follows (epoch 2)."""
+    from pingoo_tpu_torch import native_ring as nr
+    from pingoo_tpu_torch.ops import _build
+
+    mega = SWAP_RING_ARMS[arm]
+    set_executor(("on", "full", mega))
+    try:
+        sidecar = nr.RingSidecar(ring, plans[0], lists[0], max_batch=B,
+                                 device=dev, pipeline_depth=3)
+    finally:
+        clear_executor()
+    t0 = time.monotonic()
+    sidecar.warm_up()
+    warm_s = time.monotonic() - t0
+    errors = []
+
+    def run():
+        try:
+            sidecar.run()
+        except Exception as exc:
+            errors.append(exc)
+
+    got = {}
+
+    def requester():
+        while sidecar.processed < SWAP_RING_AFTER and not errors:
+            time.sleep(0.0005)
+        t = time.monotonic()
+        got["handle"] = sidecar.request_swap(plans[1], lists=lists[1],
+                                             tenant="epoch1")
+        got["build_s"] = time.monotonic() - t
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    req = threading.Thread(target=requester, daemon=True)
+    req.start()
+    drives = []
+    _build.reset_launch_counts()
+    try:
+        after = 0  # drives begun after the flip
+        while after < 2:
+            if len(drives) >= SWAP_RING_MAX_CHUNKS:
+                fail(f"ring swap arm {arm}: no flip after {len(drives)} "
+                     f"drives")
+            h = got.get("handle")
+            flipped = h is not None and h.done.is_set()
+            drives.append(producer.drive(SWAP_RING_SEED, SWAP_RING_CHUNK,
+                                         0, 0, 1))
+            after += flipped
+        req.join(60)
+        launches = {k: v.launches for k, v in _build.KERNELS.items()}
+        overlap = ring_overlap(sidecar, producer, plans, lists) \
+            if mega == "force" else None
+    finally:
+        sidecar.stop()
+        thread.join(timeout=30)
+    if errors or thread.is_alive():
+        fail(f"ring swap arm {arm}: the drain loop failed: {errors}")
+    handle = got["handle"]
+    if handle.result != "ok" or handle.epoch != 1:
+        fail(f"ring swap arm {arm}: the swap ended {handle.result} "
+             f"({handle.error})")
+    # Chunks all epoch 0, at most one split at the flip, then epoch 1.
+    phase, split = 0, None
+    for j, r in enumerate(drives):
+        a = r.actions
+        if phase == 0 and a == wants[0]:
+            continue
+        if a == wants[1]:
+            phase = 1
+            continue
+        pre = next((i for i in range(len(a)) if a[i] != wants[0][i]), len(a))
+        suf = next((i for i in range(len(a), 0, -1)
+                    if a[i - 1] != wants[1][i - 1]), 0)
+        if phase == 0 and suf <= pre:
+            phase, split = 1, (j, suf)
+            continue
+        fail(f"ring swap arm {arm}: drive {j} matches neither epoch's "
+             f"oracle nor a split of them")
+    if drives[-1].actions != wants[1] or drives[-2].actions != wants[1]:
+        fail(f"ring swap arm {arm}: the drives after the flip are not on "
+             f"epoch 1")
+    age = max(r.max_heartbeat_age_ms for r in drives)
+    if age >= HEARTBEAT_LIMIT_MS:
+        fail(f"ring swap arm {arm}: the heartbeat aged {age} ms")
+    if sidecar.mega_echo_mismatch:
+        fail(f"ring swap arm {arm}: {sidecar.mega_echo_mismatch} epoch "
+             f"echoes differ")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        fail(f"ring swap arm {arm}: the drives launched no {missing} "
+             f"kernel")
+    stats = sidecar.stats()
+    out = dict(pause_ms=handle.pause_ms, build_s=got["build_s"],
+               warm_up_s=warm_s, drives=len(drives), split=split,
+               max_heartbeat_age_ms=age, launches=launches,
+               req_per_s=[len(r.actions) / r.seconds for r in drives],
+               graphs=stats["megastep"]["graphs"],
+               echo_mismatch=sidecar.mega_echo_mismatch, overlap=overlap)
+    print(f"ring swap arm {arm} (PINGOO_PIPELINE=on PINGOO_MEGASTEP="
+          f"{mega}, after warm_up() {warm_s:.2f} s): {len(drives)} drives "
+          f"of {SWAP_RING_CHUNK}, each ticket posted once on its epoch's "
+          f"oracle (split drive {split}); request_swap built and warmed "
+          f"epoch 1 in {got['build_s']:.2f} s on its thread, pause "
+          f"{handle.pause_ms:.3f} ms; heartbeat age max {age} ms; echo "
+          f"mismatches {sidecar.mega_echo_mismatch}; graphs "
+          f"{stats['megastep']['graphs']}; launches {launches}",
+          flush=True)
+    return out
+
+
+def swap_phase(rules, lists, plan, reqs, dev, oracle) -> dict:
+    """Hot-swap on the card. Epoch 0 is the corpus's plan, epoch 1
+    generate_ruleset(500, seed=SWAP_SEED) through the artifact cache
+    (`swap_cache`); the interpreter's oracle of epoch 1, and of the ring
+    stream under both epochs, run in processes of their own meanwhile.
+    Then the Python plane's arms (SWAP_ARMS) and the ring's
+    (SWAP_RING_ARMS) on one ring and producer child."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from pingoo_tpu_torch import native_ring as nr
+    from pingoo_tpu_torch.engine.verdict import action_lanes
+    from pingoo_tpu_torch.utils.crs import generate_ruleset
+
+    t_phase = time.monotonic()
+    rules1, lists1 = generate_ruleset(500, seed=SWAP_SEED)
+    ring_reqs = swap_ring_requests()
+    spawn = multiprocessing.get_context("spawn")
+    pools = [ProcessPoolExecutor(w, mp_context=spawn,
+                                 initializer=slice_oracle_init,
+                                 initargs=(r, ls))
+             for w, r, ls in ((1, rules, lists),
+                              (SLICE_ORACLE_WORKERS - 1, rules1, lists1))]
+    chunk = -(-len(reqs) // (SLICE_ORACLE_WORKERS - 1))
+    ring0 = pools[0].submit(slice_oracle, ring_reqs)
+    ring1 = pools[1].submit(slice_oracle, ring_reqs)
+    parts1 = [pools[1].submit(slice_oracle, reqs[i:i + chunk])
+              for i in range(0, len(reqs), chunk)]
+    with tempfile.TemporaryDirectory() as tmp:
+        plan1, cache = swap_cache(rules1, lists1, plan, dev, tmp)
+    t0 = time.monotonic()
+    oracle1 = np.concatenate([f.result() for f in parts1])
+    ring_rows = (ring0.result(), ring1.result())
+    for p in pools:
+        p.shutdown()
+    oracle_wait_s = time.monotonic() - t0
+    plans, all_lists = (plan, plan1), (lists, lists1)
+    oracles = (oracle, oracle1)
+    lanes = [action_lanes(p, o) for p, o in zip(plans, oracles)]
+    wants = [bytes(int(a) | (int(b) << 2)
+                   for a, b in zip(*action_lanes(p, rows)))
+             for p, rows in zip(plans, ring_rows)]
+    differ = sum(a != b for a, b in zip(*wants))
+    if differ < len(ring_reqs) // 8:
+        fail(f"the ring stream's verdicts tell the epochs apart on "
+             f"{differ} of {len(ring_reqs)} requests only")
+    service = {name: swap_service_arm(name, plans, all_lists, reqs, dev,
+                                      oracles, lanes)
+               for name in SWAP_ARMS}
+    ring_out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ring")
+        ring = nr.Ring(path, capacity=RING_CAPACITY, create=True)
+        try:
+            producer = ChildProducer(path)
+            try:
+                for arm in SWAP_RING_ARMS:
+                    ring_out[arm] = swap_ring_arm(arm, ring, producer,
+                                                  plans, all_lists, wants,
+                                                  dev)
+                producer.close()
+                time.sleep(0.2)
+                if ring.poll_verdict() is not None:
+                    fail("a verdict arrived after every ticket had its own")
+            finally:
+                if producer.proc.poll() is None:
+                    producer.proc.kill()
+                    producer.proc.wait()
+        finally:
+            ring.close()
+    out = dict(cache=cache, service=service, ring=ring_out,
+               launches=service["on"]["launches"],
+               ring_launches=ring_out["force"]["launches"],
+               oracle_wait_s=oracle_wait_s,
+               seconds=time.monotonic() - t_phase)
+    print("swap pauses (ms): "
+          + ", ".join(f"Python {k} {v['pause_ms']:.3f}"
+                      for k, v in service.items())
+          + ", " + ", ".join(f"ring {k} {v['pause_ms']:.3f}"
+                             for k, v in ring_out.items())
+          + "; serving waits for the capture lock behind a swap's capture "
+          + ", ".join(f"{plane} {v['overlap']['serving_wait_ms']:.3f}"
+                      for plane, v in (("Python", service["force"]),
+                                       ("ring", ring_out["force"])))
+          + f"; waited {oracle_wait_s:.1f} s for the oracles; phase "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def bot_alone() -> int:
+    """`--bot-phase`: `setup()`, then `bot_phase`. Prints {"bot": ...},
+    but no result line."""
+    rules, lists, reqs, oracle, dev, plan = setup()
+    print(json.dumps({"bot": bot_phase(plan, lists, reqs, dev, oracle)}),
+          flush=True)
+    return 0
+
+
+def swap_alone() -> int:
+    """`--swap-phase`: `setup()`, then `swap_phase`. Prints {"swap": ...},
+    but no result line."""
+    rules, lists, reqs, oracle, dev, plan = setup()
+    print(json.dumps({"swap": swap_phase(rules, lists, plan, reqs, dev,
+                                         oracle)}), flush=True)
+    return 0
+
+
 def build_with_oracle(rules, lists, reqs):
     """Build the three kernels (printing ptxas's registers and spills per
     instantiation) while the interpreter oracle of `reqs` runs in
@@ -5025,6 +5877,10 @@ def main() -> int:
         return native_phase()
     if sys.argv[1:] == ["--halo-phase"]:
         return halo_alone()
+    if sys.argv[1:] == ["--bot-phase"]:
+        return bot_alone()
+    if sys.argv[1:] == ["--swap-phase"]:
+        return swap_alone()
     if len(sys.argv) == 3 and sys.argv[1] == "--ring-producer":
         return ring_producer(sys.argv[2])
     import numpy as np
@@ -5067,6 +5923,10 @@ def main() -> int:
     halo = halo_phase(plan, rules, lists, reqs, dev, oracle, main_path, rng)
     results["nfa_scan"]["halo"] = halo["kernel"]
     print(json.dumps({"halo": halo}), flush=True)
+    bot = bot_phase(plan, lists, reqs, dev, oracle)
+    print(json.dumps({"bot": bot}), flush=True)
+    swap = swap_phase(rules, lists, plan, reqs, dev, oracle)
+    print(json.dumps({"swap": swap}), flush=True)
     ring_halo = ring["halo"][f"{HALO_KNOBS[0][0]} on/off"]["drives"][0]
     out = []
     for name in ("nfa_scan", "bitsplit_dfa", "prefilter"):
@@ -5099,6 +5959,9 @@ def main() -> int:
                for arm in ("full", "compact", "compact_force")},
             "halo_launches": halo["launches"][name],
             "ring_halo_launches": ring_halo["launches"][name],
+            "bot_launches": bot["launches"][name],
+            "swap_launches": swap["launches"][name],
+            "ring_swap_launches": swap["ring_launches"][name],
             **{k: v for k, v in r.items() if k not in (
                 "route", "source", "replaces", "max_abs_err", "ms",
                 "plain_ms", "work")}})

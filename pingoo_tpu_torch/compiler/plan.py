@@ -156,6 +156,18 @@ def _split_enabled() -> bool:
     return os.environ.get("PINGOO_NFA_SPLIT", "0") != "0"
 
 
+def split_config_token() -> str:
+    """The plan-shaping knobs, hashed into the artifact cache's
+    fingerprint (compiler/cache.py): plans built under other split or
+    DFA-lowering settings have other tables."""
+    from .nfa import _dfa_merge_depths, _dfa_state_budget
+
+    dfa = (f"dfa={int(_dfa_lower_enabled())}"
+           f":s={_dfa_state_budget(None)}"
+           f":m={','.join(str(d) for d in _dfa_merge_depths(None))}")
+    return f"nfa_split={int(_split_enabled())}:fp={_halo_fp_budget()}:{dfa}"
+
+
 def _halo_partition(patterns, field_len: int):
     """Footprint extension and partition of one field's patterns, as in
     the JAX package: a pattern that is rep-free, or bounds under

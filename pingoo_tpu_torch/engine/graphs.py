@@ -30,6 +30,14 @@ hundreds of kernel launches cost the host one call.
     rules, so `capture_mode="global"` gives the same graphs where no
     other thread uses the card (chip_smoke.py captures its warm-up pass
     so, which shows the kernels' launchers legal under capture).
+  * Captures are serialized across the process (`_CAPTURE_LOCK`):
+    entering `torch.cuda.graph` synchronizes the device and empties the
+    allocator's cache, which is illegal while another thread's capture
+    is in progress and invalidates it. A hot-swap captures the new
+    plan's graphs on its requester's thread while the serving path may
+    capture a new window shape of its own, which then waits for the
+    swap's capture: the runner counts its waits for the lock
+    (`capture_wait_ms_total`, `capture_wait_ms_max`).
   * The cache holds at most `MAX_GRAPHS` graphs, the least recently
     replayed evicted first. It counts captures, their milliseconds,
     replays and the distinct keys it has seen.
@@ -44,6 +52,7 @@ kernels' plain versions.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import OrderedDict
 
@@ -52,6 +61,9 @@ import torch
 from ..ops import _build
 from .batch import STRING_FIELDS, DeviceInputQueue
 from .verdict import MegastepProgram
+
+
+_CAPTURE_LOCK = threading.Lock()
 
 
 class _Graph:
@@ -81,6 +93,8 @@ class MegastepRunner:
         self.captures = 0
         self.capture_ms_total = 0.0
         self.capture_ms_max = 0.0
+        self.capture_wait_ms_total = 0.0
+        self.capture_wait_ms_max = 0.0
         self.replays = 0
         self.evictions = 0
         self.keys: set = set()
@@ -127,7 +141,11 @@ class MegastepRunner:
             self.program.fn(*args)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        with _build.record_launches() as launches:
+        t_wait = time.monotonic()
+        with _CAPTURE_LOCK, _build.record_launches() as launches:
+            wait_ms = (time.monotonic() - t_wait) * 1e3
+            self.capture_wait_ms_total += wait_ms
+            self.capture_wait_ms_max = max(self.capture_wait_ms_max, wait_ms)
             with torch.cuda.graph(graph, stream=stream,
                                   capture_error_mode=self.capture_mode):
                 outputs = self.program.fn(*args)
@@ -148,6 +166,8 @@ class MegastepRunner:
         return {"captures": self.captures,
                 "capture_ms_total": round(self.capture_ms_total, 3),
                 "capture_ms_max": round(self.capture_ms_max, 3),
+                "capture_wait_ms_total": round(self.capture_wait_ms_total, 3),
+                "capture_wait_ms_max": round(self.capture_wait_ms_max, 3),
                 "replays": self.replays,
                 "cached": len(self._graphs),
                 "evictions": self.evictions,

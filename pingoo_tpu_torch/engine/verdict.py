@@ -27,10 +27,11 @@ over K stacked batch slices, each through the same body with Stage B
 taken on the device (no host sync, so that engine/graphs.py can capture
 the whole window as one CUDA graph).
 
-Compact staging: `make_packed_verdict_fn` and `make_packed_lane_fn` take
-a batch's packed buffer (engine/batch.py `PackedLayout`), decode it on
-the device (`unpack_staged`) and run the same body, so full and compact
-staging share every predicate by construction.
+Compact staging: a batch's packed buffer (engine/batch.py
+`PackedLayout`) is decoded on the device (`unpack_staged`) into the
+arrays full staging gives, which the Python plane hands to
+`make_verdict_fn`'s program and `make_packed_lane_fn` to the lane body,
+so full and compact staging share every predicate by construction.
 
 The halo split: a halo-compatible NFA bank (or the @short sub-bank of a
 bank the plan partitioned under PINGOO_NFA_SPLIT=1) runs as k chunks of
@@ -647,20 +648,6 @@ def unpack_staged(packed: torch.Tensor, layout: PackedLayout) -> dict:
         arrays[key] = packed[:, off:off + 8].contiguous() \
             .view(torch.int64)[:, 0]
     return arrays
-
-
-def make_packed_verdict_fn(plan: RulesetPlan):
-    """`make_verdict_fn` under compact staging: (tables, packed, layout)
-    -> [B, R_dev] bool, `packed` a batch's [B, width] numpy buffer. One
-    upload, `unpack_staged`, then the same body as `make_verdict_fn`'s."""
-    consts: dict = {}
-
-    def verdict(tables, packed, layout):
-        check_env()
-        return _matched_cols(plan, tables, unpack_staged(
-            packed_tensor(packed, plan.device), layout), consts)
-
-    return verdict
 
 
 def make_lane_fn(plan: RulesetPlan, services: list[str] | None = None,

@@ -21,7 +21,7 @@ import os
 import signal
 from typing import Optional
 
-from ..compiler.plan import compile_ruleset
+from ..compiler.cache import compile_ruleset_cached
 from ..config.schema import Config
 from ..device import check_env, pipeline_mode, resolve_device
 from ..engine.service import VerdictService
@@ -50,21 +50,16 @@ class Server:
         xff_token: Optional[str] = None,
         tls_alpn: bool = False,
     ):
-        if cache_dir is not None:
-            raise NotImplementedError(
-                "the compiled-ruleset cache is not supported by "
-                "pingoo_tpu_torch yet (ROADMAP.md: port queue item 8, "
-                "hot-swap and the artifact cache)")
-        if bot_score_params_path is not None:
-            raise NotImplementedError(
-                "the bot-score head is not supported by pingoo_tpu_torch "
-                "yet (ROADMAP.md: port queue item 7, the bot head)")
         self.config = config
         self.device = resolve_device(device)
         self.geoip_paths = geoip_paths
         self.captcha_jwks_path = captcha_jwks_path
         self.tls_dir = tls_dir
         self.enable_docker = enable_docker
+        # The compiled-ruleset artifact cache (compiler/cache.py) and the
+        # bot head's npz weights (models/botscore.py), both optional.
+        self.cache_dir = cache_dir
+        self.bot_score_params_path = bot_score_params_path
         # Deployment flags passed EXPLICITLY (never through process-
         # global env vars, which any co-resident Server would inherit):
         # - xff_token: per-boot token; the listeners trust
@@ -106,10 +101,18 @@ class Server:
         # Service route predicates compile into the same plan as extra
         # verdict columns (rules AND routing decided by one batch).
         routes = [(s.name, s.route) for s in config.services]
-        plan = compile_ruleset(list(config.rules), lists, routes=routes,
-                               device=self.device)
+        plan = compile_ruleset_cached(
+            list(config.rules), lists, cache_dir=self.cache_dir,
+            routes=routes, device=self.device)
         self.plan = plan
-        self.verdict = VerdictService(plan, lists, device=self.device)
+        bot_params = None
+        if self.bot_score_params_path:
+            from ..models.botscore import load_params
+
+            bot_params = load_params(self.bot_score_params_path,
+                                     device=self.device)
+        self.verdict = VerdictService(plan, lists, device=self.device,
+                                      bot_score_params=bot_params)
         await self.verdict.start()
 
         tls_manager = None

@@ -62,6 +62,7 @@ from .engine.batch import (DeviceInputQueue, RequestBatch, RequestTuple,
                            bucket_arrays, pad_batch, pow2_batch_size, resolve_stage_caps,
                            stage_overflow_thresholds, tuple_to_context)
 from .engine.graphs import MegastepRunner
+from .engine.hotswap import SwapHandle, note_swap, set_epoch_gauge, swap_counts
 from .engine.verdict import (LANE_NONE, _host_array, _resolve_megastep_mode,
                              action_lanes, host_rule_lanes,
                              interpret_rules_row, make_lane_fn,
@@ -785,6 +786,16 @@ class RingSidecar:
     `pipeline_depth + 1` sets and `pipeline_depth * K + 1` slot buffers.
     A capture, replay or launch error propagates out of `run()`.
 
+    Hot-swap (engine/hotswap.py): `request_swap(plan)` builds and warms
+    the new plan's state on the caller's thread (under `force` its
+    graphs are captured there, so the drain loop never captures for a
+    swap) and queues a `SwapHandle`. At the top of its next pass the
+    loop launches the open window, completes every batch in flight on
+    the old plan, then adopts the new state and bumps `ruleset_epoch`:
+    each ticket posts exactly once, on the plan of the epoch it was
+    dequeued in. `swap_pauses_ms` keeps each flip's pause; a swap still
+    queued when `run()` ends is resolved "rejected".
+
     `device=None` means the CUDA card (raises without one). A device
     error, in a batch or in a body scan, propagates out of `run()`: the
     heartbeat stops and the data plane's liveness detector fails
@@ -808,9 +819,9 @@ class RingSidecar:
             raise ValueError(f"plan tables live on {plan.device}, the "
                              f"sidecar was asked to run on {dev}")
         check_env()
+        self._device = plan.device
         self.rings: list[Ring] = list(ring) if isinstance(
             ring, (list, tuple)) else [ring]
-        self.plan = plan
         self.lists = lists
         self.max_batch = max_batch
         self.geoip = geoip
@@ -839,60 +850,30 @@ class RingSidecar:
             if svc not in self._groups:
                 self._groups.append(svc)
             self._ring_group_of[id(r)] = self._groups.index(svc)
-        self._lane_fn = make_lane_fn(plan,
-                                     service_groups=self._groups or None)
-        by_index = {r.index: r for r in plan.rules}
-        self._host_routes: list[list] = []
-        for g in self._groups:
-            hr = []
-            for order, name in enumerate(g):
-                ridx = plan.route_index.get(name)
-                if ridx is not None and by_index[ridx].host:
-                    hr.append((order, by_index[ridx].program))
-            self._host_routes.append(hr)
         self.pipeline_mode = pipeline_mode()
         on = self.pipeline_mode == "on"
         self.pipeline_depth = _env_depth(pipeline_depth) if on else 1
-        # Compact staging: the plan's caps and the packed lane program
-        # where the staging encoder takes them (under `on`), else None:
-        # the one-batch chain stages in full.
-        self.stage_caps = resolve_stage_caps(plan) if on else None
-        self._packed_lane_fn = make_packed_lane_fn(
-            plan, service_groups=self._groups or None) \
-            if self.stage_caps is not None else None
         self._pipe = PipelineStats("sidecar", self.pipeline_depth)
-        # Under `on`: a staging set per batch in flight (a pass issues
-        # only when fewer than `pipeline_depth` are), and a slot buffer
-        # per batch in flight plus the one the next pass dequeues into.
-        self._staging = None
+        # Under `on`: a slot buffer per batch in flight plus the one the
+        # next pass dequeues into.
         self._slot_pool: deque = deque()
-        caps = dict(FIELD_CAPS, country=2)
-        # The megastep: the lane program, its graph runner and input
-        # sets, one per window in flight plus the one being filled.
+        # The megastep's window being filled.
         self._mega_mode = _resolve_megastep_mode()
         self._mega_k = megastep_k_cap()
         self._mega_rungs = megastep_k_ladder(self._mega_k)
-        self._mega_runner: Optional[MegastepRunner] = None
-        self._mega_queue: Optional[DeviceInputQueue] = None
         self._mega_staged: list = []
         self._mega_buf_id: Optional[int] = None
         self.ruleset_epoch = 0
+        self.tenant = "default"
         self.mega_windows = 0
         self.mega_echo_mismatch = 0  # echoed epoch != the staged one
-        if self._mega_mode == "force":
-            self._mega_runner = MegastepRunner(
-                make_megastep_fn(plan, kind="lanes",
-                                 service_groups=self._groups),
-                plan.np_tables, plan.device)
-            self._mega_queue = DeviceInputQueue(
-                self._mega_k, max_batch, field_specs=caps,
-                nbuf=self.pipeline_depth + 1)
+        # Queued hot-swaps (thread-safe), and each flip's pause (ms).
+        self._swap_lock = threading.Lock()
+        self._swap_queue: list[SwapHandle] = []
+        self.swap_pauses_ms: list[float] = []
+        self._adopt_plan_state(plan, lists, self._build_plan_state(plan))
+        set_epoch_gauge("sidecar", 0)
         if on:
-            self._staging = StagingEncoder(
-                max_batch, field_specs=caps, nbuf=self.pipeline_depth,
-                stage_caps=self.stage_caps,
-                overflow_thresholds=None if self.stage_caps is None
-                else stage_overflow_thresholds(plan, self.stage_caps))
             per_batch = self._mega_k if self._mega_runner is not None else 1
             for _ in range(self.pipeline_depth * per_batch + 1):
                 self._slot_pool.append(
@@ -949,6 +930,127 @@ class RingSidecar:
         with self._hb_busy():
             self._reconcile_orphans()
 
+    def _build_plan_state(self, plan) -> dict:
+        """Everything plan-derived that the drain loop reads, built
+        without touching the served references (at init, and for a swap
+        on the requester's thread): the lane programs, the host routes,
+        the staging encoder with the plan's caps and, under `force`, the
+        megastep's graph runner and its input sets, one per window in
+        flight plus the one being filled.
+
+        Compact staging: the plan's caps and the packed lane program
+        where the staging encoder takes them (under `on`), else None:
+        the one-batch chain stages in full. Under `on` a staging set per
+        batch in flight (a pass issues only when fewer than
+        `pipeline_depth` are)."""
+        if plan.device.type != self._device.type:
+            raise ValueError(f"plan tables live on {plan.device}, the "
+                             f"sidecar runs on {self._device}")
+        groups = self._groups or None
+        by_index = {r.index: r for r in plan.rules}
+        host_routes: list[list] = []
+        for g in self._groups:
+            hr = []
+            for order, name in enumerate(g):
+                ridx = plan.route_index.get(name)
+                if ridx is not None and by_index[ridx].host:
+                    hr.append((order, by_index[ridx].program))
+            host_routes.append(hr)
+        on = self.pipeline_mode == "on"
+        caps = resolve_stage_caps(plan) if on else None
+        state = {"plan": plan,
+                 "lane_fn": make_lane_fn(plan, service_groups=groups),
+                 "host_routes": host_routes, "stage_caps": caps,
+                 "packed_lane_fn": None if caps is None
+                 else make_packed_lane_fn(plan, service_groups=groups),
+                 "staging": None, "mega_runner": None, "mega_queue": None}
+        slot_caps = dict(FIELD_CAPS, country=2)
+        if self._mega_mode == "force":
+            state["mega_runner"] = MegastepRunner(
+                make_megastep_fn(plan, kind="lanes",
+                                 service_groups=self._groups),
+                plan.np_tables, plan.device)
+            state["mega_queue"] = DeviceInputQueue(
+                self._mega_k, self.max_batch, field_specs=slot_caps,
+                nbuf=self.pipeline_depth + 1)
+        if on:
+            state["staging"] = StagingEncoder(
+                self.max_batch, field_specs=slot_caps,
+                nbuf=self.pipeline_depth, stage_caps=caps,
+                overflow_thresholds=None if caps is None
+                else stage_overflow_thresholds(plan, caps))
+        return state
+
+    def _adopt_plan_state(self, plan, lists, state: dict) -> None:
+        """Install a built state as the served references: at init, or at
+        a swap's flip, when no batch is in flight and no window open."""
+        self.plan = plan
+        if lists is not None:
+            self.lists = lists
+        self._lane_fn = state["lane_fn"]
+        self._host_routes = state["host_routes"]
+        self.stage_caps = state["stage_caps"]
+        self._packed_lane_fn = state["packed_lane_fn"]
+        self._staging = state["staging"]
+        self._mega_runner = state["mega_runner"]
+        self._mega_queue = state["mega_queue"]
+        self._plan_state = state
+
+    def request_swap(self, plan, lists=None,
+                     tenant: str = "default") -> SwapHandle:
+        """Thread-safe hot-swap request: build and warm the plan's state
+        here, on the caller's thread (`_warm_state`, which under `force`
+        captures its graphs), then queue a SwapHandle that the drain
+        loop flips to at its next pass; `handle.wait()` blocks until the
+        flip. A build or warm-up failure raises here, and the old plan
+        goes on serving."""
+        try:
+            state = self._build_plan_state(plan)
+            self._warm_state(state)
+        except Exception as exc:
+            note_swap("sidecar", tenant, "rejected")
+            raise RuntimeError(f"hot-swap build failed for tenant "
+                               f"{tenant!r}: {exc}") from exc
+        handle = SwapHandle(plan=plan, tenant=tenant, lists=lists,
+                            state=state)
+        with self._swap_lock:
+            self._swap_queue.append(handle)
+        return handle
+
+    def _apply_swaps(self, inflight: deque) -> None:
+        """Every queued swap, at the top of a pass: the open window
+        launches, every batch in flight completes (and posts) on the old
+        plan, then the newest state is adopted, one epoch per swap. The
+        pause covers the drain and the flips; no capture, since each
+        state was warmed by its requester."""
+        t0 = time.monotonic()
+        if self._mega_staged:
+            inflight.append(self._launch_megastep())
+        while inflight:
+            self._complete_inflight(inflight.popleft())
+        while True:
+            with self._swap_lock:
+                if not self._swap_queue:
+                    break
+                handle = self._swap_queue.pop(0)
+            self._adopt_plan_state(handle.plan, handle.lists, handle.state)
+            self.ruleset_epoch += 1
+            self.tenant = handle.tenant
+            pause_ms = (time.monotonic() - t0) * 1e3
+            set_epoch_gauge("sidecar", self.ruleset_epoch)
+            note_swap("sidecar", handle.tenant, "ok")
+            self.swap_pauses_ms.append(pause_ms)
+            handle.resolve(self.ruleset_epoch, pause_ms)
+
+    def _reject_queued_swaps(self) -> None:
+        with self._swap_lock:
+            leftovers, self._swap_queue = self._swap_queue, []
+        for handle in leftovers:
+            note_swap("sidecar", handle.tenant, "rejected")
+            handle.resolve(self.ruleset_epoch, 0.0, result="rejected",
+                           error=RuntimeError("the sidecar's drain loop "
+                                              "ended before the flip"))
+
     @contextlib.contextmanager
     def _hb_busy(self):
         self._busy_since = time.monotonic()
@@ -987,6 +1089,8 @@ class RingSidecar:
             # a batch behind the metadata batch that admitted it.
             if self.body_scanner is not None:
                 self._drain_bodies()
+            if self._swap_queue:
+                self._apply_swaps(inflight)
             parts = self._dequeue(slot_buf)
             if parts:
                 # While a window is open every batch stages into it: a
@@ -1021,6 +1125,7 @@ class RingSidecar:
         # FINAL windows already in the ring still get their verdicts.
         if self.body_scanner is not None:
             self._drain_bodies()
+        self._reject_queued_swaps()
         return self.processed
 
     def _drain_bodies(self) -> None:
@@ -1127,13 +1232,19 @@ class RingSidecar:
         self._pipe.note_stage(slot, "dispatch", t1, t2)
         return parts, slots, raw, dev, t2, slot_buf, staged, slot
 
-    def _issue_lanes(self, batch: RequestBatch):
-        """The lane program on one padded batch: its packed buffer under
-        compact staging, its arrays otherwise."""
+    def _issue_lanes(self, batch: RequestBatch, state=None):
+        """The lane program (the served one, or a built `state`'s) on one
+        padded batch: its packed buffer under compact staging, its
+        arrays otherwise."""
+        if state is not None:
+            tables = state["plan"].np_tables
+            lane_fn, packed_fn = state["lane_fn"], state["packed_lane_fn"]
+        else:
+            tables = self.plan.np_tables
+            lane_fn, packed_fn = self._lane_fn, self._packed_lane_fn
         if batch.packed is not None:
-            return self._packed_lane_fn(self.plan.np_tables, batch.packed,
-                                        batch.layout)
-        return self._lane_fn(self.plan.np_tables, batch.arrays)
+            return packed_fn(tables, batch.packed, batch.layout)
+        return lane_fn(tables, batch.arrays)
 
     def _count_staged(self, batch: RequestBatch) -> None:
         self.staged_bytes += batch.staged_bytes
@@ -1175,32 +1286,34 @@ class RingSidecar:
         self._pipe.note_stage(slot, "encode", t0, t1)
 
     def _encode_mega_slice(self, slots: np.ndarray, buf_id: int, j: int,
-                           count: bool = False) -> Optional[np.ndarray]:
+                           count: bool = False,
+                           state=None) -> Optional[np.ndarray]:
         """Encode `slots`, padded to `max_batch`, into slice j of set
-        `buf_id`: under `on` through a staging set, released at once (the
-        slice is a copy; under compact staging of the capped views), its
-        bytes counted in `staged_bytes` with `count`. Returns a copy of
-        the rows' depth-overflow flags, or None."""
+        `buf_id` (of the served queue, or a built `state`'s): under `on`
+        through a staging set, released at once (the slice is a copy;
+        under compact staging of the capped views), its bytes counted in
+        `staged_bytes` with `count`. Returns a copy of the rows'
+        depth-overflow flags, or None."""
         n = len(slots)
-        if self._staging is None:
+        staging, queue = (self._staging, self._mega_queue) \
+            if state is None else (state["staging"], state["mega_queue"])
+        if staging is None:
             batch = pad_batch(RequestBatch(
                 size=n, arrays=bucket_arrays(slots_to_arrays(slots))),
                 self.max_batch)
-            self._mega_queue.fill_slice(buf_id, j, batch.arrays, n,
-                                        self.ruleset_epoch)
+            queue.fill_slice(buf_id, j, batch.arrays, n, self.ruleset_epoch)
             return None
-        staged = self._staging.checkout(block=False)
+        staged = staging.checkout(block=False)
         try:
-            batch = self._staging.encode_slots(slots, pad_to=self.max_batch,
-                                               into=staged)
-            self._mega_queue.fill_slice(buf_id, j, batch.arrays, n,
-                                        self.ruleset_epoch)
+            batch = staging.encode_slots(slots, pad_to=self.max_batch,
+                                         into=staged)
+            queue.fill_slice(buf_id, j, batch.arrays, n, self.ruleset_epoch)
             if count:
                 self._count_staged(batch)
             return None if batch.overflow is None \
                 else batch.overflow[:n].copy()
         finally:
-            self._staging.release(staged)
+            staging.release(staged)
 
     def _k_ship(self, k: int) -> int:
         """The K a window of k slices ships at: the next rung of the
@@ -1293,8 +1406,19 @@ class RingSidecar:
         warm-up runs windows instead (`_warm_up_megastep`). Touches no
         ring and no counter; returns (rows, widest column, ms) of each
         batch or window."""
-        if self._mega_runner is not None:
-            return self._warm_up_megastep()
+        return self._warm_state(self._plan_state, hb=True)
+
+    def _warm_state(self, state: dict,
+                    hb: bool = False) -> list[tuple[int, int, float]]:
+        """`warm_up()`'s batches or windows through a built `state` (the
+        served one, or a swap's on its requester's thread). With `hb` the
+        waits are declared blocking windows (`_hb_busy`); a requester's
+        thread never declares them, since the watchdog would then stamp
+        the heartbeat for a drain loop it does not watch."""
+        busy = self._hb_busy if hb else contextlib.nullcontext
+        if state["mega_runner"] is not None:
+            return self._warm_up_megastep(state, busy)
+        staging = state["staging"]
         buckets = sorted({pow2_batch_size(1 << k, self.max_batch)
                           for k in range(self.max_batch.bit_length())})
         out = []
@@ -1303,20 +1427,23 @@ class RingSidecar:
                 slots = _warm_slots(rows, wide)
                 t0 = time.monotonic()
                 staged = None
-                if self._staging is not None:
-                    staged = self._staging.checkout(block=False)
-                    batch = self._staging.encode_slots(slots, pad_to=rows,
-                                                       into=staged)
+                if staging is not None:
+                    staged = staging.checkout(block=False)
+                    batch = staging.encode_slots(slots, pad_to=rows,
+                                                 into=staged)
                 else:
                     _, batch = self._decode(slots)
-                _host_array(to_host_async(self._issue_lanes(batch)))
+                with busy():
+                    _host_array(to_host_async(self._issue_lanes(batch,
+                                                                state)))
                 if staged is not None:
-                    self._staging.release(staged)
+                    staging.release(staged)
                 out.append((rows, batch.arrays["url_bytes"].shape[1],
                             (time.monotonic() - t0) * 1e3))
         return out
 
-    def _warm_up_megastep(self) -> list[tuple[int, int, float]]:
+    def _warm_up_megastep(self, state: dict,
+                          busy) -> list[tuple[int, int, float]]:
         """One window of every K the drain loop can ship (`_k_ship` over
         1..the cap), its slices of `max_batch` WARM_REQUESTS rows, at the
         narrowest column bucket and at the slots' full width, each waited
@@ -1325,7 +1452,7 @@ class RingSidecar:
         capture. The graph runner counts these captures and replays; the
         windows count nowhere else. Returns (rows of the window, widest
         column, ms) of each."""
-        queue = self._mega_queue
+        queue, runner = state["mega_queue"], state["mega_runner"]
         out = []
         for k in sorted({self._k_ship(k)
                          for k in range(1, self._mega_k + 1)}):
@@ -1335,10 +1462,10 @@ class RingSidecar:
                 buf = queue.checkout(block=False)
                 try:
                     for j in range(k):
-                        self._encode_mega_slice(slots, buf, j)
+                        self._encode_mega_slice(slots, buf, j, state=state)
                     width = queue.window_shape(buf, k)["url_bytes"][2]
-                    with self._hb_busy():
-                        lanes, _, _ = self._mega_runner.run(queue, buf, k, k)
+                    with busy():
+                        lanes, _, _ = runner.run(queue, buf, k, k)
                         _host_array(to_host_async(lanes))
                 finally:
                     queue.release(buf)
@@ -1391,6 +1518,9 @@ class RingSidecar:
             },
             "supervision": {"epoch": self.epoch,
                             "reconciled": dict(self.reconciled)},
+            "hotswap": {"epoch": self.ruleset_epoch, "tenant": self.tenant,
+                        "swaps": swap_counts("sidecar"),
+                        "pauses_ms": list(self.swap_pauses_ms)},
         }
 
     def _enrich_slots(self, slots: np.ndarray) -> None:

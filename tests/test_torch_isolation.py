@@ -6,7 +6,9 @@
     and serves the batch through `RingSidecar` on a ring, scans one
     request body in three windows, imports the listener, the server,
     `__main__`, the native-plane runner and the modules they stand on,
-    and boots a deployment through them to `explain()`.
+    and boots a deployment through them to `explain()`; and, in a
+    second interpreter, the bot head, the artifact cache, the tenant
+    store and a swap.
   * No source file of the port, nor chip_smoke.py, imports jax or the
     JAX package (`pingoo_tpu` not followed by `_torch`).
   * Without a card, an entry point called without device="cpu" raises,
@@ -142,6 +144,65 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert "ISOLATED-OK" in out.stdout
 
 
+ISOLATED_SWAP = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["pingoo_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import asyncio, tempfile
+import torch
+torch.set_num_threads(1)
+from pingoo_tpu_torch.compiler.cache import compile_ruleset_cached
+from pingoo_tpu_torch.compiler.obligations import prove_plan
+from pingoo_tpu_torch.compiler.plan import compile_ruleset
+from pingoo_tpu_torch.engine.hotswap import TenantPlanStore, swap_counts
+from pingoo_tpu_torch.engine.service import VerdictService
+from pingoo_tpu_torch.models import botscore
+from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+rules, lists = generate_ruleset(40, list_sizes=(64, 16), seed=7)
+rules2, lists2 = generate_ruleset(40, list_sizes=(64, 16), seed=8)
+with tempfile.TemporaryDirectory() as tmp:
+    cold = compile_ruleset_cached(rules, lists, cache_dir=tmp, device="cpu")
+    warm = compile_ruleset_cached(rules, lists, cache_dir=tmp, device="cpu")
+    entry = TenantPlanStore(tmp, device="cpu").prepare("acme", rules2, lists2)
+assert warm.stats == cold.stats and prove_plan(warm).ok
+params = botscore.init_params(torch.Generator().manual_seed(3), device="cpu")
+reqs = generate_traffic(16, seed=9, lists=lists)
+svc = VerdictService(warm, lists, max_batch=16, device="cpu",
+                     bot_score_params=params)
+async def go():
+    await svc.start()
+    try:
+        before = await asyncio.gather(*map(svc.evaluate, reqs))
+        res = await svc.swap_plan(entry.plan, lists=entry.lists,
+                                  tenant="acme")
+        after = await asyncio.gather(*map(svc.evaluate, reqs))
+        return before, res, after
+    finally:
+        await svc.stop()
+before, res, after = asyncio.run(go())
+assert {v.epoch for v in before} == {0} and {v.epoch for v in after} == {1}
+assert res["epoch"] == 1 and swap_counts("python") == {"acme/ok": 1}
+assert all(0.0 < v.bot_score < 1.0 for v in before + after)
+assert not any(k == "jax" or k.startswith(("jax.", "pingoo_tpu."))
+               for k, v in sys.modules.items() if v is not None)
+print("ISOLATED-SWAP-OK")
+"""
+
+
+def test_bot_head_cache_and_swap_run_without_jax():
+    """The bot head, the artifact cache with its proofs, the tenant store
+    and a swap, in an interpreter where jax and the JAX package cannot
+    be imported."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", ISOLATED_SWAP, str(REPO)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(REPO / "pingoo_tpu_torch"), env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED-SWAP-OK" in out.stdout
+
+
 IMPORT_RE = re.compile(
     r"^\s*(?:from\s+(?:jax|pingoo_tpu(?!_torch))\b"
     r"|import\s+(?:[\w.]+\s*,\s*)*(?:jax|pingoo_tpu(?!_torch))\b)"
@@ -173,6 +234,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert len(files) > 20
     assert REPO / "pingoo_tpu_torch" / "native_ring.py" in files
     assert REPO / "pingoo_tpu_torch" / "engine" / "bodyscan.py" in files
+    for new in ("models/botscore.py", "compiler/cache.py",
+                "compiler/obligations.py", "engine/hotswap.py"):
+        assert REPO / "pingoo_tpu_torch" / new in files, new
     offenders = []
     for path in files:
         for m in IMPORT_RE.finditer(path.read_text()):
@@ -183,6 +247,30 @@ def test_no_source_imports_jax_or_the_jax_package():
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_new_entry_points_raise_without_a_card(no_card, tmp_path):
+    from pingoo_tpu_torch.compiler.cache import compile_ruleset_cached
+    from pingoo_tpu_torch.engine.hotswap import TenantPlanStore
+    from pingoo_tpu_torch.models import botscore
+
+    rules, lists = generate_ruleset(20, with_lists=False, seed=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_ruleset_cached(rules, lists, cache_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TenantPlanStore(str(tmp_path)).prepare("acme", rules, lists)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        botscore.init_params(torch.Generator().manual_seed(1))
+    params = botscore.init_params(torch.Generator().manual_seed(1),
+                                  device="cpu")
+    botscore.save_params(params, str(tmp_path / "head.npz"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        botscore.load_params(str(tmp_path / "head.npz"))
+    # The cache hit too places its tables on the card, or raises.
+    compile_ruleset_cached(rules, lists, cache_dir=str(tmp_path),
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_ruleset_cached(rules, lists, cache_dir=str(tmp_path))
 
 
 def test_entry_points_raise_without_a_card(no_card):

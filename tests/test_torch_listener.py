@@ -722,10 +722,70 @@ def test_server_and_main_default_to_the_card(tmp_path):
     (["--cache-dir", "cache"], "item 8"),
     (["--bot-score-params", "head.npz"], "item 7"),
 ])
-def test_unported_options_raise(tmp_path, flags, item):
+def test_unported_options_raise(tmp_path, monkeypatch, loop_runner, flags,
+                                item):
+    """These options raised NotImplementedError naming their ROADMAP item
+    until items 7 (the bot head) and 8 (the artifact cache) were ported.
+    Now main() passes them to the plane's runner, and a Server given them
+    boots: through the artifact cache (item 8: the plan is written to the
+    cache directory, and a second boot loads it), or with the bot head
+    (item 7: its weights on the service, a verdict with the head's score)."""
+    import pingoo_tpu_torch.host.native_plane as native_plane
+    import pingoo_tpu_torch.host.server as server_mod
     from pingoo_tpu_torch.__main__ import main
+    from pingoo_tpu_torch.engine.batch import RequestTuple
+    from pingoo_tpu_torch.models import botscore
 
+    seen = {}
+
+    async def fake_run(config, **kwargs):
+        seen.update(kwargs)
+
+    monkeypatch.setattr(server_mod, "run", fake_run)
+    monkeypatch.setattr(native_plane, "run_native", fake_run)
+    monkeypatch.chdir(tmp_path)
+    params = botscore.init_params(torch.Generator().manual_seed(7),
+                                  device="cpu")
+    botscore.save_params(params, str(tmp_path / "head.npz"))
     cfg = write_config(tmp_path, 9)
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--config", str(cfg), "--no-device", "--no-docker",
-              "--captcha-jwks", str(tmp_path / "jwks.json"), *flags])
+    assert main(["--config", str(cfg), "--no-device", "--no-docker",
+                 "--captcha-jwks", str(tmp_path / "jwks.json"),
+                 *flags]) == 0
+    cache_dir = flags[flags.index("--cache-dir") + 1] \
+        if "--cache-dir" in flags else None
+    head = flags[flags.index("--bot-score-params") + 1] \
+        if "--bot-score-params" in flags else None
+    assert (seen["cache_dir"], seen["bot_score_params_path"]) \
+        == (cache_dir, head)
+
+    async def boot():
+        server = Server(load_and_validate(str(cfg)), device="cpu",
+                        cache_dir=seen["cache_dir"],
+                        bot_score_params_path=seen["bot_score_params_path"],
+                        **server_kwargs(tmp_path))
+        await server.start()
+        try:
+            verdict = await server.verdict.evaluate(RequestTuple(
+                path="/x", url="/x", user_agent="Mozilla/5.0"))
+        finally:
+            await server.stop()
+        return server, verdict
+
+    server, verdict = loop_runner.run(boot())
+    if item == "item 8":
+        assert [p.suffix for p in (tmp_path / "cache").iterdir()] \
+            == [".plan"]
+        again, verdict2 = loop_runner.run(boot())
+        assert again.plan.stats == server.plan.stats
+        assert verdict2.action == verdict.action
+    else:
+        assert server.verdict.bot_score_params is not None
+        from pingoo_tpu_torch.engine.batch import (batch_tensors,
+                                                   encode_requests, pad_batch)
+
+        batch = encode_requests([RequestTuple(path="/x", url="/x",
+                                              user_agent="Mozilla/5.0")],
+                                server.plan.field_specs)
+        want = float(botscore.score(params, batch_tensors(
+            pad_batch(batch, 8).arrays, "cpu"))[0])
+        assert abs(verdict.bot_score - want) < 1e-6

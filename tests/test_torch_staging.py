@@ -622,14 +622,15 @@ def ring_drive(mod, plan, lists, stream, path, env, max_batch=16,
 def test_one_batch_chain_stages_in_full(crs60, monkeypatch, tmp_path):
     """PINGOO_STAGING=compact under PINGOO_PIPELINE=off: the one-batch
     chain stages in full on both planes, so neither resolves caps nor
-    builds the packed program, and the service stages its batches in
+    builds the packed program (the service has no staging encoder, whose
+    batches alone are packed), and the service stages its batches in
     full."""
     ref, ref_lists, port, lists = crs60
     set_env(monkeypatch, PINGOO_STAGING="compact", PINGOO_STAGING_DEPTH=64,
             PINGOO_PIPELINE="off")
     service = VerdictService(port, lists, max_batch=32, device="cpu")
     assert service.stage_caps is None
-    assert service._packed_verdict_fn is None
+    assert service._staging is None
     reqs = as_port(python_plane_traffic(ref_lists, SEEDS[4], n=16))
     serve_all(service, reqs)
     assert service.stats.staged_bytes > 0
