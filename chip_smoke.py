@@ -247,15 +247,43 @@
    serving side's verdict equal epoch 1's oracle, and the serving
    runner's wait for the lock is printed. Prints each swap's pause and
    {"swap": ...}.
-13. Prints one JSON line of per-kernel results (with each kernel's
+13. Sched phase, in a process of its own: admission, the degradation
+   ladder and chaos (sched/scheduler.py, engine/ladder.py,
+   obs/chaos.py) on the ring phase's set-up (its stream's lanes'
+   crc32 is RING_CHECKSUM). It times one 1,024-row batch through
+   `evaluate_batch` (the cost model's seed). The Python plane serves
+   the 16,384 requests under `continuous` and `fixed` at the default
+   deadline (in the order continuous, fixed, fixed, continuous), a
+   paced arm (64 requests every 4 ms under a 1 s deadline,
+   whose batches must hold past one arrival), PINGOO_MEGASTEP=auto
+   (K up to 4 under a 1 s deadline: windows of K > 1 through graph
+   replays), `allow` at 500 ms (the burst's later batches fail open,
+   counted once each) and `interpret` under an impossible deadline (256
+   requests, the interpreter's rows); each prints req/s, launches, rows
+   a batch and misses, and every verdict not failed open must equal
+   VerdictService's lanes and the first 1,024 the interpreter's rows.
+   The ring (a producer child) under `continuous`, `fixed`, a 1 s
+   deadline (held passes), `auto`, `allow`, `fixed` and `continuous`
+   again, each drive held to the
+   checksum and the bytes (`allow` at 150 ms: the bytes off
+   VerdictService's are 0 and no more than the rows failed open); then
+   at max_batch 256 the chaos arms:
+   `xla_error:1` per batch and under `force` (a rung demoted after the
+   first drive, the interpreter's bytes posted, re-promoted by a probe
+   after the backoff, a third drive launching every kernel again) and
+   `swap_storm` under `force` (every ticket once, heartbeat under 500
+   ms). Outside the chaos arms no ladder rung may fail, in this phase
+   or any other (`guard_ladder`). Prints {"sched": ...}.
+14. Prints one JSON line of per-kernel results (with each kernel's
    launches in the config phase, on the ring drive, on the body
    phase's streamed passes, on the listener's measured pass, on the
    native phase's measured loadgen run, through the megastep's graph
    replays in the slice phase and the two ring arms, in the compact
    slice arms, in the ring's staging arms, on the split main path
    of the halo phase and its ring arm under on, on the bot phase's
-   main path with the head, and on the swap phase's Python `on` arm and
-   ring `force` arm), then, last,
+   main path with the head, on the swap phase's Python `on` arm and
+   ring `force` arm, and on the sched phase's Python `continuous` and
+   `auto` arms), then, last,
    {"ok": true, "device": {...}}.
 
 Any mismatch, build failure or error exits nonzero before the last line.
@@ -273,9 +301,9 @@ body phase alone, `--listener-phase` the listener phase alone
 (`--listener-client` and `--listener-pong` are its client and
 upstream; the native phase uses the same client), `--native-phase`
 the native phase alone, `--halo-phase` the halo phase alone (after
-the build, the oracle and one pass of the main path), and `--bot-phase`
+the build, the oracle and one pass of the main path), `--bot-phase`
 and `--swap-phase` the bot and swap phases alone (after the build and
-the oracle).
+the oracle), and `--sched-phase` the sched phase alone.
 """
 
 from __future__ import annotations
@@ -1809,10 +1837,10 @@ def config_phase(rules, lists, reqs, oracle, main, dev) -> dict:
     served = {"batches": 0, "requests": 0}
     evaluate_batch = service.evaluate_batch
 
-    def counted(batch):
+    def counted(batch, t_launch=None):
         served["batches"] += 1
         served["requests"] += len(batch)
-        return evaluate_batch(batch)
+        return evaluate_batch(batch, t_launch)
 
     service.evaluate_batch = counted
     contexts = [tuple_to_context(r, loaded) for r in reqs]
@@ -2906,6 +2934,7 @@ def ring_phase() -> int:
               f"{d['max_heartbeat_age_ms']} ms, launches {d['launches']}"
               + (f", megastep {d['megastep']}" if "megastep" in d else ""),
               flush=True)
+    check_ladder("ring phase")
     print(json.dumps({"ring": dict(
         requests=RING_REQUESTS, max_batch=B, capacity=RING_CAPACITY,
         rules=500, build_s=build_s, warm_s=arms["on"]["warm_s"],
@@ -2926,6 +2955,490 @@ def ring_child() -> dict:
              f"{proc.stderr[-3000:]}")
     print(f"ring phase: {time.monotonic() - t0:.1f} s", flush=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])["ring"]
+
+
+# -- the sched phase: admission, the ladder and chaos (port queue item 9) -----
+
+SCHED_ORACLE_N = 1024  # interpreter rows the Python arms are held to
+SCHED_SEED_BATCH = 1024  # the port's max_batch default: the cost seed's batch
+SCHED_SEED_REPS = 8
+SCHED_SLACK_MS = "1000"  # a deadline that leaves slack on this card
+SCHED_ALLOW_MS = "500"  # lets the first batches of a burst in time
+SCHED_RING_ALLOW_MS = "150"  # below the ring stream's wait p50
+SCHED_PACE = (64, 0.004)  # the paced arm: 64 requests every 4 ms
+SCHED_INTERPRET_N = 256  # requests of the `interpret` arm (the host serves)
+SCHED_CHAOS_BATCH = RING_MANY_SLICES  # the chaos arms' max_batch
+SCHED_BACKOFF_S = 1.1  # past the ladder's 1 s base backoff
+
+LADDER_ERRORS: list = []  # (plane, rung, error) outside the chaos arms
+_CHAOS_ARM = [0]
+
+
+def guard_ladder() -> None:
+    """Record every rung failure of this process's degradation ladders:
+    outside a chaos arm any is a fault of the run (`check_ladder`)."""
+    from pingoo_tpu_torch.engine import ladder
+
+    orig = ladder.DegradationLadder.note_failure
+    if getattr(orig, "guarded", False):
+        return
+
+    def note_failure(self, rung, exc=None):
+        if not _CHAOS_ARM[0]:
+            LADDER_ERRORS.append((self.plane, rung, repr(exc)))
+        return orig(self, rung, exc)
+
+    note_failure.guarded = True
+    ladder.DegradationLadder.note_failure = note_failure
+
+
+def check_ladder(label: str) -> None:
+    if LADDER_ERRORS:
+        fail(f"{label}: {len(LADDER_ERRORS)} ladder rung failures outside "
+             f"the chaos arms: {LADDER_ERRORS[:4]}")
+    print(f"{label}: 0 ladder rung errors and demotions", flush=True)
+
+
+@contextlib.contextmanager
+def sched_env(**env):
+    """PINGOO_* variables for one arm (None unsets), restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def chaos_arm():
+    _CHAOS_ARM[0] += 1
+    try:
+        yield
+    finally:
+        _CHAOS_ARM[0] -= 1
+
+
+def lane_bytes(verdicts) -> bytes:
+    return bytes(v.action | (v.verified_block << 2) for v in verdicts)
+
+
+def ladder_quiet(snap: dict, label: str) -> None:
+    bad = {k: (r["errors"], r["demotions"]) for k, r in snap.items()
+           if r["errors"] or r["demotions"]}
+    if bad:
+        fail(f"{label}: ladder rungs with errors or demotions {bad}")
+
+
+def sched_seed(plan, lists, reqs, dev) -> dict:
+    """The cost model's fallback seed: the wall of one full batch at the
+    port's max_batch default through `evaluate_batch` (pipelined
+    executor), median of SCHED_SEED_REPS after two warm-up batches."""
+    import statistics as st
+
+    from pingoo_tpu_torch.engine.service import VerdictService
+
+    service = VerdictService(plan, lists, max_batch=SCHED_SEED_BATCH,
+                             device=dev)
+    walls = []
+    for i in range(SCHED_SEED_REPS + 2):
+        lo = (i * SCHED_SEED_BATCH) % (len(reqs) - SCHED_SEED_BATCH)
+        t0 = time.monotonic()
+        service.evaluate_batch(reqs[lo:lo + SCHED_SEED_BATCH])
+        walls.append((time.monotonic() - t0) * 1e3)
+    return dict(rows=SCHED_SEED_BATCH, walls_ms=walls[2:],
+                median_ms=st.median(walls[2:]))
+
+
+def py_arm(label, plan, lists, reqs, dev, want, oracle, env, paced=None):
+    """One Python-plane arm: a VerdictService(max_batch=B) under `env`
+    answers `reqs` through `evaluate` (all at once, or `paced` as (n,
+    seconds): n requests every so many seconds); every verdict's lanes
+    must equal `want` and the first rows the interpreter's `oracle`,
+    except rows failed open under `allow` (action 0, degraded, each
+    counted once). Kernel launch counts are set to 0 before the pass and
+    read after. Returns the arm's numbers."""
+    import numpy as np
+
+    from pingoo_tpu_torch.engine.service import VerdictService
+    from pingoo_tpu_torch.ops import _build
+
+    with sched_env(**env):
+        service = VerdictService(plan, lists, max_batch=B, device=dev)
+
+    async def run():
+        await service.start()
+        try:
+            t0 = time.monotonic()
+            if paced is None:
+                out = await asyncio.gather(*map(service.evaluate, reqs))
+            else:
+                n, gap = paced
+                futs = []
+                for lo in range(0, len(reqs), n):
+                    futs += [asyncio.ensure_future(service.evaluate(r))
+                             for r in reqs[lo:lo + n]]
+                    await asyncio.sleep(gap)
+                out = await asyncio.gather(*futs)
+            return out, time.monotonic() - t0
+        finally:
+            await service.stop()
+
+    _build.reset_launch_counts()
+    verdicts, wall = asyncio.run(run())
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    snap = service.stats.snapshot()
+    sched = snap["sched"]
+    degraded = [v.degraded for v in verdicts]
+    got = lane_bytes(verdicts)
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a != b and not degraded[i]]
+    if bad:
+        fail(f"sched arm {label}: {len(bad)} verdicts differ from the "
+             f"expected lanes (first {bad[:5]})")
+    n_o = min(len(oracle), len(verdicts))
+    rows = np.stack([v.matched for v in verdicts[:n_o]])
+    keep = ~np.array(degraded[:n_o])
+    if (rows[keep] != oracle[:n_o][keep]).any():
+        fail(f"sched arm {label}: matched rows differ from the oracle")
+    if any(degraded) and (sched["failopens"] != sum(degraded) or any(
+            v.action or v.matched.any() for v in verdicts if v.degraded)):
+        fail(f"sched arm {label}: {sum(degraded)} degraded verdicts, "
+             f"{sched['failopens']} failed open")
+    if env.get("PINGOO_SCHED_FAILOPEN") is None and any(degraded):
+        fail(f"sched arm {label}: degraded verdicts under serve")
+    ladder_quiet(snap["ladder"], f"sched arm {label}")
+    batches = service.stats.batches
+    mega = service.pipeline_snapshot()["megastep"]
+    out = dict(requests=len(reqs), req_per_s=len(reqs) / wall,
+               mode=sched["mode"], deadline_ms=sched["deadline_ms"],
+               failopen=sched["failopen_policy"],
+               launches=sched["launches"], batches=batches,
+               rows_per_batch=(service.stats.requests / batches
+                               if batches else 0.0),
+               misses=sched["deadline_misses"],
+               failopens=sched["failopens"],
+               hold_ms=sched["admission"]["sched"],
+               kernel_launches=launches, megastep=mega,
+               graphs=(service._mega_runner.snapshot()
+                       if service._mega_runner is not None else None),
+               cost_model=sched["cost_model"])
+    print(f"sched arm {label}: {len(reqs)} requests at {out['req_per_s']:.0f}"
+          f" req/s, mode {out['mode']}, deadline {out['deadline_ms']} ms, "
+          f"{out['failopen']}: {out['launches']} launches, {batches} batches "
+          f"of {out['rows_per_batch']:.1f} rows, misses {out['misses']}, "
+          f"failed open {out['failopens']}, hold p50/p99 "
+          f"{out['hold_ms']['p50_ms']}/{out['hold_ms']['p99_ms']} ms, "
+          f"launches {launches}"
+          + (f", megastep {mega}, graphs {out['graphs']}"
+             if mega["windows"] else ""), flush=True)
+    return out
+
+
+def sched_ring_arm(label, ring, producer, plan, lists, want, dev, env,
+                   max_batch=B, drives=1, between=None, chaos=False,
+                   warm=False):
+    """One ring arm: a RingSidecar(max_batch, pipeline_depth=3) under
+    `env` drains the ring while the producer drives the measured stream
+    `drives` times (after the warm stream with `warm`; `between(sidecar,
+    i)` runs before drive i > 0), each held by `ring_drive` (checksum,
+    VerdictService's bytes unless failed open, heartbeat, kernel
+    launches). Returns the arm's numbers."""
+    import threading
+
+    from pingoo_tpu_torch import native_ring as nr
+
+    with sched_env(**env):
+        sidecar = nr.RingSidecar(ring, plan, lists, max_batch=max_batch,
+                                 device=dev, pipeline_depth=3)
+    warm = None
+    if sidecar._mega_runner is not None:
+        warm = len(sidecar.warm_up())
+    thread = threading.Thread(target=sidecar.run, daemon=True)
+    thread.start()
+    out = []
+    t0 = time.monotonic()
+    # The chaos arms' first drive may run without the DFAs (the dfa rung
+    # demoted), so it need not launch the DFA kernel.
+    need = ("nfa_scan", "prefilter") if chaos else None
+    try:
+        if warm:
+            producer.drive(12)
+        for i in range(drives):
+            if i and between is not None:
+                between(sidecar, i)
+            allow = env.get("PINGOO_SCHED_FAILOPEN") == "allow"
+            f0 = sidecar.sched.failopens
+            if allow:
+                r = producer.drive(11)
+                zeroed = [k for k, (a, b) in enumerate(zip(r.actions, want))
+                          if a != b]
+                if any(r.actions[k] for k in zeroed) \
+                        or len(zeroed) > sidecar.sched.failopens - f0 \
+                        or r.max_heartbeat_age_ms >= HEARTBEAT_LIMIT_MS:
+                    fail(f"sched ring arm {label}: {len(zeroed)} bytes off "
+                         f"VerdictService's, {sidecar.sched.failopens - f0}"
+                         f" failed open, heartbeat aged "
+                         f"{r.max_heartbeat_age_ms} ms")
+                out.append(dict(failopens=sidecar.sched.failopens - f0,
+                                differing=len(zeroed),
+                                max_heartbeat_age_ms=r.max_heartbeat_age_ms,
+                                req_per_s=len(r.actions) / r.seconds))
+            else:
+                out.append(ring_drive(sidecar, lambda: producer.drive(11),
+                                      want, need=need if i == 0 else None))
+            out[-1]["ladder_demoted"] = sidecar.ladder.demoted()
+    finally:
+        sidecar.stop()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        fail(f"sched ring arm {label}: the drain loop did not stop")
+    stats = sidecar.stats()
+    if not chaos:
+        ladder_quiet(stats["ladder"], f"sched ring arm {label}")
+    if stats["megastep"]["echo_mismatch"]:
+        fail(f"sched ring arm {label}: epoch echo mismatches")
+    res = dict(max_batch=max_batch, warm_up=warm, drives=out,
+               arm_s=time.monotonic() - t0, sched=stats["sched"],
+               ladder={k: v for k, v in stats["ladder"].items()
+                       if v["errors"]},
+               chaos=stats["chaos"], megastep=stats["megastep"],
+               pipeline_megastep=stats["pipeline"]["megastep"],
+               hotswap_epoch=stats["hotswap"]["epoch"],
+               processed=sidecar.processed, batches=sidecar.batches)
+    d = out[-1]
+    print(f"sched ring arm {label} (max_batch {max_batch}, "
+          f"{res['arm_s']:.1f} s): mode {stats['sched']['mode']}, "
+          f"deadline {stats['sched']['deadline_ms']} ms, "
+          f"{stats['sched']['launches']} launches, {sidecar.batches} "
+          f"batches of {sidecar.processed / max(sidecar.batches, 1):.1f} "
+          f"rows, held passes {stats['sched']['held_passes']}, misses "
+          f"{stats['sched']['deadline_misses']}, failed open "
+          f"{stats['sched']['failopens']}; last drive "
+          f"{ {k: v for k, v in d.items() if k in ('req_per_s', 'batches', 'rows_per_batch', 'max_heartbeat_age_ms', 'launches', 'megastep', 'failopens', 'differing', 'ladder_demoted')} }"
+          f"; megastep {stats['pipeline']['megastep']}; ladder "
+          f"{res['ladder']}; chaos {stats['chaos']}", flush=True)
+    return res
+
+
+def sched_phase() -> int:
+    """`--sched-phase`, in a process of its own: admission, the
+    degradation ladder and chaos on the card, on the ring phase's
+    set-up (the 500-rule corpus with its lists, generate_traffic(16384,
+    seed=11), whose lanes' crc32 is RING_CHECKSUM).
+
+    The cost seed: one full batch at max_batch 1,024, timed. The Python
+    plane (max_batch=B): `continuous` and `fixed` at the default
+    deadline; a paced arm under a deadline with slack (batches hold past
+    one pop); PINGOO_MEGASTEP=auto (K up to 4, slack: windows of K > 1
+    through graph replays); `allow` under a deadline the later batches
+    of a burst miss (those fail open, the rest as VerdictService); and
+    `interpret` under an impossible one (the interpreter's rows). The
+    ring: `continuous` and `fixed` at the default deadline, a deadline
+    with slack (passes held), `auto` (windows of K > 1), `allow`; then
+    the chaos arms at max_batch 256: `xla_error:1` per batch and under
+    `force` (the error demotes a rung and the interpreter serves, a
+    probe after the backoff re-promotes it, and a third drive launches
+    every kernel again), and `swap_storm` under `force` (every ticket
+    once, heartbeat under 500 ms). Every arm but the chaos arms keeps
+    every ladder rung at 0 errors and 0 demotions. Prints {"sched": ...}
+    last."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from pingoo_tpu_torch import native_ring as nr
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.engine.service import VerdictService
+    from pingoo_tpu_torch.ops import _build
+    from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+
+    t_phase = time.monotonic()
+    dev = torch.device("cuda")
+    rules, lists = generate_ruleset(500, with_lists=True,
+                                    list_sizes=(4096, 512))
+    reqs = generate_traffic(RING_REQUESTS, lists=lists, seed=11)
+    pool = ProcessPoolExecutor(
+        SLICE_ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=slice_oracle_init, initargs=(rules, lists))
+    chunk = -(-SCHED_ORACLE_N // SLICE_ORACLE_WORKERS)
+    parts = [pool.submit(slice_oracle, reqs[i:i + chunk])
+             for i in range(0, SCHED_ORACLE_N, chunk)]
+    nr.build_ring_lib()
+    _build.build()
+    plan = compile_ruleset(rules, lists, device=dev)
+    service = VerdictService(plan, lists, max_batch=B, device=dev)
+    want = lane_bytes(v for lo in range(0, RING_REQUESTS, B)
+                      for v in service.evaluate_batch(reqs[lo:lo + B]))
+    if zlib.crc32(want) != RING_CHECKSUM:
+        fail(f"VerdictService's lanes of the ring stream: crc32 "
+             f"{zlib.crc32(want)}, not {RING_CHECKSUM}")
+    seed = sched_seed(plan, lists, reqs, dev)
+    print(f"sched seed: one batch of {seed['rows']} rows through "
+          f"evaluate_batch, median {seed['median_ms']:.3f} ms of "
+          f"{SCHED_SEED_REPS} ({[round(w, 3) for w in seed['walls_ms']]})",
+          flush=True)
+    oracle = np.concatenate([f.result() for f in parts])
+    pool.shutdown()
+    py, ring_arms = {}, {}
+    py["continuous"] = py_arm("python continuous", plan, lists, reqs, dev,
+                              want, oracle, {})
+    py["fixed"] = py_arm("python fixed", plan, lists, reqs, dev, want,
+                         oracle, {"PINGOO_SCHED_MODE": "fixed"})
+    # The pair again in the other order: continuous, fixed, fixed,
+    # continuous, so that neither holds the warmer place.
+    py["fixed 2"] = py_arm("python fixed 2", plan, lists, reqs, dev, want,
+                           oracle, {"PINGOO_SCHED_MODE": "fixed"})
+    py["continuous 2"] = py_arm("python continuous 2", plan, lists, reqs,
+                                dev, want, oracle, {})
+    n_paced = 4096
+    py["paced"] = py_arm("python paced", plan, lists, reqs[:n_paced], dev,
+                         want[:n_paced], oracle,
+                         {"PINGOO_DEADLINE_MS": SCHED_SLACK_MS},
+                         paced=SCHED_PACE)
+    if py["paced"]["rows_per_batch"] <= SCHED_PACE[0]:
+        fail(f"the paced arm's batches held no longer than one arrival "
+             f"({py['paced']['rows_per_batch']:.1f} rows a batch)")
+    py["auto"] = py_arm("python auto", plan, lists, reqs, dev, want, oracle,
+                        {"PINGOO_MEGASTEP": "auto", "PINGOO_MEGASTEP_K": "4",
+                         "PINGOO_DEADLINE_MS": SCHED_SLACK_MS})
+    mega = py["auto"]["megastep"]
+    if not (mega["windows"] and mega["slices"] > mega["windows"]
+            and py["auto"]["graphs"]["replays"]) or not all(
+                py["auto"]["kernel_launches"].values()):
+        fail(f"the Python auto arm ran no window of K > 1 through graph "
+             f"replays: {mega}, {py['auto']['graphs']}")
+    py["allow"] = py_arm("python allow", plan, lists, reqs, dev, want,
+                         oracle, {"PINGOO_SCHED_FAILOPEN": "allow",
+                                  "PINGOO_DEADLINE_MS": SCHED_ALLOW_MS})
+    if not 0 < py["allow"]["failopens"] < RING_REQUESTS:
+        fail(f"the allow arm failed open {py['allow']['failopens']} of "
+             f"{RING_REQUESTS} requests, not some")
+    py["interpret"] = py_arm(
+        "python interpret", plan, lists, reqs[:SCHED_INTERPRET_N], dev,
+        want[:SCHED_INTERPRET_N], oracle,
+        {"PINGOO_SCHED_FAILOPEN": "interpret",
+         "PINGOO_DEADLINE_MS": "0.000001"})
+    if py["interpret"]["failopens"] != SCHED_INTERPRET_N:
+        fail("the interpret arm did not serve every request on the host")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ring")
+        ring = nr.Ring(path, capacity=RING_CAPACITY, create=True)
+        try:
+            producer = ChildProducer(path)
+            try:
+                for label, env in (
+                        ("continuous", {}),
+                        ("fixed", {"PINGOO_SCHED_MODE": "fixed"}),
+                        ("slack", {"PINGOO_DEADLINE_MS": SCHED_SLACK_MS}),
+                        ("auto", {"PINGOO_MEGASTEP": "auto",
+                                  "PINGOO_MEGASTEP_K": "4",
+                                  "PINGOO_SCHED_MODE": "fixed",
+                                  "PINGOO_DEADLINE_MS": "60000"}),
+                        ("allow", {"PINGOO_SCHED_FAILOPEN": "allow",
+                                   "PINGOO_DEADLINE_MS":
+                                   SCHED_RING_ALLOW_MS}),
+                        ("fixed 2", {"PINGOO_SCHED_MODE": "fixed"}),
+                        ("continuous 2", {})):
+                    ring_arms[label] = sched_ring_arm(
+                        label, ring, producer, plan, lists, want, dev, env,
+                        warm=label == "continuous")
+                if ring_arms["slack"]["sched"]["held_passes"] == 0:
+                    fail("the ring's slack arm held no pass")
+                m = ring_arms["auto"]["pipeline_megastep"]
+                d = ring_arms["auto"]["drives"][0]
+                if not (m["windows"] and m["slices"] > m["windows"]
+                        and d["megastep"]["replays"]):
+                    fail(f"the ring's auto arm ran no window of K > 1 "
+                         f"through graph replays: {m}, {d['megastep']}")
+                if not 0 < ring_arms["allow"]["sched"]["failopens"]:
+                    fail("the ring's allow arm failed nothing open")
+
+                def backoff(sidecar, i):
+                    time.sleep(SCHED_BACKOFF_S)
+
+                with chaos_arm():
+                    for label, mega in (("xla_error", "off"),
+                                        ("xla_error force", "force")):
+                        arm = sched_ring_arm(
+                            label, ring, producer, plan, lists, want, dev,
+                            {"PINGOO_CHAOS": "xla_error:1",
+                             "PINGOO_MEGASTEP": mega},
+                            max_batch=SCHED_CHAOS_BATCH, drives=3,
+                            between=backoff, chaos=True)
+                        ring_arms[label] = arm
+                        # One rung failed once and was demoted once, and a
+                        # probe after its backoff re-promoted it: no rung is
+                        # demoted after any drive but (perhaps) the first.
+                        first, second, third = arm["drives"]
+                        rungs = arm["ladder"]
+                        if len(rungs) != 1 or any(
+                                (r["errors"], r["demotions"], r["healthy"])
+                                != (1, 1, True) for r in rungs.values()) \
+                                or second["ladder_demoted"] \
+                                or third["ladder_demoted"] \
+                                or arm["chaos"]["injected"] \
+                                != {"xla_error": 1} \
+                                or plan.dfa_default_mode != "auto":
+                            fail(f"{label}: rungs {rungs}, demoted after the "
+                                 f"drives {first['ladder_demoted']}, "
+                                 f"{second['ladder_demoted']}, "
+                                 f"{third['ladder_demoted']}, injected "
+                                 f"{arm['chaos']['injected']}, DFA mode "
+                                 f"{plan.dfa_default_mode}")
+                        if mega == "force" and not third["megastep"][
+                                "replays"]:
+                            fail(f"{label}: no graph replay after the "
+                                 f"re-promotion")
+                    arm = sched_ring_arm(
+                        "swap_storm force", ring, producer, plan, lists,
+                        want, dev, {"PINGOO_CHAOS": "swap_storm",
+                                    "PINGOO_MEGASTEP": "force"},
+                        max_batch=SCHED_CHAOS_BATCH, chaos=True)
+                    ring_arms["swap_storm force"] = arm
+                    if not arm["hotswap_epoch"] or arm["ladder"]:
+                        fail(f"the swap storm made {arm['hotswap_epoch']} "
+                             f"swaps with ladder errors {arm['ladder']}")
+                producer.close()
+                time.sleep(0.2)
+                if ring.poll_verdict() is not None:
+                    fail("a verdict arrived after every request had its own")
+            finally:
+                if producer.proc.poll() is None:
+                    producer.proc.kill()
+                    producer.proc.wait()
+        finally:
+            ring.close()
+    check_ladder("sched phase (outside its chaos arms)")
+    print(json.dumps({"sched": dict(
+        seed=seed, python=py, ring=ring_arms,
+        seconds=time.monotonic() - t_phase)}, default=str), flush=True)
+    return 0
+
+
+def sched_child() -> dict:
+    """`sched_phase` in a process of its own; returns its JSON."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--sched-phase"],
+        capture_output=True, text=True, timeout=600)
+    print(proc.stdout.rstrip(), flush=True)
+    if proc.returncode != 0:
+        fail(f"the sched phase exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    print(f"sched phase: {time.monotonic() - t0:.1f} s", flush=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])["sched"]
 
 
 # -- the body phase: streaming body inspection (engine/bodyscan.py) ----------
@@ -3395,6 +3908,7 @@ def body_phase() -> int:
     t_ring = time.monotonic()
     ring = body_ring(dev)
     ring["phase_s"] = time.monotonic() - t_ring
+    check_ladder("body phase")
     print(json.dumps({"body": dict(
         window=BODY_WINDOW, configs=configs, busy=busy, ring=ring,
         seconds=time.monotonic() - t0)}), flush=True)
@@ -4215,6 +4729,7 @@ def listener_phase(device=None, n: int = N_REQUESTS) -> int:
     missing = [k for k, c in results["h1"]["launches"].items() if c == 0]
     if missing:
         fail(f"the listener's measured pass launched no {missing} kernel")
+    check_ladder("listener phase")
     print(json.dumps({"listener": dict(
         requests=n, conns=LISTENER_CONNS, max_batch=max_batch, boot_s=boot_s,
         passes=results, outcomes=kinds, entry_point=entry,
@@ -4922,6 +5437,7 @@ def native_phase(device=None, n: int = N_REQUESTS) -> int:
         native_loadgen_check(label, loadgen[label])
     if not body_verdicts:
         fail("the body pass's sidecar posted no body verdict")
+    check_ladder("native phase")
     print(json.dumps({"native": dict(
         requests=n, conns=NATIVE_CONNS, listed=len(listed),
         boot_s=boot_s, warm_up=warm_up, builds=took, sonames=sonames,
@@ -4985,8 +5501,9 @@ def warmed_service(plan, lists, reqs, dev, **kw):
         service.evaluate_batch(reqs[lo:lo + B])
     if service._mega_runner is not None:
         service._mega_runner.capture_mode = "thread_local"
-    service.stats = type(service.stats)(service.WINDOW,
-                                        service.stats.epoch)
+    service.stats = type(service.stats)(
+        service.WINDOW, service.stats.epoch, sched=service.sched.snapshot,
+        ladder=service.ladder.snapshot)
     return service
 
 
@@ -5867,6 +6384,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "pingoo_tpu_torch")):
         fail("pingoo_tpu_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, REPO)
+    guard_ladder()
     if sys.argv[1:] == ["--ring-phase"]:
         return ring_phase()
     if sys.argv[1:] == ["--body-phase"]:
@@ -5881,6 +6399,8 @@ def main() -> int:
         return bot_alone()
     if sys.argv[1:] == ["--swap-phase"]:
         return swap_alone()
+    if sys.argv[1:] == ["--sched-phase"]:
+        return sched_phase()
     if len(sys.argv) == 3 and sys.argv[1] == "--ring-producer":
         return ring_producer(sys.argv[2])
     import numpy as np
@@ -5890,6 +6410,7 @@ def main() -> int:
     results = kernel_phase(plan, dev, rng)
     results["prefilter"]["stage_a"] = stage_a_child()
     ring = ring_child()
+    sched = sched_child()
     body = body_child()
     listener = listener_child()
     native = native_child()
@@ -5962,9 +6483,14 @@ def main() -> int:
             "bot_launches": bot["launches"][name],
             "swap_launches": swap["launches"][name],
             "ring_swap_launches": swap["ring_launches"][name],
+            "sched_launches": sched["python"]["continuous"][
+                "kernel_launches"][name],
+            "sched_auto_launches": sched["python"]["auto"][
+                "kernel_launches"][name],
             **{k: v for k, v in r.items() if k not in (
                 "route", "source", "replaces", "max_abs_err", "ms",
                 "plain_ms", "work")}})
+    check_ladder("the main process's phases")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

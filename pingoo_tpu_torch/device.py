@@ -12,9 +12,15 @@ import os
 
 import torch
 
+from .obs.chaos import ChaosInjector
+from .sched import mesh_env_spec
 
 # Knobs of the JAX package whose features the port does not have yet:
 # (variable, predicate on its value, the ROADMAP.md port-queue item).
+# The scheduler's knobs (PINGOO_SCHED_MODE, PINGOO_SCHED_FAILOPEN,
+# PINGOO_DEADLINE_MS, PINGOO_SCHED_SEED_MS, PINGOO_MEGASTEP=auto) and
+# PINGOO_CHAOS are read as the JAX package reads them (sched/scheduler.py,
+# obs/chaos.py).
 # Three knobs of the JAX package are not here: PINGOO_NFA_LOOKUP,
 # PINGOO_DFA_KERNEL and PINGOO_PREFILTER_KERNEL choose among its JAX
 # backends (lax.scan lookups, Pallas or XLA) and mean nothing in the
@@ -25,36 +31,35 @@ _UNPORTED = (
     # The JAX package's lane and row packing of lax.scan banks.
     ("PINGOO_SCAN_PACK", lambda v: v not in ("", "field"),
      "section 2, kernel work item 1, lane packing"),
-    # `off` and `force` are ported (engine/verdict.py, engine/graphs.py);
-    # `auto` sizes K against deadline slack with the scheduler's cost
-    # model, which the port does not have.
-    ("PINGOO_MEGASTEP", lambda v: v == "auto",
-     "port queue item 9, the scheduler (megastep auto sizing)"),
-    ("PINGOO_MESH", lambda v: v.strip() not in ("", "1", "1x1", "1x1x1"),
-     "port queue item 9, the mesh"),
-    # The port's sidecar dispatches whatever one drain pass returns (the
-    # JAX package's "fixed" window); "allow" there answers rows that
-    # would miss their deadline with allow, a different verdict.
-    ("PINGOO_SCHED_MODE", lambda v: v not in ("", "fixed"),
-     "port queue item 9, the scheduler"),
-    ("PINGOO_SCHED_FAILOPEN", lambda v: v == "allow",
-     "port queue item 9, the scheduler"),
-    # The deadline of the continuous scheduler and of the pipelined
-    # executor's stage budgets.
-    ("PINGOO_DEADLINE_MS", lambda v: v != "",
-     "port queue item 9, the scheduler"),
+    # The durable cost ledger: empty, 0 and off disable it (the JAX
+    # package's default is on).
+    ("PINGOO_COST_LEDGER",
+     lambda v: v.strip().lower() not in ("", "0", "off"),
+     "port queue item 10, the cost ledger"),
 )
+
+
+def _unported(name: str, value: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name}={value} is not supported by pingoo_tpu_torch yet "
+        f"(ROADMAP.md: {item})")
 
 
 def check_env() -> None:
     """Raise NotImplementedError for a knob whose feature is not in the
-    port, rather than ignoring it."""
+    port, rather than ignoring it, and ValueError for a malformed
+    PINGOO_MESH or PINGOO_CHAOS spec."""
     for name, unported, item in _UNPORTED:
         value = os.environ.get(name, "")
         if unported(value):
-            raise NotImplementedError(
-                f"{name}={value} is not supported by pingoo_tpu_torch yet "
-                f"(ROADMAP.md: {item})")
+            raise _unported(name, value, item)
+    # On one card the serving mesh is one device; any other spec needs
+    # more cards than the port's cells have.
+    dp, tp, sp = mesh_env_spec()
+    if dp * tp * sp > 1:
+        raise _unported("PINGOO_MESH", os.environ["PINGOO_MESH"],
+                        "port queue item 9b, the mesh")
+    ChaosInjector.from_env()
 
 
 def pipeline_mode() -> str:

@@ -6,8 +6,11 @@ dispatch for K batch slices. The counterpart here is a CUDA graph:
 `make_megastep_fn`) once per window shape and replays it, so a window's
 hundreds of kernel launches cost the host one call.
 
-  * One graph per (kind, k_ship, rows, per-field byte widths): the
-    window's shape as `DeviceInputQueue.window_shape` gives it. Under
+  * One graph per (kind, k_ship, rows, per-field byte widths, DFA
+    mode): the window's shape as `DeviceInputQueue.window_shape` gives
+    it, and the plan's resolved PINGOO_DFA mode, which decides whether
+    the graph launches the DFA kernel (the degradation ladder's `dfa`
+    rung turns the plan's DFAs off and back on, engine/ladder.py). Under
     compact staging every slice arrives at the plan's capped widths, so
     one caps tuple gives one width tuple per (kind, K, rows). Its
     static inputs are views of one flat device buffer, filled by
@@ -45,9 +48,10 @@ hundreds of kernel launches cost the host one call.
     (ops/_build.py) get, at each replay, the launches the capture
     recorded.
 
-A capture, replay or launch failure raises; there is no fallback to the
-per-batch path. On the CPU the runner calls the body eagerly over the
-kernels' plain versions.
+A capture, replay or launch failure raises to the plane, whose
+degradation ladder demotes its megastep rung (engine/ladder.py); a
+kernel that fails to build or launch is never demoted. On the CPU the
+runner calls the body eagerly over the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -103,7 +107,8 @@ class MegastepRunner:
         shape = queue.window_shape(buf_id, k_ship)
         rows = shape["asn"][1]
         return (self.program.kind, k_ship, rows,
-                tuple(shape[f"{f}_bytes"][2] for f in STRING_FIELDS))
+                tuple(shape[f"{f}_bytes"][2] for f in STRING_FIELDS),
+                self.program.dfa_mode())
 
     def run(self, queue: DeviceInputQueue, buf_id: int, k_used: int,
             k_ship: int):

@@ -1,13 +1,19 @@
 """VerdictService: the Python plane's async facade over the batched
 verdict.
 
-`evaluate(req)` queues one request and awaits its `Verdict`. A collector
-task gathers requests into batches of at most `max_batch`, waiting at
-most `max_wait_us` after the first one, and runs each batch in a worker
-thread: encode, trim the field columns to a power of two, pad the batch
-axis to a power of two, evaluate on the plan's device, re-interpret
-rows whose fields overflowed the device capacity, and reduce to the two
-action lanes.
+`evaluate(req)` queues one request, stamped with its entry time, and
+awaits its `Verdict`. A collector task gathers requests into batches of
+at most `max_batch` under the admission scheduler (sched/scheduler.py,
+PINGOO_SCHED_MODE): `continuous` (the default) keeps assembling while
+the oldest request's deadline slack (PINGOO_DEADLINE_MS) still covers
+the cost model's estimate of serving the batch, `fixed` waits at most
+`max_wait_us` after the first request; either way whatever is already
+queued then rides the batch. Each batch runs in a worker thread: encode,
+trim the field columns to a power of two, pad the batch axis to a power
+of two, evaluate on the plan's device, re-interpret rows whose fields
+overflowed the device capacity, and reduce to the two action lanes. The
+measured walls (whole batch, encode, issue, compute, per staged bytes,
+per megastep window) feed the cost model.
 
 The executor (PINGOO_PIPELINE, as in the JAX package):
 
@@ -36,7 +42,28 @@ rung of the PINGOO_MEGASTEP_K ladder that divides them; K is 1 unless
 the variable is set, see SERVICE_MEGASTEP_K_DEFAULT), staged into a
 `DeviceInputQueue` set and run as one program, on the card one CUDA
 graph replay (engine/graphs.py); its copy to the host is queued right
-after the replay, and host rules run before the one wait.
+after the replay, and host rules run before the one wait. Under `auto`
+a batch is a window only with a backlog queued behind it, and only when
+the scheduler's `size_megastep_k` fits a K above 1 in the slack left
+since its launch.
+
+Fail-open (PINGOO_SCHED_FAILOPEN): under `allow` or `interpret`, the
+requests whose deadline no immediate launch can meet are answered at
+launch, with action 0 (`degraded`) or by the host interpreter; a batch
+whose encode or issue overruns its slice of the deadline
+(`PIPELINE_STAGE_BUDGET`) is answered so whole. `serve` (the default)
+serves every request late and counts the miss.
+
+The degradation ladder (engine/ladder.py), as in the JAX package: a
+staging error demotes the `pipeline` rung (the batch encodes through the
+one-batch chain), a failed megastep window the `megastep` rung (the
+batch is issued per batch), and a device error the `dfa` rung when the
+plan runs a lowered DFA (the plan's DFAs off until a probe), else the
+`device` rung (the batch is served by the host interpreter). Each probes
+back after its backoff. A kernel that fails to build or launch
+(`ops/_build.KernelBuildError`) and a CUDA runtime fault
+(`ops/_build.DeviceFault`) are never demoted: they fail the batch's
+callers. A scorer error is counted (`score_errors`) and serves 0.0.
 
 With `bot_score_params` (models/botscore.py) each batch is also
 scored by the bot head on the same staged batch: its launches are
@@ -49,19 +76,16 @@ sentinel in the admission queue closes the batch being assembled, and
 at that boundary the collector waits for every batch in flight (the
 collector's and those of `evaluate_batch` callers on other threads, who
 wait meanwhile), flips to the new state and bumps `ruleset_epoch`.
-Every `Verdict` carries the epoch it was evaluated under.
-
-A staging, scorer or device error fails that batch's callers and nothing
-else; there is no fallback to the other chain, nor from a megastep
-window to the per-batch path, and no zero score. A swap whose state
-fails to build or warm up raises to its caller, and the old plan goes
-on serving.
+Every `Verdict` carries the epoch it was evaluated under. A swap whose
+state fails to build or warm up raises to its caller, and the old plan
+goes on serving.
 
 What the listener reads, with the JAX package's keys: `stats.snapshot()`
-(counts, the verdict wait and the stages), `pipeline_snapshot()` (the
-executor's `PipelineStats`: depth, batches in flight, stage occupancy,
-overlap) and `explain(req)` (one request through the batched path and
-the interpreter, per rule). Every timing is kept in a bounded window
+(counts, the verdict wait and the stages, and the scheduler's and the
+ladder's snapshots), `pipeline_snapshot()` (the executor's
+`PipelineStats`: depth, batches in flight, stage occupancy, overlap)
+and `explain(req)` (one request through the batched path and the
+interpreter, per rule). Every timing is kept in a bounded window
 (`obs/window.py`).
 """
 
@@ -80,6 +104,8 @@ from ..compiler.plan import RulesetPlan
 from ..device import check_env, pipeline_depth, pipeline_mode, resolve_device
 from ..models import botscore
 from ..obs.pipeline import PipelineStats
+from ..ops._build import never_demoted
+from ..sched import Scheduler, SchedulerConfig
 from ..obs.trace import tuple_digest
 from ..obs.window import WINDOW, TimingWindow
 from .batch import (DeviceInputQueue, RequestBatch, RequestTuple,
@@ -89,11 +115,11 @@ from .batch import (DeviceInputQueue, RequestBatch, RequestTuple,
                     stage_overflow_thresholds, tuple_to_context)
 from .graphs import MegastepRunner
 from .hotswap import note_swap, set_epoch_gauge, swap_counts
+from .ladder import DegradationLadder, DfaRung
 from .verdict import (_host_array, _resolve_megastep_mode, action_lanes,
                       finish_batch, finish_megastep, interpret_rules_row,
                       make_megastep_fn, make_verdict_fn, megastep_k_cap,
-                      megastep_k_ladder,
-                      to_host_async, unpack_staged)
+                      megastep_k_ladder, to_host_async, unpack_staged)
 
 
 # PINGOO_MEGASTEP_K's default here. A window is one graph replay at any
@@ -104,6 +130,23 @@ from .verdict import (_host_array, _resolve_megastep_mode, action_lanes,
 # (PERF.md, the megastep's findings). The sidecar's K (default 4) puts
 # K dequeued batches in one window instead.
 SERVICE_MEGASTEP_K_DEFAULT = 1
+
+# Cumulative shares of PINGOO_DEADLINE_MS a batch may have spent, from
+# its launch, when each host stage ends (the JAX package's): past them,
+# under a fail-open policy other than `serve`, the batch is answered by
+# the fail-open route rather than ride a doomed device round trip.
+PIPELINE_STAGE_BUDGET = {"encode": 0.45, "dispatch": 0.75}
+
+
+class _StageBudgetExceeded(RuntimeError):
+    """A host stage blew its slice of the deadline budget."""
+
+    def __init__(self, stage: str, elapsed_ms: float):
+        super().__init__(
+            f"pipeline stage {stage!r} blew its deadline slice "
+            f"({elapsed_ms:.3f} ms since launch)")
+        self.stage = stage
+        self.elapsed_ms = elapsed_ms
 
 
 class _PlanSwap:
@@ -151,37 +194,52 @@ class Verdict:
 # for the device result, overflow rows and action lanes ("finish").
 STAGES = ("encode", "verdict", "finish")
 
+# Admission, per request: evaluate() to the collector's pop
+# ("queue_wait"), the pop to the batch's launch ("batch_assembly"); per
+# batch: the first pop to the launch decision ("sched").
+ADMISSION_STAGES = ("queue_wait", "batch_assembly", "sched")
+
 
 class ServiceStats:
     """Counters and bounded timing windows of one VerdictService, read
     through `snapshot()` with the JAX package's keys."""
 
-    def __init__(self, window: int = WINDOW, epoch=None):
+    def __init__(self, window: int = WINDOW, epoch=None, sched=None,
+                 ladder=None):
         self.batches = 0
         self.requests = 0
+        # Batches whose device work failed (each demoted a ladder rung),
+        # those the host interpreter served, and scorer failures.
+        self.device_errors = 0
+        self.host_fallback_batches = 0
+        self.score_errors = 0
         self.wait = TimingWindow(window)  # evaluate() -> resolved
         self.batch = TimingWindow(window)  # one batch's wall time
         self.stages = {k: TimingWindow(window) for k in STAGES}
+        self.admission = {k: TimingWindow(window) for k in ADMISSION_STAGES}
         # Bytes staged for the device (`RequestBatch.staged_bytes`),
         # under the staging that `VerdictService.stage_caps` names.
         self.staged_bytes = 0
-        # Reads the owning service's served plan epoch at each snapshot
-        # (None: always 0, the boot plan).
+        # Read the owning service's served plan epoch, its scheduler's
+        # and its ladder's snapshots at each snapshot (None: epoch 0,
+        # nothing).
         self.epoch = epoch or (lambda: 0)
+        self._sched = sched or dict
+        self._ladder = ladder or dict
 
     def snapshot(self) -> dict:
         """O(window), whatever the uptime. The counts of features the
-        port does not have read 0: device errors and the host fallback
-        (ROADMAP item 9), batch dedup and the prefilter and DFA counters
-        of the metric registry (item 10). `score_errors` stays 0: a
-        scorer failure fails its batch. `hotswap` has the epoch and this
-        process's swaps of the Python plane by tenant and result."""
+        port does not have read 0: batch dedup and the prefilter and
+        DFA counters of the metric registry (ROADMAP item 10). `sched` is
+        the scheduler's snapshot with the admission windows, `ladder`
+        the ladder's; `hotswap` has the epoch and this process's swaps of
+        the Python plane by tenant and result."""
         return {
             "batches": self.batches,
             "requests": self.requests,
-            "device_errors": 0,
-            "score_errors": 0,
-            "host_fallback_batches": 0,
+            "device_errors": self.device_errors,
+            "score_errors": self.score_errors,
+            "host_fallback_batches": self.host_fallback_batches,
             "mean_occupancy": (self.requests / self.batches
                                if self.batches else 0.0),
             "dedup_hits": 0,
@@ -192,14 +250,18 @@ class ServiceStats:
             "verdict_p50_ms": self.wait.percentile(50),
             "verdict_p99_ms": self.wait.percentile(99),
             "stages": {k: w.summary() for k, w in self.stages.items()},
+            "sched": {**self._sched(),
+                      "admission": {k: w.summary()
+                                    for k, w in self.admission.items()}},
+            "ladder": self._ladder(),
             "hotswap": {"epoch": self.epoch(),
                         "swaps": swap_counts("python")},
         }
 
 
 class VerdictService:
-    """Fixed-window batching collector over `make_verdict_fn`, with the
-    pipelined executor of the module's docstring."""
+    """The scheduler's batching collector over `make_verdict_fn`, with
+    the pipelined executor and the ladder of the module's docstring."""
 
     # Timing samples kept per window (tests shrink it).
     WINDOW = WINDOW
@@ -222,8 +284,14 @@ class VerdictService:
             else bot_score_params.to(self.device)
         self._queue: Optional[asyncio.Queue] = None
         self._task: Optional[asyncio.Task] = None
+        self.sched = Scheduler(SchedulerConfig.from_env(max_batch),
+                               plane="python")
+        self.ladder = DegradationLadder("python")
+        self._dfa_rung = DfaRung(self.ladder, plan)
         self.stats = ServiceStats(self.WINDOW,
-                                  epoch=lambda: self.ruleset_epoch)
+                                  epoch=lambda: self.ruleset_epoch,
+                                  sched=self.sched.snapshot,
+                                  ladder=self.ladder.snapshot)
         # The executor: batches in flight at most `_pipeline_depth`
         # (PINGOO_SCHED_PIPELINE, default 2; a non-integer raises
         # ValueError as in the JAX package; PINGOO_PIPELINE_DEPTH
@@ -242,8 +310,9 @@ class VerdictService:
         self._batch_tasks: set = set()
         self._profiler = None  # (torch.profiler session, output dir)
         self._profile_task: Optional[asyncio.Task] = None
-        # The megastep, taken by every batch of this service when
-        # PINGOO_MEGASTEP=force at construction (decided once, as the
+        # The megastep, taken by every batch of this service under
+        # PINGOO_MEGASTEP=force at construction, and by batches with a
+        # backlog behind them under auto (the mode decided once, as the
         # sidecar does). `mega_echo_mismatch` counts slices whose epoch
         # echo differs from the epoch served when they finish: a window
         # that crossed a swap's flip would show here.
@@ -295,7 +364,7 @@ class VerdictService:
                     nbuf=self._pipeline_depth, stage_caps=caps,
                     overflow_thresholds=stage_overflow_thresholds(plan,
                                                                   caps))
-        if self._mega_mode == "force":
+        if self._mega_mode != "off":
             state["mega_runner"] = MegastepRunner(
                 make_megastep_fn(plan, kind="matrix"), plan.np_tables,
                 plan.device)
@@ -320,15 +389,18 @@ class VerdictService:
         the card under `force` the capture of that window's graph),
         waited for: the lazily built constants and table layouts, and
         the first launches, are paid here and not by the first batch
-        served. An error raises."""
+        served (under `auto` the per-batch path is warmed, and a window
+        shape captures at its first window). An error raises."""
         staging = state["staging"]
         staged = staging.checkout() if staging is not None else None
         try:
             fast, _ = self._encode([RequestTuple()],
                                    pow2_batch_size(1, self.max_batch),
                                    staging, staged, state["plan"])
+            k = self._window_k(fast.size) \
+                if self._mega_mode == "force" else None
             for out in self._issue(fast, 1, self.ruleset_epoch,
-                                   state)[:3]:
+                                   state, k)[:3]:
                 if out is not None:
                     _host_array(out)
         finally:
@@ -421,12 +493,13 @@ class VerdictService:
         return {"profiling": True, "dir": out_dir, "seconds": seconds}
 
     async def evaluate(self, req: RequestTuple) -> Verdict:
-        """Await the verdict for one request."""
+        """Await the verdict for one request. Its entry time anchors its
+        deadline."""
         if self._task is None:
             raise RuntimeError("VerdictService.evaluate before start()")
         t0 = time.monotonic()
         fut = asyncio.get_running_loop().create_future()
-        await self._queue.put((req, fut))
+        await self._queue.put((req, fut, t0))
         verdict = await fut
         self.stats.wait.append((time.monotonic() - t0) * 1e3)
         return verdict
@@ -487,21 +560,36 @@ class VerdictService:
         }
 
     async def _collector(self) -> None:
+        """Admission: pop, assemble under the scheduler's launch policy,
+        hand the batch to a task of its own (at most `_pipeline_depth` in
+        flight), so the next batch assembles while it runs. Under
+        `continuous` the assembly waits `wait_budget_s`: the oldest
+        request's slack less the estimate; under `fixed` `max_wait_us`
+        after the first pop. Pending entries are (request, future, entry
+        time, admit time)."""
+        sched = self.sched
+        continuous = sched.config.mode == "continuous"
+        admission = self.stats.admission
         sem = asyncio.Semaphore(self._pipeline_depth)
         while True:
             item = await self._queue.get()
             if isinstance(item, _PlanSwap):
                 await self._apply_swap(item)
                 continue
-            pending = [item]
+            t_first = time.monotonic()
+            admission["queue_wait"].append((t_first - item[2]) * 1e3)
+            pending = [(*item, t_first)]
+            oldest_enq = item[2]
+            fixed_deadline = t_first + self.max_wait_s
             # A swap sentinel closes the batch being assembled: its
             # requests launch on the old plan, the flip follows (after
             # they finish), and the requests behind the sentinel are
             # admitted on the new plan.
             swap = None
-            deadline = time.monotonic() + self.max_wait_s
             while len(pending) < self.max_batch:
-                timeout = deadline - time.monotonic()
+                now = time.monotonic()
+                timeout = sched.wait_budget_s(len(pending), oldest_enq, now) \
+                    if continuous else fixed_deadline - now
                 if timeout <= 0:
                     break
                 try:
@@ -511,7 +599,9 @@ class VerdictService:
                 if isinstance(item, _PlanSwap):
                     swap = item
                     break
-                pending.append(item)
+                t_adm = time.monotonic()
+                admission["queue_wait"].append((t_adm - item[2]) * 1e3)
+                pending.append((*item, t_adm))
             # Whatever is already queued rides this batch for free.
             while swap is None and len(pending) < self.max_batch \
                     and not self._queue.empty():
@@ -519,11 +609,18 @@ class VerdictService:
                 if isinstance(item, _PlanSwap):
                     swap = item
                     break
-                pending.append(item)
-            # At most `_pipeline_depth` batches in flight: each is its own
-            # task, and the next batch gathers while they run.
+                t_adm = time.monotonic()
+                admission["queue_wait"].append((t_adm - item[2]) * 1e3)
+                pending.append((*item, t_adm))
+            t_launch = time.monotonic()
+            admission["sched"].append((t_launch - t_first) * 1e3)
+            for entry in pending:
+                admission["batch_assembly"].append(
+                    (t_launch - entry[3]) * 1e3)
+            sched.note_launch(len(pending), self._queue.qsize())
             await sem.acquire()
-            task = asyncio.create_task(self._run_batch_guarded(pending, sem))
+            task = asyncio.create_task(
+                self._run_batch_guarded(pending, t_launch, sem))
             self._batch_tasks.add(task)
             task.add_done_callback(self._batch_tasks.discard)
             if swap is not None:
@@ -598,38 +695,115 @@ class VerdictService:
                 self._adopt_engine_state(swap.state)
                 if swap.lists is not None:
                     self.lists = swap.lists
+                self._dfa_rung.reset(self.plan)
                 self.tenant = swap.tenant
                 self.ruleset_epoch += 1
             finally:
                 self._swapping = False
                 self._gate.notify_all()
 
-    async def _run_batch_guarded(self, pending, sem) -> None:
+    async def _run_batch_guarded(self, pending, t_launch: float,
+                                 sem) -> None:
         """One batch in a worker thread; its verdicts, or its error, go
         to its callers, and its in-flight slot is released whatever
-        happens."""
+        happens. Under a fail-open policy other than `serve` the requests
+        no immediate launch can serve in time are answered first, and a
+        batch that overruns a stage's budget is answered whole."""
         try:
-            reqs = [r for r, _ in pending]
+            if self.sched.config.failopen != "serve":
+                pending = await self._apply_failopen(pending)
+                if not pending:
+                    return
+            reqs = [p[0] for p in pending]
             try:
                 verdicts = await asyncio.get_running_loop().run_in_executor(
-                    None, self.evaluate_batch, reqs)
-            except Exception as exc:  # surface the failure to every caller
-                for _, fut in pending:
-                    if not fut.done():
-                        fut.set_exception(exc)
+                    None, self.evaluate_batch, reqs, t_launch)
+            except _StageBudgetExceeded:
+                await self._failopen_batch(pending)
                 return
-            for (_, fut), v in zip(pending, verdicts):
-                if not fut.done():
-                    fut.set_result(v)
+            except Exception as exc:  # surface the failure to every caller
+                for p in pending:
+                    if not p[1].done():
+                        p[1].set_exception(exc)
+                return
+            self._resolve(pending, verdicts)
         finally:
             sem.release()
 
-    def evaluate_batch(self, reqs: list[RequestTuple]) -> list[Verdict]:
+    def _resolve(self, pending, verdicts) -> None:
+        """Answer `pending` and count its deadline misses."""
+        t_res = time.monotonic()
+        for (_, fut, t_enq, _), verdict in zip(pending, verdicts):
+            self.sched.note_resolved(t_enq, t_res)
+            if not fut.done():
+                fut.set_result(verdict)
+
+    def _interpreted(self, reqs: list[RequestTuple]) -> list[Verdict]:
+        """Verdicts of the host interpreter over the untruncated tuples."""
+        matched = self._interpret_rows(reqs)
+        actions, verified_block = action_lanes(self.plan, matched)
+        return [Verdict(action=int(actions[i]), matched=matched[i],
+                        verified_block=bool(verified_block[i]),
+                        epoch=self.ruleset_epoch)
+                for i in range(len(reqs))]
+
+    def _interpret_rows(self, reqs: list[RequestTuple]) -> np.ndarray:
+        if not reqs:
+            return np.zeros((0, len(self.plan.rules)), dtype=bool)
+        return np.stack([interpret_rules_row(
+            self.plan, tuple_to_context(r, self.lists)) for r in reqs])
+
+    async def _failopen_batch(self, pending) -> None:
+        """Answer `pending` by the PINGOO_SCHED_FAILOPEN route: `allow`
+        with the degraded no-match verdict (action 0) at once,
+        `interpret` by the host interpreter."""
+        self.sched.note_failopen(len(pending))
+        reqs = [p[0] for p in pending]
+        if self.sched.config.failopen == "interpret":
+            verdicts = await asyncio.get_running_loop().run_in_executor(
+                None, self._interpreted, reqs)
+        else:
+            R = len(self.plan.rules)
+            verdicts = [Verdict(action=0, matched=np.zeros(R, dtype=bool),
+                                degraded=True, epoch=self.ruleset_epoch)
+                        for _ in reqs]
+        self._resolve(pending, verdicts)
+
+    async def _apply_failopen(self, pending) -> list:
+        """Fail open the requests whose deadline an immediate launch
+        cannot meet (`sched.unmeetable`); returns those that still ride
+        the device batch."""
+        now = time.monotonic()
+        late = [self.sched.unmeetable(p[2], now, len(pending))
+                for p in pending]
+        if not any(late):
+            return pending
+        await self._failopen_batch([p for p, x in zip(pending, late) if x])
+        return [p for p, x in zip(pending, late) if not x]
+
+    def _check_stage_budget(self, stage: str,
+                            t_launch: Optional[float]) -> None:
+        """Raise _StageBudgetExceeded when the batch, `t_launch` ago, has
+        spent more than `stage`'s share of the deadline; never under
+        `serve`, for a stage without a share, or without a launch time."""
+        if t_launch is None or self.sched.config.failopen == "serve":
+            return
+        frac = PIPELINE_STAGE_BUDGET.get(stage)
+        if frac is None:
+            return
+        elapsed_ms = (time.monotonic() - t_launch) * 1e3
+        if elapsed_ms > frac * self.sched.config.deadline_ms:
+            raise _StageBudgetExceeded(stage, elapsed_ms)
+
+    def evaluate_batch(self, reqs: list[RequestTuple],
+                       t_launch: Optional[float] = None) -> list[Verdict]:
         """Evaluate one batch synchronously, through the executor's
         chain (the collector's worker; callable from any thread: under
         `on` a caller waits for a free staging set, so at most
         `_pipeline_depth` batches are in flight; during a swap's flip a
-        caller waits for the new plan)."""
+        caller waits for the new plan). `t_launch` is the collector's
+        launch time: the stage budgets and the megastep's K count from
+        there."""
         with self._gate:
             while self._swapping:
                 self._gate.wait()
@@ -640,7 +814,7 @@ class VerdictService:
             try:
                 slot = self._pipe.enter(self.pipeline_mode)
                 try:
-                    return self._evaluate(reqs, slot, staged)
+                    return self._evaluate(reqs, slot, staged, t_launch)
                 finally:
                     self._pipe.exit()
             finally:
@@ -653,43 +827,36 @@ class VerdictService:
                     self._gate.notify_all()
 
     def _evaluate(self, reqs: list[RequestTuple], slot: int,
-                  staged: Optional[int]) -> list[Verdict]:
+                  staged: Optional[int],
+                  t_launch: Optional[float]) -> list[Verdict]:
         pipe, tokens = self._pipe, self._stage_tokens
         n = len(reqs)
+        P = pow2_batch_size(n, self.max_batch)
         t_start = time.monotonic()
         with tokens["encode"]:
             t0 = time.monotonic()
-            fast, overflow = self._encode(
-                reqs, pow2_batch_size(n, self.max_batch), self._staging,
-                staged, self.plan)
+            fast, overflow = self._encode_laddered(reqs, P, staged)
             t1 = time.monotonic()
+        self._check_stage_budget("encode", t_launch)
         epoch = self.ruleset_epoch
-        with tokens["dispatch"]:
-            # Issue order is device order (one stream). The result's copy
-            # to the host is queued here, so the wait below is for this
-            # batch alone.
-            t2 = time.monotonic()
-            dev, echo, scores, slices = self._issue(
-                fast, n, epoch, {"plan": self.plan,
-                                 "verdict_fn": self._verdict_fn,
-                                 "mega_runner": self._mega_runner,
-                                 "mega_queue": self._mega_queue})
-            if slices is not None:
-                self._pipe.note_megastep(len(slices), "force")
-            t3 = time.monotonic()
-        # Host rules run first, then the one wait for the device result.
-        if slices is not None:
-            matched = finish_megastep(self.plan, dev, slices, fast,
-                                      self.lists)[:n]
-            self.mega_echo_mismatch += int(
-                (_host_array(echo) != self.ruleset_epoch).sum())
-        else:
-            matched = finish_batch(self.plan, dev, fast, self.lists)[:n]
+        matched, scores, t2, t3 = self._device_batch(fast, n, epoch,
+                                                     t_launch)
         t4 = time.monotonic()
-        matched = self._rewrite_overflow_rows(reqs, overflow, matched)
+        if matched is None:
+            # The device rung is demoted, or this batch's device work
+            # failed: the interpreter serves it, untruncated.
+            self.stats.host_fallback_batches += 1
+            matched = self._interpret_rows(reqs)
+        else:
+            matched = self._rewrite_overflow_rows(reqs, overflow, matched)
         actions, verified_block = action_lanes(self.plan, matched)
-        bot = _host_array(scores)[:n].tolist() if scores is not None \
-            else [0.0] * n
+        bot = [0.0] * n
+        if scores is not None:
+            try:
+                bot = _host_array(scores)[:n].tolist()
+            except Exception as exc:
+                never_demoted(exc)
+                self.stats.score_errors += 1
         verdicts = [Verdict(action=int(actions[i]), matched=matched[i],
                             bot_score=bot[i],
                             verified_block=bool(verified_block[i]),
@@ -708,7 +875,137 @@ class VerdictService:
         stats.batches += 1
         stats.requests += n
         stats.staged_bytes += fast.staged_bytes
+        # The cost model: the batch's wall, and the executor's stages
+        # (issue and compute only when the card served the batch).
+        sched = self.sched
+        sched.observe_cost(P, (t5 - t_start) * 1e3)
+        sched.observe_stage_cost("encode", P, (t1 - t0) * 1e3)
+        if t3 > t2:
+            sched.observe_stage_cost("dispatch", P, (t3 - t2) * 1e3)
+            sched.observe_stage_cost("compute", P, (t4 - t3) * 1e3)
         return verdicts
+
+    def _encode_laddered(self, reqs: list[RequestTuple], P: int,
+                         staged: Optional[int]):
+        """`_encode` into the checked-out staging set while the ladder's
+        pipeline rung is healthy (or probing); a staging error demotes it
+        and the batch encodes through the one-batch chain."""
+        if staged is not None and self.ladder.try_rung("pipeline"):
+            try:
+                out = self._encode(reqs, P, self._staging, staged, self.plan)
+                self.ladder.note_success("pipeline")
+                return out
+            except Exception as exc:
+                never_demoted(exc)
+                self.ladder.note_failure("pipeline", exc)
+        return self._encode(reqs, P, None, None, self.plan)
+
+    def _device_batch(self, fast: RequestBatch, n: int, epoch: int,
+                      t_launch: Optional[float]):
+        """The batch's [n, R] matrix from the card, its scores' queued
+        copy (None without the head, or after a scorer error) and its
+        issue's start and end. The matrix is None when the device rung is
+        demoted or the device work failed (`DfaRung.failure`): the
+        caller interprets the batch. A window that fails demotes the
+        megastep rung and the batch is issued per batch."""
+        state = {"plan": self.plan, "verdict_fn": self._verdict_fn,
+                 "mega_runner": self._mega_runner,
+                 "mega_queue": self._mega_queue}
+        tokens = self._stage_tokens
+        self._dfa_rung.tick(self.plan)
+        t2 = t3 = time.monotonic()
+        if not self.ladder.try_rung("device"):
+            return None, None, t2, t3
+        try:
+            matched = scores = None
+            k = self._megastep_k(fast.size, t_launch)
+            if k is not None:
+                try:
+                    with tokens["dispatch"]:
+                        t2 = time.monotonic()
+                        dev, echo, scores, slices = self._issue(
+                            fast, n, epoch, state, k)
+                        self._pipe.note_megastep(k, self._mega_mode)
+                        t3 = time.monotonic()
+                    self._check_dispatch_budget(t_launch, dev, scores)
+                    matched = finish_megastep(self.plan, dev, slices, fast,
+                                              self.lists)[:n]
+                    self.mega_echo_mismatch += int(
+                        (_host_array(echo) != epoch).sum())
+                    self.sched.observe_megastep_cost(
+                        k, fast.size // k, (time.monotonic() - t2) * 1e3)
+                    self.ladder.note_success("megastep")
+                except _StageBudgetExceeded:
+                    raise
+                except Exception as exc:
+                    never_demoted(exc)
+                    self.ladder.note_failure("megastep", exc)
+                    matched = None
+            if matched is None:
+                with tokens["dispatch"]:
+                    # Issue order is device order (one stream). The
+                    # result's copy to the host is queued here, so the
+                    # wait below is for this batch alone.
+                    t2 = time.monotonic()
+                    dev, _, scores, _ = self._issue(fast, n, epoch, state)
+                    t3 = time.monotonic()
+                if fast.staged_bytes:
+                    self.sched.observe_dispatch_bytes(fast.staged_bytes,
+                                                      (t3 - t2) * 1e3)
+                self._check_dispatch_budget(t_launch, dev, scores)
+                # Host rules run first, then the one wait.
+                matched = finish_batch(self.plan, dev, fast,
+                                       self.lists)[:n]
+            self._dfa_rung.success()
+            return matched, scores, t2, t3
+        except _StageBudgetExceeded:
+            raise
+        except Exception as exc:
+            never_demoted(exc)
+            self.stats.device_errors += 1
+            self._dfa_rung.failure(self.plan, exc)
+            return None, None, t2, t2
+
+    def _check_dispatch_budget(self, t_launch, *outs) -> None:
+        """The dispatch stage's budget; on an overrun the batch's queued
+        results are waited for first, so its staging set is released
+        only once the card has read it."""
+        try:
+            self._check_stage_budget("dispatch", t_launch)
+        except _StageBudgetExceeded:
+            for out in outs:
+                if out is not None:
+                    _host_array(out)
+            raise
+
+    # -- the megastep ---------------------------------------------------------
+
+    def _window_k(self, size: int) -> int:
+        """The largest rung of the K ladder that divides `size` rows."""
+        return max(r for r in self._mega_rungs if size % r == 0)
+
+    def _megastep_k(self, size: int, t_launch: Optional[float]):
+        """K of this batch's window, or None for the per-batch path:
+        under `force` `_window_k`; under `auto` only with a backlog
+        queued, sized down by `sched.size_megastep_k` against the slack
+        left since the launch, and None below 2; never while the
+        megastep rung is demoted outside its probe."""
+        if self._mega_runner is None:
+            return None
+        if self._mega_mode == "auto" and (self._queue is None
+                                          or self._queue.qsize() <= 0):
+            return None
+        k = self._window_k(size)
+        if self._mega_mode != "force":
+            now = time.monotonic()
+            k = min(k, self.sched.size_megastep_k(
+                self._mega_rungs, size // k,
+                t_launch if t_launch is not None else now, now))
+            if k <= 1:
+                return None
+        if not self.ladder.try_rung("megastep"):
+            return None
+        return k
 
     @staticmethod
     def _encode(reqs: list[RequestTuple], P: int,
@@ -726,16 +1023,18 @@ class VerdictService:
         fast.staged_bytes = _nbytes(fast.arrays)
         return fast, batch.overflow
 
-    def _issue(self, fast: RequestBatch, n: int, epoch: int, state: dict):
+    def _issue(self, fast: RequestBatch, n: int, epoch: int, state: dict,
+               k: Optional[int] = None):
         """Issue one padded batch's device work on an engine state's
         programs (the served ones under the dispatch token, or a built
         state's for its warm-up): the bot head's launches first, on the
-        same staged batch, then the verdict's, as one megastep window
-        under `force`. A packed batch is uploaded once and decoded on
-        the device. Returns the queued host copies of the matrix, the
-        epoch echo (None off the megastep) and the scores (None without
-        the head), and the window's slices (None off the megastep)."""
-        mega = state["mega_runner"] is not None
+        same staged batch, then the verdict's, as one megastep window of
+        `k` slices when `k` is given. A packed batch is uploaded once and
+        decoded on the device. Returns the queued host copies of the
+        matrix, the epoch echo (None off the megastep) and the scores
+        (None without the head or after a scorer error, counted), and
+        the window's slices (None off the megastep)."""
+        mega = k is not None
         if mega:
             arrays = None
         elif fast.packed is not None:
@@ -745,28 +1044,33 @@ class VerdictService:
             arrays = batch_tensors(fast.arrays, self.device)
         scores = None
         if self.bot_score_params is not None:
-            head_in = arrays if arrays is not None else batch_tensors(
-                {k: fast.arrays[k] for k in botscore.INPUT_KEYS}, self.device)
-            scores = to_host_async(botscore.score(self.bot_score_params,
-                                                  head_in))
+            try:
+                head_in = arrays if arrays is not None else batch_tensors(
+                    {c: fast.arrays[c] for c in botscore.INPUT_KEYS},
+                    self.device)
+                scores = to_host_async(botscore.score(self.bot_score_params,
+                                                      head_in))
+            except Exception as exc:
+                never_demoted(exc)
+                self.stats.score_errors += 1
+                scores = None
         if mega:
             dev, echo, slices = self._issue_megastep(
-                fast, n, state["mega_runner"], state["mega_queue"], epoch)
+                fast, n, k, state["mega_runner"], state["mega_queue"], epoch)
             return dev, echo, scores, slices
         dev = to_host_async(state["verdict_fn"](state["plan"].np_tables,
                                                 arrays))
         return dev, None, scores, None
 
-    def _issue_megastep(self, fast: RequestBatch, n: int,
+    def _issue_megastep(self, fast: RequestBatch, n: int, k: int,
                         runner: MegastepRunner, queue: DeviceInputQueue,
                         epoch: int):
         """One batch as a megastep window (for `_issue`): its P padded
-        rows as K slices of P / K rows, K the largest rung that divides
-        P, the n live rows in the first slices, each stamped with
-        `epoch`. Returns the matrix's and the echo's queued copies to the
-        host and each slice's (row offset, live rows)."""
+        rows as k slices of P / k rows, the n live rows in the first
+        slices, each stamped with `epoch`. Returns the matrix's and the
+        echo's queued copies to the host and each slice's (row offset,
+        live rows)."""
         size = fast.size
-        k = max(r for r in self._mega_rungs if size % r == 0)
         rows = size // k
         buf = queue.checkout()
         try:

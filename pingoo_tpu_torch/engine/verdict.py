@@ -166,6 +166,23 @@ def _dfa_win_active(plan: RulesetPlan, key: str, mode: str) -> bool:
     return mode == "force" or plan.device.type == "cpu"
 
 
+def dfa_dispatch_counts(plan: RulesetPlan) -> tuple[str, int, int]:
+    """(resolved PINGOO_DFA mode, banks running their lowered DFA,
+    approximate ones among them that recheck through the NFA), as the
+    JAX package counts them: the ladder's dfa rung demotes only a plan
+    that runs a DFA."""
+    mode = _resolve_dfa_mode(plan)
+    banks = recheck = 0
+    keys = [e.dfa_key for e in plan.scan_plans.values()
+            if _dfa_bank_active(plan, e, mode)]
+    keys += [plan.win_dfa[k] for k in plan.win_dfa
+             if _dfa_win_active(plan, k, mode)]
+    for dkey in keys:
+        banks += 1
+        recheck += not plan.np_tables[dkey].exact
+    return mode, banks, recheck
+
+
 # -- numeric IR evaluation ---------------------------------------------------
 
 
@@ -760,9 +777,9 @@ def _make_lane_body(plan: RulesetPlan, groups: list[list[str]],
 # PINGOO_MEGASTEP (read where the planes decide, as in the JAX package):
 #   off   — per-batch dispatch, the parity oracle (the default);
 #   force — every batch goes through a megastep window (K may be 1);
-#   auto  — raises NotImplementedError (device.check_env): it sizes K
-#           against deadline slack with the scheduler's cost model
-#           (ROADMAP.md, port queue item 9).
+#   auto  — a window only with a backlog queued behind the batch, K
+#           sized against the oldest row's deadline slack by the
+#           scheduler's cost model (sched/scheduler.py size_megastep_k).
 # PINGOO_MEGASTEP_K caps K (default 4). Short slices are masked by a
 # per-slice n_valid word, never re-shaped; a per-slice ruleset epoch word
 # passes through the program untouched. On the card the window is one
@@ -803,6 +820,12 @@ class MegastepProgram(NamedTuple):
     fn: Any  # (tables, stacked, n_valid, epoch) -> (out, rule_hits, echo)
     kind: str  # "lanes" (sidecar) | "matrix" (Python plane)
     with_rule_hits: bool
+    # The plan the body reads: its DFA mode, which the ladder's dfa rung
+    # changes, decides which kernels a captured graph launches.
+    plan: Any = None
+
+    def dfa_mode(self) -> str:
+        return "" if self.plan is None else _resolve_dfa_mode(self.plan)
 
 
 def make_megastep_fn(plan: RulesetPlan, kind: str = "lanes",
@@ -853,7 +876,7 @@ def make_megastep_fn(plan: RulesetPlan, kind: str = "lanes",
         return torch.stack(outs), torch.stack(hits), epoch.clone()
 
     return MegastepProgram(fn=megastep, kind=kind,
-                           with_rule_hits=with_rule_hits)
+                           with_rule_hits=with_rule_hits, plan=plan)
 
 
 # -- host side: interpreted rules, lanes, actions -----------------------------

@@ -24,9 +24,10 @@ per-rule match row.
 The port's own decisions, where the JAX package's listener reaches
 features the port does not have:
 
-  * an exception from `VerdictService.evaluate` answers 503 and counts
-    in `ListenerStats.engine_errors`: the port has no degraded verdict
-    to serve in its place (ROADMAP.md item 9), and never allows;
+  * an exception from `VerdictService.evaluate` (a device error goes
+    down the service's degradation ladder and is served; what reaches
+    the listener is a kernel that failed to build or launch) answers
+    503 and counts in `ListenerStats.engine_errors`, and never allows;
   * /__pingoo/metrics serves its JSON payload (listener counts, the
     verdict service's `stats.snapshot()` and `pipeline_snapshot()`)
     under `Accept: application/json`; the Prometheus exposition and the

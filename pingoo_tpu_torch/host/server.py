@@ -27,6 +27,7 @@ from ..device import check_env, pipeline_mode, resolve_device
 from ..engine.service import VerdictService
 from ..lists import load_lists
 from ..logging_utils import get_logger
+from ..sched import SchedulerConfig, mesh_env_spec
 from .captcha import CaptchaManager
 from .discovery import ServiceRegistry
 from .geoip import GeoipDB
@@ -92,11 +93,16 @@ class Server:
         self.lists = lists
 
         # The knobs of features the port does not have raise here, before
-        # any table is built.
+        # any table is built, and so does a malformed PINGOO_MESH; the
+        # admission policy the planes will run under is logged.
         check_env()
+        mesh_spec = mesh_env_spec()
+        sched_cfg = SchedulerConfig.from_env(max_batch=1024)
         log.info("scheduler config", extra={"fields": {
-            "device": str(self.device), "mesh": "1", "mode": "fixed",
-            "pipeline": pipeline_mode()}})
+            "device": str(self.device),
+            "mesh": "x".join(str(d) for d in mesh_spec),
+            "mode": sched_cfg.mode, "deadline_ms": sched_cfg.deadline_ms,
+            "failopen": sched_cfg.failopen, "pipeline": pipeline_mode()}})
 
         # Service route predicates compile into the same plan as extra
         # verdict columns (rules AND routing decided by one batch).

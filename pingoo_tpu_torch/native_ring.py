@@ -10,10 +10,13 @@ same ring. This module holds the port's side of that ring:
   * the numpy mirrors of the ring's C structs (`REQUEST_SLOT_DTYPE` and
     the rest), so that a dequeued batch decodes with one structured view
     (`slots_to_arrays`);
-  * `RingSidecar`: the drain loop. It dequeues one merged batch across
-    the rings, runs the lane function of `engine/verdict.py` on the
-    plan's device, and posts the verdict bytes back on each request's
-    own ring, with up to `pipeline_depth` batches in flight under
+  * `RingSidecar`: the drain loop. It dequeues across the rings into
+    one merged batch, launched when the admission scheduler says
+    (`sched/scheduler.py`), runs the lane function of `engine/verdict.py`
+    on the plan's device (down the degradation ladder,
+    `engine/ladder.py`, when a rung fails), and posts the verdict bytes
+    back on each request's own ring, with up to `pipeline_depth` batches
+    in flight under
     PINGOO_PIPELINE=on (the default), one at a time under off; under
     PINGOO_MEGASTEP=force K batches at a time go through one megastep
     window (one CUDA graph replay on the card). With
@@ -54,7 +57,8 @@ import numpy as np
 
 from .device import check_env, pipeline_mode, resolve_device
 from .device import pipeline_depth as _env_depth
-from .engine.bodyscan import (BodyScanner, BodyWindow, body_inspect_enabled,
+from .engine.bodyscan import (BodyScanner, BodyVerdict, BodyWindow,
+                              body_inspect_enabled,
                               body_max_flows, body_window_bytes,
                               merge_actions, split_payload)
 from .engine.batch import (DeviceInputQueue, RequestBatch, RequestTuple,
@@ -63,6 +67,7 @@ from .engine.batch import (DeviceInputQueue, RequestBatch, RequestTuple,
                            stage_overflow_thresholds, tuple_to_context)
 from .engine.graphs import MegastepRunner
 from .engine.hotswap import SwapHandle, note_swap, set_epoch_gauge, swap_counts
+from .engine.ladder import DegradationLadder, DfaRung
 from .engine.verdict import (LANE_NONE, _host_array, _resolve_megastep_mode,
                              action_lanes, host_rule_lanes,
                              interpret_rules_row, make_lane_fn,
@@ -70,9 +75,12 @@ from .engine.verdict import (LANE_NONE, _host_array, _resolve_megastep_mode,
                              megastep_k_cap, megastep_k_ladder, merge_lanes,
                              to_host_async)
 from .expr import execute_as_bool
+from .obs.chaos import ChaosInjector
 from .obs.pipeline import PipelineStats
 from .obs.window import WINDOW, TimingWindow
 from .ops import _build
+from .ops._build import never_demoted
+from .sched import Scheduler, SchedulerConfig
 
 PKG_DIR = Path(__file__).resolve().parent
 NATIVE_DIR = PKG_DIR / "native"
@@ -723,14 +731,14 @@ class _MegaSlice:
     would have handed `_complete`, kept until the window's one wait."""
 
     __slots__ = ("parts", "slots", "raw", "n", "slot_buf", "pipe_slot",
-                 "epoch")
+                 "epoch", "oldest_enq_ms", "skip_masks")
 
 
 class _MegaWindow:
     """One megastep window in flight: its slices, its input set and its
     result's queued copies to the host."""
 
-    __slots__ = ("slices", "buf_id", "lanes", "echo", "t_launch")
+    __slots__ = ("slices", "buf_id", "lanes", "echo", "t_launch", "k_ship")
 
 
 class RingSidecar:
@@ -750,17 +758,28 @@ class RingSidecar:
     posts each finished flow's body verdict on its ring, the ticket
     tagged with BODY_VERDICT_BIT (0 for a flow the scanner degraded).
 
+    Admission (sched/scheduler.py, PINGOO_SCHED_MODE): under
+    `continuous` (the default) the slots dequeued by successive passes
+    accumulate into one batch (under `on`, into one pooled buffer at its
+    next free row) until it is full or the oldest slot's deadline slack
+    (PINGOO_DEADLINE_MS, on the ring's `enq_ms` clock) no longer covers
+    the cost model's estimate; under `fixed` every pass that dequeued
+    something launches it. Under PINGOO_SCHED_FAILOPEN=allow the rows no
+    launch can serve in time are posted action 0 at launch, and their
+    device verdicts are never posted; posts later than the deadline
+    count as misses.
+
     The executor (PINGOO_PIPELINE, as in the JAX package): under `on`
-    (the default) each pass dequeues straight into a pooled slot buffer
-    (`Ring.dequeue_batch_into`), encodes it through a `StagingEncoder`'s
-    reused views, issues the lane function with its result's copy to the
-    host queued behind it (`verdict.to_host_async`), and keeps up to
-    `pipeline_depth` batches (default 3; PINGOO_PIPELINE_DEPTH overrides
-    it) in flight, completed in FIFO order when the bound is reached or
-    when a pass launched nothing. Under `off`, `0` or `false` each batch
-    is decoded through slots_to_arrays -> bucket -> pad and completed
-    before the next pass. Completion in FIFO order keeps the posted
-    tickets a prefix. A staging error raises as a device error does.
+    (the default) slots dequeue straight into a pooled slot buffer
+    (`Ring.dequeue_batch_into`), a batch encodes through a
+    `StagingEncoder`'s reused views, issues the lane function with its
+    result's copy to the host queued behind it (`verdict.to_host_async`),
+    and up to `pipeline_depth` batches (default 3; PINGOO_PIPELINE_DEPTH
+    overrides it) stay in flight, completed in FIFO order when the bound
+    is reached or when a pass launched nothing. Under `off`, `0` or
+    `false` each batch is decoded through slots_to_arrays -> bucket ->
+    pad and completed before the next pass. Completion in FIFO order
+    keeps the posted tickets a prefix.
 
     Compact staging (PINGOO_STAGING=compact, under `on`): the encoder
     copies each field's capped prefix (`resolve_stage_caps`) straight
@@ -769,22 +788,37 @@ class RingSidecar:
     slices take the capped views. Rows whose true length passes a cap
     clamped below the plan's required depth (PINGOO_STAGING_DEPTH) are
     flagged and re-served from their full slot bytes through the
-    interpreter (`depth_overflow_rows`). An encoder that cannot take the
-    caps raises; nothing falls back to full staging.
+    interpreter (`depth_overflow_rows`).
 
-    The megastep (PINGOO_MEGASTEP=force at construction; PINGOO_MEGASTEP_K
-    caps K, default 4): a pass that dequeued a batch with no window open
-    opens one, checking out a `DeviceInputQueue` set; while a window is
-    open every admitted batch stages into it (padded to `max_batch`), so
-    tickets still post in order. The window ships when it holds K slices
-    or a pass dequeued nothing: K quantised up the pow2 ladder, one CUDA
-    graph replay on the card (engine/graphs.py), its lanes' copy queued
-    right after. A window in flight counts as one of `pipeline_depth`;
-    its completion runs every slice's host rules, waits once, then
-    completes each slice as a batch, and returns the set. The set and the
-    slot buffers of its slices are held until then, so there are
-    `pipeline_depth + 1` sets and `pipeline_depth * K + 1` slot buffers.
-    A capture, replay or launch error propagates out of `run()`.
+    The megastep (PINGOO_MEGASTEP=force or auto at construction;
+    PINGOO_MEGASTEP_K caps K, default 4): a launched batch with no window
+    open opens one (under `auto` only with slots still queued on the
+    rings, its K target sized by `sched.size_megastep_k` against the
+    oldest slot's slack), checking out a `DeviceInputQueue` set; while a
+    window is open every launched batch stages into it (padded to
+    `max_batch`), so tickets still post in order. The window ships when
+    it holds its target, when a pass dequeued nothing, or (under `auto`)
+    when the oldest slice's slack no longer covers the window's
+    estimate: K quantised up the pow2 ladder, one CUDA graph replay on
+    the card (engine/graphs.py), its lanes' copy queued right after. A
+    window in flight counts as one of `pipeline_depth`; its completion
+    runs every slice's host rules, waits once, then completes each slice
+    as a batch, and returns the set. The set and the slot buffers of its
+    slices are held until then, so there are `pipeline_depth + 1` sets
+    and `pipeline_depth * K + 1` slot buffers.
+
+    The degradation ladder (engine/ladder.py), as in the JAX package: a
+    staging error demotes `pipeline` (the batch decodes through the
+    one-batch chain), a window that fails `megastep` (its slices are
+    interpreted, later batches dispatched per batch), a device error
+    `dfa` while the plan runs a lowered DFA (the plan's DFAs off), else
+    `device` (the interpreter serves), a body scan error `body` (the
+    flows' final windows answer action 0). Each probes back after its
+    backoff. A kernel that fails to build or launch
+    (`ops/_build.KernelBuildError`) and a CUDA runtime fault
+    (`ops/_build.DeviceFault`) are never demoted: they propagate out of
+    `run()`. PINGOO_CHAOS (obs/chaos.py) injects faults at the JAX
+    package's points.
 
     Hot-swap (engine/hotswap.py): `request_swap(plan)` builds and warms
     the new plan's state on the caller's thread (under `force` its
@@ -796,12 +830,9 @@ class RingSidecar:
     dequeued in. `swap_pauses_ms` keeps each flip's pause; a swap still
     queued when `run()` ends is resolved "rejected".
 
-    `device=None` means the CUDA card (raises without one). A device
-    error, in a batch or in a body scan, propagates out of `run()`: the
-    heartbeat stops and the data plane's liveness detector fails
-    requests open, as for a dead sidecar. Orphans of an earlier sidecar
-    and rows whose url/path went past the slot caps are evaluated by the
-    interpreter over their full strings.
+    `device=None` means the CUDA card (raises without one). Orphans of
+    an earlier sidecar and rows whose url/path went past the slot caps
+    are evaluated by the interpreter over their full strings.
     """
 
     # A blocking window longer than this is treated as wedged: the
@@ -850,6 +881,11 @@ class RingSidecar:
             if svc not in self._groups:
                 self._groups.append(svc)
             self._ring_group_of[id(r)] = self._groups.index(svc)
+        self.sched = Scheduler(SchedulerConfig.from_env(max_batch),
+                               plane="sidecar")
+        self.ladder = DegradationLadder("sidecar")
+        self._dfa_rung = DfaRung(self.ladder, plan)
+        self.chaos = ChaosInjector.from_env()
         self.pipeline_mode = pipeline_mode()
         on = self.pipeline_mode == "on"
         self.pipeline_depth = _env_depth(pipeline_depth) if on else 1
@@ -863,6 +899,7 @@ class RingSidecar:
         self._mega_rungs = megastep_k_ladder(self._mega_k)
         self._mega_staged: list = []
         self._mega_buf_id: Optional[int] = None
+        self._mega_target = self._mega_k
         self.ruleset_epoch = 0
         self.tenant = "default"
         self.mega_windows = 0
@@ -902,12 +939,26 @@ class RingSidecar:
         if self._mega_runner is not None:
             self.stage_ms["window"] = TimingWindow(self.WINDOW)
         self._ring_rr = -1  # rotating drain start
+        # The batch being accumulated by `run()`: its parts, slots, the
+        # oldest slot's enq_ms and (under `on`) its pooled buffer.
+        self._pend_parts: list = []
+        self._pend_n = 0
+        self._pend_oldest: Optional[int] = None
+        self._pend_buf = None
+        # Passes that ended with slots accumulated and not launched.
+        self.held_passes = 0
         self._thread = None
         self._stop = False
         # Body inspection: the scanner's tables are built here, on the
         # sidecar's device; "body" (ms) is one drain that had windows.
-        self.body_scanner = BodyScanner(device=dev) \
-            if body_inspect_enabled() else None
+        self.body_scanner = None
+        if body_inspect_enabled():
+            try:
+                self.body_scanner = BodyScanner(device=dev)
+            except Exception as exc:
+                never_demoted(exc)
+                # As in the JAX package: no scanner, the rung demoted.
+                self.ladder.note_failure("body", exc)
         self.body_verdicts = 0
         if self.body_scanner is not None:
             self.stage_ms["body"] = TimingWindow(self.WINDOW)
@@ -965,7 +1016,7 @@ class RingSidecar:
                  else make_packed_lane_fn(plan, service_groups=groups),
                  "staging": None, "mega_runner": None, "mega_queue": None}
         slot_caps = dict(FIELD_CAPS, country=2)
-        if self._mega_mode == "force":
+        if self._mega_mode != "off":
             state["mega_runner"] = MegastepRunner(
                 make_megastep_fn(plan, kind="lanes",
                                  service_groups=self._groups),
@@ -984,6 +1035,7 @@ class RingSidecar:
     def _adopt_plan_state(self, plan, lists, state: dict) -> None:
         """Install a built state as the served references: at init, or at
         a swap's flip, when no batch is in flight and no window open."""
+        same_plan = getattr(self, "plan", None) is plan
         self.plan = plan
         if lists is not None:
             self.lists = lists
@@ -995,22 +1047,29 @@ class RingSidecar:
         self._mega_runner = state["mega_runner"]
         self._mega_queue = state["mega_queue"]
         self._plan_state = state
+        # The ladder's dfa rung restores the plan's own DFA mode (a swap
+        # to the served plan, as the swap storm's, keeps the rung's
+        # state).
+        if not same_plan:
+            self._dfa_rung.reset(plan)
 
-    def request_swap(self, plan, lists=None,
-                     tenant: str = "default") -> SwapHandle:
+    def request_swap(self, plan, lists=None, tenant: str = "default",
+                     state: Optional[dict] = None) -> SwapHandle:
         """Thread-safe hot-swap request: build and warm the plan's state
         here, on the caller's thread (`_warm_state`, which under `force`
         captures its graphs), then queue a SwapHandle that the drain
         loop flips to at its next pass; `handle.wait()` blocks until the
         flip. A build or warm-up failure raises here, and the old plan
-        goes on serving."""
-        try:
-            state = self._build_plan_state(plan)
-            self._warm_state(state)
-        except Exception as exc:
-            note_swap("sidecar", tenant, "rejected")
-            raise RuntimeError(f"hot-swap build failed for tenant "
-                               f"{tenant!r}: {exc}") from exc
+        goes on serving. A built `state` is queued as it is (the swap
+        storm re-queues the served one)."""
+        if state is None:
+            try:
+                state = self._build_plan_state(plan)
+                self._warm_state(state)
+            except Exception as exc:
+                note_swap("sidecar", tenant, "rejected")
+                raise RuntimeError(f"hot-swap build failed for tenant "
+                                   f"{tenant!r}: {exc}") from exc
         handle = SwapHandle(plan=plan, tenant=tenant, lists=lists,
                             state=state)
         with self._swap_lock:
@@ -1018,29 +1077,33 @@ class RingSidecar:
         return handle
 
     def _apply_swaps(self, inflight: deque) -> None:
-        """Every queued swap, at the top of a pass: the open window
-        launches, every batch in flight completes (and posts) on the old
-        plan, then the newest state is adopted, one epoch per swap. The
-        pause covers the drain and the flips; no capture, since each
-        state was warmed by its requester."""
+        """Every queued swap, at the top of a pass: the batch being
+        accumulated launches (into the open window when there is room),
+        the open window launches, every batch in flight completes (and
+        posts) on the old plan, then the newest state is adopted, one
+        epoch per swap. The pause covers the drain and the flips; no
+        capture, since each state was warmed by its requester."""
         t0 = time.monotonic()
-        if self._mega_staged:
-            inflight.append(self._launch_megastep())
-        while inflight:
-            self._complete_inflight(inflight.popleft())
-        while True:
-            with self._swap_lock:
-                if not self._swap_queue:
-                    break
-                handle = self._swap_queue.pop(0)
-            self._adopt_plan_state(handle.plan, handle.lists, handle.state)
-            self.ruleset_epoch += 1
-            self.tenant = handle.tenant
-            pause_ms = (time.monotonic() - t0) * 1e3
-            set_epoch_gauge("sidecar", self.ruleset_epoch)
-            note_swap("sidecar", handle.tenant, "ok")
-            self.swap_pauses_ms.append(pause_ms)
-            handle.resolve(self.ruleset_epoch, pause_ms)
+        with self._hb_busy():
+            self._launch_pending(inflight)
+            if self._mega_staged:
+                inflight.append(self._launch_megastep())
+            while inflight:
+                self._complete_inflight(inflight.popleft())
+            while True:
+                with self._swap_lock:
+                    if not self._swap_queue:
+                        break
+                    handle = self._swap_queue.pop(0)
+                self._adopt_plan_state(handle.plan, handle.lists,
+                                       handle.state)
+                self.ruleset_epoch += 1
+                self.tenant = handle.tenant
+                pause_ms = (time.monotonic() - t0) * 1e3
+                set_epoch_gauge("sidecar", self.ruleset_epoch)
+                note_swap("sidecar", handle.tenant, "ok")
+                self.swap_pauses_ms.append(pause_ms)
+                handle.resolve(self.ruleset_epoch, pause_ms)
 
     def _reject_queued_swaps(self) -> None:
         with self._swap_lock:
@@ -1053,86 +1116,156 @@ class RingSidecar:
 
     @contextlib.contextmanager
     def _hb_busy(self):
-        self._busy_since = time.monotonic()
+        """A declared blocking window of the drain loop, during which the
+        watchdog stamps the heartbeat; nested windows extend the
+        outermost one (a swap's drain holds the batches' own)."""
+        outer = self._busy_since
+        if outer is None:
+            self._busy_since = time.monotonic()
         try:
             yield
         finally:
-            self._busy_since = None
+            self._busy_since = outer
 
     def _heartbeat_watchdog(self) -> None:
         while not self._stop:
             busy = self._busy_since
             if busy is not None \
-                    and time.monotonic() - busy < self._HB_BUSY_GRACE_S:
+                    and time.monotonic() - busy < self._HB_BUSY_GRACE_S \
+                    and not self.chaos.heartbeat_frozen():
                 for r in self.rings:
                     r.heartbeat()
             time.sleep(0.1)
 
+    def _now_ms(self) -> int:
+        """The ring's clock (`enq_ms`'s), in ms."""
+        return int(self.rings[0].lib.pingoo_ring_now_ms())
+
     def run(self, max_requests: Optional[int] = None) -> int:
         """Blocking drain loop; returns the requests processed.
 
-        Each pass stamps every ring's heartbeat, makes one merged
+        Each pass stamps every ring's heartbeat and makes one merged
         dequeue pass across the rings (the start ring rotates, so a
-        saturated ring cannot starve the others) of up to `max_batch`
-        slots and issues them as one batch; the oldest batch in flight
-        completes when `pipeline_depth` are in flight or when the pass
-        launched nothing. Batches in flight are completed when the loop
-        exits, so no dequeued slot is left unanswered."""
+        saturated ring cannot starve the others) of up to what the batch
+        being accumulated has room for; the batch launches when the
+        scheduler says (every pass that dequeued under `fixed`). The
+        oldest batch in flight completes when `pipeline_depth` are in
+        flight or when the pass launched nothing. The batch being
+        accumulated and the batches in flight are completed when the
+        loop exits, so no dequeued slot is left unanswered."""
         self._thread = threading.current_thread()
         inflight: deque = deque()
-        slot_buf = self._take_slot_buf() if self._staging is not None \
+        sched = self.sched
+        continuous = sched.config.mode == "continuous"
+        self._pend_parts, self._pend_n, self._pend_oldest = [], 0, None
+        self._pend_buf = self._take_slot_buf() if self._staging is not None \
             else None
         while not self._stop:
-            for r in self.rings:
-                r.heartbeat()
+            if not self.chaos.heartbeat_frozen():
+                for r in self.rings:
+                    r.heartbeat()
             # Bodies before requests: a flow's body verdict never waits
             # a batch behind the metadata batch that admitted it.
             if self.body_scanner is not None:
                 self._drain_bodies()
+            # The swap storm re-queues the served state: any verdict
+            # drift it makes is a fault of the swap protocol.
+            if self.chaos.swap_due(self.batches):
+                self.request_swap(self.plan, tenant=self.tenant,
+                                  state=self._plan_state)
             if self._swap_queue:
                 self._apply_swaps(inflight)
-            parts = self._dequeue(slot_buf)
-            if parts:
+            got = self._accumulate()
+            launch = False
+            if self._pend_n:
+                launch = not continuous or self._pend_n >= self.max_batch \
+                    or sched.should_launch(self._pend_n,
+                                           self._pend_oldest / 1e3,
+                                           self._now_ms() / 1e3)
+                self.held_passes += not launch
+            if launch:
                 # While a window is open every batch stages into it: a
                 # batch issued past staged ones would post younger
                 # tickets first.
-                if self._mega_staged or self._mega_begin():
-                    self._stage_mega_slice(parts, slot_buf)
+                if self._mega_staged or self._mega_begin(self._pend_oldest):
+                    self._stage_mega_slice(*self._take_pending())
                 else:
-                    inflight.append(self._dispatch(parts, slot_buf))
-                if slot_buf is not None:
-                    slot_buf = self._take_slot_buf()
-            if self._mega_staged and (
-                    not parts or len(self._mega_staged) >= self._mega_k):
+                    inflight.append(self._dispatch(*self._take_pending()))
+            if self._mega_staged and (got == 0 or self._mega_due()):
                 inflight.append(self._launch_megastep())
             if inflight and (len(inflight) >= self.pipeline_depth
-                             or not parts):
+                             or not launch):
                 self._complete_inflight(inflight.popleft())
-            elif not parts and (max_requests is None
-                                or self.processed < max_requests):
+            elif got == 0 and not launch and (
+                    max_requests is None or self.processed < max_requests):
                 time.sleep(self.IDLE_SLEEP_S)
             if max_requests is not None and not inflight \
-                    and not self._mega_staged \
+                    and not self._mega_staged and not self._pend_n \
                     and self.processed >= max_requests:
                 break
         # Dequeued slots still get their verdicts, in FIFO order.
+        self._launch_pending(inflight)
         if self._mega_staged:
             inflight.append(self._launch_megastep())
         while inflight:
             self._complete_inflight(inflight.popleft())
-        if slot_buf is not None:
-            self._slot_pool.append(slot_buf)
+        if self._pend_buf is not None:
+            self._slot_pool.append(self._pend_buf)
+            self._pend_buf = None
         # FINAL windows already in the ring still get their verdicts.
         if self.body_scanner is not None:
             self._drain_bodies()
         self._reject_queued_swaps()
         return self.processed
 
+    def _accumulate(self) -> int:
+        """One dequeue pass into the batch being accumulated (under `on`
+        its pooled buffer at its next free row); returns the slots it
+        got."""
+        budget = self.max_batch - self._pend_n
+        if budget <= 0:
+            return 0
+        parts = self._dequeue(self._pend_buf, self._pend_n, budget)
+        got = 0
+        for _, s in parts:
+            got += len(s)
+            first = int(s["enq_ms"].min())
+            if self._pend_oldest is None or first < self._pend_oldest:
+                self._pend_oldest = first
+        self._pend_parts += parts
+        self._pend_n += got
+        return got
+
+    def _take_pending(self):
+        """The batch accumulated so far, as (parts, slot buffer, n, oldest
+        enq_ms), and a fresh accumulation."""
+        out = (self._pend_parts, self._pend_buf, self._pend_n,
+               self._pend_oldest)
+        self._pend_parts, self._pend_n, self._pend_oldest = [], 0, None
+        if self._pend_buf is not None:
+            self._pend_buf = self._take_slot_buf()
+        return out
+
+    def _launch_pending(self, inflight: deque) -> None:
+        """Launch the batch being accumulated now: into the open window
+        while it has room, else (after shipping the window) per batch."""
+        if not self._pend_n:
+            return
+        if self._mega_staged and len(self._mega_staged) < self._mega_k:
+            self._stage_mega_slice(*self._take_pending())
+            return
+        if self._mega_staged:
+            inflight.append(self._launch_megastep())
+        inflight.append(self._dispatch(*self._take_pending()))
+
     def _drain_bodies(self) -> None:
         """Drain each ring's body-window ring through the scanner and post
         the body verdict of every flow whose FINAL window came, on that
         ring, ticket-tagged with BODY_VERDICT_BIT; then drop flows idle
-        past the TTL. A scan error propagates (no fallback)."""
+        past the TTL. While the ladder's body rung is demoted (or when a
+        scan fails, which demotes it and drops every live flow) each
+        final window is answered action 0, on the metadata verdict
+        alone."""
         t0 = time.monotonic()
         drained = 0
         for r in self.rings:
@@ -1146,8 +1279,20 @@ class RingSidecar:
                 final=bool(s["flags"] & BODY_FLAG_FINAL),
                 abort=bool(s["flags"] & BODY_FLAG_ABORT))
                 for s in slots]
-            with self._hb_busy():
-                verdicts = self.body_scanner.scan_windows(windows)
+            verdicts = None
+            if self.ladder.try_rung("body"):
+                try:
+                    with self._hb_busy():
+                        verdicts = self.body_scanner.scan_windows(windows)
+                    self.ladder.note_success("body")
+                except Exception as exc:
+                    never_demoted(exc)
+                    self.ladder.note_failure("body", exc)
+                    # Carries are suspect after a fault mid-scan.
+                    self.body_scanner.flows.clear()
+            if verdicts is None:
+                verdicts = [BodyVerdict(w.flow_id, degraded=True)
+                            for w in windows if w.final]
             for v in verdicts:
                 ticket = v.flow_id | BODY_VERDICT_BIT
                 action = 0 if v.degraded else v.action_byte()
@@ -1167,22 +1312,28 @@ class RingSidecar:
         leaked."""
         return self._slot_pool.popleft()
 
-    def _dequeue(self, slot_buf=None) -> list[tuple[Ring, np.ndarray]]:
-        """One merged dequeue pass: (ring, slots) per ring that had any.
-        With `slot_buf` (under `on`) every ring's slots land in it one
-        after the other, so the merged batch is one view of it."""
-        budget = self.max_batch
+    def _queued_depth(self) -> int:
+        """Slots still queued across the rings (the megastep's `auto`
+        backlog test)."""
+        return sum(int(r.telemetry()["depth"]) for r in self.rings)
+
+    def _dequeue(self, slot_buf=None, fill: int = 0,
+                 budget: Optional[int] = None) -> list[tuple[Ring, np.ndarray]]:
+        """One merged dequeue pass of up to `budget` slots: (ring, slots)
+        per ring that had any. With `slot_buf` (under `on`) every ring's
+        slots land in it one after the other from row `fill`, so the
+        accumulated batch is one view of it."""
+        budget = self.max_batch if budget is None else budget
         nrings = len(self.rings)
         self._ring_rr = (self._ring_rr + 1) % nrings
         parts = []
-        got = 0
         for i in range(nrings):
             if budget <= 0:
                 break
             r = self.rings[(self._ring_rr + i) % nrings]
             if slot_buf is not None:
-                k = r.dequeue_batch_into(slot_buf[got:got + budget])
-                s = slot_buf[got:got + k]
+                k = r.dequeue_batch_into(slot_buf[fill:fill + budget])
+                s = slot_buf[fill:fill + k]
             else:
                 s = r.dequeue_batch(budget)
             if len(s):
@@ -1192,23 +1343,41 @@ class RingSidecar:
                     self._enrich_slots(s)
                 parts.append((r, s))
                 budget -= len(s)
-                got += len(s)
+                fill += len(s)
         return parts
 
-    def _dispatch(self, parts, slot_buf=None):
+    def _dispatch(self, parts, slot_buf=None, n: Optional[int] = None,
+                  oldest_enq_ms: Optional[int] = None):
         """Encode one merged batch and issue the lane function, its
         result's copy to the host queued behind it; returns what
-        `_complete` takes."""
-        slot = self._pipe.enter(self.pipeline_mode)
-        t0 = time.monotonic()
-        staged = None
-        if slot_buf is not None:
+        `_complete` takes. A staging error demotes the pipeline rung (the
+        batch decodes through the one-batch chain); a device error the
+        dfa or device rung (`_complete` interprets the batch)."""
+        if n is None:
             n = sum(len(p) for _, p in parts)
+        slot = self._pipe.enter(self.pipeline_mode)
+        self.chaos.stage("encode")
+        t0 = time.monotonic()
+        staged = batch = None
+        if slot_buf is not None:
             slots = slot_buf[:n]
-            staged = self._staging.checkout(block=False)
-            batch = self._staging.encode_slots(
-                slots, pad_to=pow2_batch_size(n, self.max_batch),
-                into=staged)
+            if self.ladder.try_rung("pipeline"):
+                try:
+                    staged = self._staging.checkout(block=False)
+                    batch = self._staging.encode_slots(
+                        slots, pad_to=pow2_batch_size(n, self.max_batch),
+                        into=staged)
+                    self.ladder.note_success("pipeline")
+                except Exception as exc:
+                    never_demoted(exc)
+                    if staged is not None:
+                        self._staging.release(staged)
+                    staged = batch = None
+                    self.ladder.note_failure("pipeline", exc)
+        else:
+            slots = parts[0][1] if len(parts) == 1 else np.concatenate(
+                [s for _, s in parts])
+        if batch is not None:
             # The unpadded rows of the same views: every consumer of
             # `raw` reads data[:len], and the columns hold every row's
             # bytes up to its length or its field's cap. The flags of
@@ -1218,19 +1387,79 @@ class RingSidecar:
                 overflow=None if batch.overflow is None
                 else batch.overflow[:n])
         else:
-            slots = parts[0][1] if len(parts) == 1 else np.concatenate(
-                [s for _, s in parts])
             raw, batch = self._decode(slots)
         t1 = time.monotonic()
-        with self._hb_busy():
-            dev = to_host_async(self._issue_lanes(batch))
+        self.chaos.stage("dispatch")
+        dev = None
+        self._dfa_rung.tick(self.plan)
+        if self.ladder.try_rung("device"):
+            try:
+                # Raised before any launch: the CUDA context stays clean.
+                self.chaos.maybe_xla_error(self.batches)
+                with self._hb_busy():
+                    dev = to_host_async(self._issue_lanes(batch))
+            except Exception as exc:
+                never_demoted(exc)
+                self._dfa_rung.failure(self.plan, exc)
+                dev = None
         t2 = time.monotonic()
         self._count_staged(batch)
         self.stage_ms["decode"].append((t1 - t0) * 1e3)
         self.stage_ms["verdict"].append((t2 - t1) * 1e3)
         self._pipe.note_stage(slot, "encode", t0, t1)
         self._pipe.note_stage(slot, "dispatch", t1, t2)
-        return parts, slots, raw, dev, t2, slot_buf, staged, slot
+        sched = self.sched
+        sched.observe_stage_cost("encode", self.max_batch, (t1 - t0) * 1e3)
+        sched.observe_stage_cost("dispatch", self.max_batch, (t2 - t1) * 1e3)
+        if batch.staged_bytes:
+            sched.observe_dispatch_bytes(batch.staged_bytes, (t2 - t1) * 1e3)
+        sched.note_launch(n, 0)
+        skip_masks = None
+        if sched.config.failopen == "allow":
+            # Encode and issue are spent: a row is charged the compute
+            # stage's estimate, the work still ahead of it.
+            skip_masks = self._failopen_late_rows(
+                parts, self._now_ms(),
+                sched.cost.estimate_stage("compute", self.max_batch))
+        return (parts, slots, raw, dev, t2, slot_buf, staged, slot,
+                skip_masks, time.monotonic())
+
+    def _failopen_late_rows(self, parts, now_ms: int, est_ms: float) -> list:
+        """PINGOO_SCHED_FAILOPEN=allow: the rows whose deadline cannot be
+        met with `est_ms` of work still ahead are posted action 0 now,
+        each once; their device verdicts are computed and never posted.
+        Returns one keep-mask per part."""
+        deadline_ms = self.sched.config.deadline_ms
+        masks = []
+        for ring, part in parts:
+            late = (now_ms + est_ms) > (part["enq_ms"].astype(np.int64)
+                                        + deadline_ms)
+            if late.any():
+                tickets = np.ascontiguousarray(part["ticket"][late],
+                                               dtype=np.uint64)
+                self._post_all(ring, tickets,
+                               np.zeros(len(tickets), dtype=np.uint8))
+                ring.record_waits(part["enq_ms"][late])
+                self.sched.note_failopen(int(late.sum()))
+            masks.append(~late)
+        return masks
+
+    def _post_all(self, ring: Ring, tickets: np.ndarray,
+                  acts: np.ndarray) -> bool:
+        """Post every verdict, resuming on a full verdict ring (and on
+        the chaos injector's pretended one); False when the loop stopped
+        first (a dead consumer must not wedge stop())."""
+        done = 0
+        while done < len(tickets):
+            if self.chaos.verdict_full():
+                time.sleep(self.IDLE_SLEEP_S)
+                continue
+            done += ring.post_verdicts(tickets[done:], acts[done:])
+            if done < len(tickets):
+                if self._stop:
+                    return False
+                time.sleep(self.IDLE_SLEEP_S)
+        return True
 
     def _issue_lanes(self, batch: RequestBatch, state=None):
         """The lane program (the served one, or a built `state`'s) on one
@@ -1251,21 +1480,56 @@ class RingSidecar:
 
     # -- the megastep -------------------------------------------------------
 
-    def _mega_begin(self) -> bool:
-        """Open a window for the batch just dequeued? Under `force`
-        always (a window of one slice is legal): check out its set."""
+    def _mega_begin(self, oldest_enq_ms: Optional[int] = None) -> bool:
+        """Open a window for the batch being launched? Under `force`
+        always (a window of one slice is legal); under `auto` only with
+        slots still queued on the rings, with a K target sized against
+        the oldest slot's slack; never while the megastep rung is
+        demoted outside its probe. Checks out the window's set."""
         if self._mega_runner is None:
             return False
+        if self._mega_mode == "auto" and self._queued_depth() <= 0:
+            return False
+        if not self.ladder.try_rung("megastep"):
+            return False
+        self._mega_target = self._mega_k
+        if self._mega_mode != "force":
+            now_ms = self._now_ms()
+            oldest = now_ms if oldest_enq_ms is None else oldest_enq_ms
+            self._mega_target = min(self._mega_k, self.sched.size_megastep_k(
+                self._mega_rungs, self.max_batch, oldest / 1e3, now_ms / 1e3))
         self._mega_buf_id = self._mega_queue.checkout(block=False)
         return True
 
-    def _stage_mega_slice(self, parts, slot_buf=None) -> None:
-        """Encode one dequeued batch into the open window's next slice.
+    def _mega_due(self) -> bool:
+        """Ship the open window now? At its K target; under `auto` also
+        once the oldest slice's slack no longer covers the window's
+        estimate."""
+        staged = self._mega_staged
+        if len(staged) >= self._mega_target:
+            return True
+        if self._mega_mode == "force":
+            return False
+        oldest = min((s.oldest_enq_ms for s in staged
+                      if s.oldest_enq_ms is not None), default=None)
+        if oldest is None:
+            return True
+        slack_ms = self.sched.config.deadline_ms - (self._now_ms() - oldest)
+        return slack_ms <= self.sched.cost.estimate_megastep(
+            len(staged), self.max_batch)
+
+    def _stage_mega_slice(self, parts, slot_buf=None, n: Optional[int] = None,
+                          oldest_enq_ms: Optional[int] = None) -> None:
+        """Encode one launched batch into the open window's next slice.
         Its raw batch is the slice's view of the window's set, held until
-        the window completes."""
+        the window completes. Staging is the batch's launch: the
+        scheduler counts it, and under `allow` its late rows are posted
+        now, charged the whole window's estimate."""
+        if n is None:
+            n = sum(len(p) for _, p in parts)
         slot = self._pipe.enter(self.pipeline_mode)
+        self.chaos.stage("encode")
         t0 = time.monotonic()
-        n = sum(len(p) for _, p in parts)
         if slot_buf is not None:
             slots = slot_buf[:n]
         else:
@@ -1280,10 +1544,19 @@ class RingSidecar:
             self._mega_buf_id, j, n), overflow=overflow)
         rec.slot_buf, rec.pipe_slot = slot_buf, slot
         rec.epoch = self.ruleset_epoch
-        self._mega_staged.append(rec)
+        rec.oldest_enq_ms = oldest_enq_ms
+        rec.skip_masks = None
         t1 = time.monotonic()
         self.stage_ms["decode"].append((t1 - t0) * 1e3)
         self._pipe.note_stage(slot, "encode", t0, t1)
+        sched = self.sched
+        sched.observe_stage_cost("encode", self.max_batch, (t1 - t0) * 1e3)
+        sched.note_launch(n, 0)
+        if sched.config.failopen == "allow":
+            rec.skip_masks = self._failopen_late_rows(
+                parts, self._now_ms(), sched.cost.estimate_megastep(
+                    self._mega_target, self.max_batch))
+        self._mega_staged.append(rec)
 
     def _encode_mega_slice(self, slots: np.ndarray, buf_id: int, j: int,
                            count: bool = False,
@@ -1292,28 +1565,41 @@ class RingSidecar:
         `buf_id` (of the served queue, or a built `state`'s): under `on`
         through a staging set, released at once (the slice is a copy;
         under compact staging of the capped views), its bytes counted in
-        `staged_bytes` with `count`. Returns a copy of the rows'
-        depth-overflow flags, or None."""
+        `staged_bytes` with `count`; the served path's staging error
+        demotes the pipeline rung and the slice encodes through the
+        one-batch chain. Returns a copy of the rows' depth-overflow
+        flags, or None."""
         n = len(slots)
         staging, queue = (self._staging, self._mega_queue) \
             if state is None else (state["staging"], state["mega_queue"])
-        if staging is None:
-            batch = pad_batch(RequestBatch(
-                size=n, arrays=bucket_arrays(slots_to_arrays(slots))),
-                self.max_batch)
-            queue.fill_slice(buf_id, j, batch.arrays, n, self.ruleset_epoch)
-            return None
-        staged = staging.checkout(block=False)
-        try:
-            batch = staging.encode_slots(slots, pad_to=self.max_batch,
-                                         into=staged)
-            queue.fill_slice(buf_id, j, batch.arrays, n, self.ruleset_epoch)
-            if count:
-                self._count_staged(batch)
-            return None if batch.overflow is None \
-                else batch.overflow[:n].copy()
-        finally:
-            staging.release(staged)
+        if staging is not None and (state is not None
+                                    or self.ladder.try_rung("pipeline")):
+            staged = staging.checkout(block=False)
+            try:
+                batch = staging.encode_slots(slots, pad_to=self.max_batch,
+                                             into=staged)
+                queue.fill_slice(buf_id, j, batch.arrays, n,
+                                 self.ruleset_epoch)
+                if count:
+                    self._count_staged(batch)
+                if state is None:
+                    self.ladder.note_success("pipeline")
+                return None if batch.overflow is None \
+                    else batch.overflow[:n].copy()
+            except Exception as exc:
+                if state is not None:
+                    raise
+                never_demoted(exc)
+                self.ladder.note_failure("pipeline", exc)
+            finally:
+                staging.release(staged)
+        batch = pad_batch(RequestBatch(
+            size=n, arrays=bucket_arrays(slots_to_arrays(slots))),
+            self.max_batch)
+        queue.fill_slice(buf_id, j, batch.arrays, n, self.ruleset_epoch)
+        if count:
+            self.staged_bytes += _nbytes(batch.arrays)
+        return None
 
     def _k_ship(self, k: int) -> int:
         """The K a window of k slices ships at: the next rung of the
@@ -1325,23 +1611,39 @@ class RingSidecar:
     def _launch_megastep(self) -> _MegaWindow:
         """Ship the open window and run it (one graph replay on the
         card), its lanes' and echo's copies to the host queued right
-        after; returns the window in flight (`_k_ship` gives its K)."""
+        after; returns the window in flight (`_k_ship` gives its K). A
+        window that fails demotes the megastep rung: its slices are
+        interpreted at completion."""
         staged, self._mega_staged = self._mega_staged, []
         k = len(staged)
         k_ship = self._k_ship(k)
+        self.chaos.stage("dispatch")
+        self._dfa_rung.tick(self.plan)
+        win = _MegaWindow()
+        win.lanes = win.echo = None
         t0 = time.monotonic()
-        # The first window of a shape captures its graph (and runs the
-        # body once before): the watchdog heartbeats through it.
-        with self._hb_busy():
-            lanes, _, echo = self._mega_runner.run(
-                self._mega_queue, self._mega_buf_id, k, k_ship)
-            win = _MegaWindow()
-            win.lanes, win.echo = to_host_async(lanes), to_host_async(echo)
+        try:
+            # Raised before the replay or capture: the CUDA context and
+            # any capture stay clean.
+            self.chaos.maybe_xla_error(self.batches)
+            # The first window of a shape captures its graph (and runs
+            # the body once before): the watchdog heartbeats through it.
+            with self._hb_busy():
+                lanes, _, echo = self._mega_runner.run(
+                    self._mega_queue, self._mega_buf_id, k, k_ship)
+                win.lanes, win.echo = to_host_async(lanes), to_host_async(echo)
+        except Exception as exc:
+            never_demoted(exc)
+            self.ladder.note_failure("megastep", exc)
+            win.lanes = win.echo = None
         t1 = time.monotonic()
         win.slices, win.buf_id, win.t_launch = staged, self._mega_buf_id, t1
+        win.k_ship = k_ship
         self._mega_buf_id = None
         self.stage_ms["verdict"].append((t1 - t0) * 1e3)
         self._pipe.note_stage(staged[0].pipe_slot, "dispatch", t0, t1)
+        self.sched.observe_stage_cost("dispatch", self.max_batch,
+                                      (t1 - t0) * 1e3)
         self._pipe.note_megastep(k, self._mega_mode)
         self.mega_windows += 1
         return win
@@ -1355,25 +1657,45 @@ class RingSidecar:
     def _complete_megastep(self, win: _MegaWindow) -> None:
         """Every slice's host rules (while the card computes), one wait
         for the window's lanes, then each slice completes as a batch;
-        the window's set returns to the queue after its last slice."""
+        the window's set returns to the queue after its last slice. A
+        window whose wait fails demotes the megastep rung, and a window
+        without lanes has its slices interpreted."""
         try:
             hosts = [host_rule_lanes(self.plan, s.raw, self.lists)
                      for s in win.slices]
+            lanes = echo = None
             t0 = time.monotonic()
-            with self._hb_busy():
-                lanes = _host_array(win.lanes)
-                echo = _host_array(win.echo)
+            if win.lanes is not None:
+                try:
+                    with self._hb_busy():
+                        lanes = _host_array(win.lanes)
+                        echo = _host_array(win.echo)
+                    self._dfa_rung.success()
+                    self.ladder.note_success("megastep")
+                except Exception as exc:
+                    never_demoted(exc)
+                    self.ladder.note_failure("megastep", exc)
+                    lanes = echo = None
             t_ready = time.monotonic()
             self.device_wait_s += t_ready - t0
             self.stage_ms["window"].append((t_ready - win.t_launch) * 1e3)
             self._pipe.note_stage(win.slices[0].pipe_slot, "compute",
                                   win.t_launch, t_ready)
+            window_ms = (t_ready - win.t_launch) * 1e3
+            # The window's wall teaches the megastep EWMA (keyed by the
+            # shipped K) and, per slice, the compute stage's.
+            self.sched.observe_stage_cost(
+                "compute", self.max_batch, window_ms / max(1, len(win.slices)))
+            self.sched.observe_megastep_cost(win.k_ship, self.max_batch,
+                                             window_ms)
             for j, s in enumerate(win.slices):
-                if int(echo[j]) != s.epoch:
+                if echo is not None and int(echo[j]) != s.epoch:
                     self.mega_echo_mismatch += 1
                 self._complete(s.parts, s.slots, s.raw, None, win.t_launch,
-                               s.slot_buf, None, s.pipe_slot,
-                               host=hosts[j], dev_lanes=lanes[j][:, :s.n])
+                               s.slot_buf, None, s.pipe_slot, s.skip_masks,
+                               host=hosts[j],
+                               dev_lanes=None if lanes is None
+                               else lanes[j][:, :s.n])
         finally:
             self._mega_queue.release(win.buf_id)
 
@@ -1403,7 +1725,8 @@ class RingSidecar:
         deadline. Under PINGOO_PIPELINE=on the batches go through the
         staging encoder, as the drain loop's do. Under
         PINGOO_MEGASTEP=force the drain loop runs windows only, so the
-        warm-up runs windows instead (`_warm_up_megastep`). Touches no
+        warm-up runs windows instead (`_warm_up_megastep`); under auto
+        it runs the windows, then the batches. Touches no
         ring and no counter; returns (rows, widest column, ms) of each
         batch or window."""
         return self._warm_state(self._plan_state, hb=True)
@@ -1416,12 +1739,14 @@ class RingSidecar:
         thread never declares them, since the watchdog would then stamp
         the heartbeat for a drain loop it does not watch."""
         busy = self._hb_busy if hb else contextlib.nullcontext
+        out = []
         if state["mega_runner"] is not None:
-            return self._warm_up_megastep(state, busy)
+            out += self._warm_up_megastep(state, busy)
+            if self._mega_mode == "force":
+                return out
         staging = state["staging"]
         buckets = sorted({pow2_batch_size(1 << k, self.max_batch)
                           for k in range(self.max_batch.bit_length())})
-        out = []
         for rows in buckets:
             for wide in (False, True):
                 slots = _warm_slots(rows, wide)
@@ -1518,6 +1843,10 @@ class RingSidecar:
             },
             "supervision": {"epoch": self.epoch,
                             "reconciled": dict(self.reconciled)},
+            "sched": {**self.sched.snapshot(),
+                      "held_passes": self.held_passes},
+            "ladder": self.ladder.snapshot(),
+            "chaos": self.chaos.snapshot(),
             "hotswap": {"epoch": self.ruleset_epoch, "tenant": self.tenant,
                         "swaps": swap_counts("sidecar"),
                         "pauses_ms": list(self.swap_pauses_ms)},
@@ -1544,40 +1873,63 @@ class RingSidecar:
 
     def _complete(self, parts, slots, raw, dev, t_issued: float,
                   slot_buf=None, staged=None, pipe_slot: int = 0,
+                  skip_masks=None, t_disp: Optional[float] = None,
                   host=None, dev_lanes=None) -> None:
         """Finish one batch: host rules, the wait for its own lanes,
         routes, spill rows and the posts (a megastep slice comes with its
         host and device lanes already on the host). Its slot buffer and
         staging set then return to their pools and it leaves the
-        pipeline."""
+        pipeline; then the chaos injector's kill and pause triggers."""
         try:
-            self._finish(parts, slots, raw, dev, t_issued, pipe_slot, host,
-                         dev_lanes)
+            self._finish(parts, slots, raw, dev, t_issued, pipe_slot,
+                         skip_masks, t_disp, host, dev_lanes)
         finally:
             if slot_buf is not None:
                 self._slot_pool.append(slot_buf)
             if staged is not None:
                 self._staging.release(staged)
             self._pipe.exit()
+        self.chaos.on_batch_done(self.batches)
 
     def _finish(self, parts, slots, raw, dev, t_issued: float,
-                pipe_slot: int, host=None, dev_lanes=None) -> None:
-        t_start = time.monotonic()
+                pipe_slot: int, skip_masks=None, t_disp=None, host=None,
+                dev_lanes=None) -> None:
+        t_start = t_ready = time.monotonic()
         n = len(slots)
-        if dev_lanes is None:
+        if host is None:
             # Host rules run while the device is still computing.
             host = host_rule_lanes(self.plan, raw, self.lists)
+        if dev is not None:
             t0 = time.monotonic()
-            with self._hb_busy():
-                dev_lanes = _host_array(dev)[:, :n]
+            try:
+                with self._hb_busy():
+                    dev_lanes = _host_array(dev)[:, :n]
+                self._dfa_rung.success()
+            except Exception as exc:
+                never_demoted(exc)
+                # A device error surfaces at the wait as well.
+                self._dfa_rung.failure(self.plan, exc)
             t_ready = time.monotonic()
             self.device_wait_s += t_ready - t0
             # The compute window: end of issue to the lanes on the host.
             self._pipe.note_stage(pipe_slot, "compute", t_issued, t_ready)
-        else:
-            t_ready = t_start
-        unverified, verified_block = merge_lanes(dev_lanes, host)
+            self.sched.observe_stage_cost("compute", self.max_batch,
+                                          (t_ready - t_issued) * 1e3)
+            if t_disp is not None:
+                self.sched.observe_cost(self.max_batch,
+                                        (t_ready - t_disp) * 1e3)
+        self.chaos.stage("resolve")
         self.batches += 1
+        interpreted = dev_lanes is None
+        if interpreted:
+            # The ladder's device fallback: the interpreter serves the
+            # whole batch (routes included), as the device would.
+            with self._hb_busy():
+                unverified, verified_block, route = self._interpret_batch(
+                    parts, raw)
+        else:
+            unverified, verified_block = merge_lanes(dev_lanes, host)
+            route = None
         # Rows the producer flagged as truncated (a field past its slot
         # cap) were matched on the slot view; spilled ones are served
         # exactly below.
@@ -1585,8 +1937,7 @@ class RingSidecar:
             ((slots["flags"] & SLOT_FLAG_TRUNCATED) != 0).sum())
         # Each ring's rows read their group's route lane (rows 3..3+G);
         # rows of a ring with no group keep route 0.
-        route = None
-        if self._groups:
+        if self._groups and not interpreted:
             route = np.zeros(n, dtype=np.int64)
             group_rows: list[list] = [[] for _ in self._groups]
             off = 0
@@ -1666,26 +2017,62 @@ class RingSidecar:
             actions = actions | (np.minimum(route, 31).astype(np.int32) << 3)
         acts = actions.astype(np.uint8)
         off = 0
-        for ring, part in parts:  # scatter per ring
+        for pi, (ring, part) in enumerate(parts):  # scatter per ring
             m = len(part)
-            tickets = np.ascontiguousarray(part["ticket"], dtype=np.uint64)
-            done = 0
-            while done < m:  # resume on a full verdict ring
-                done += ring.post_verdicts(tickets[done:],
-                                           acts[off + done:off + m])
-                if done < m:
-                    if self._stop:  # a dead consumer must not wedge stop()
-                        return
-                    time.sleep(self.IDLE_SLEEP_S)
-            ring.record_waits(part["enq_ms"])
+            keep = None if skip_masks is None or skip_masks[pi].all() \
+                else skip_masks[pi]
+            # Rows failed open at launch were posted then, once.
+            tickets = np.ascontiguousarray(
+                part["ticket"] if keep is None else part["ticket"][keep],
+                dtype=np.uint64)
+            pacts = np.ascontiguousarray(
+                acts[off:off + m] if keep is None else acts[off:off + m][keep])
+            if not self._post_all(ring, tickets, pacts):
+                return
+            ring.record_waits(part["enq_ms"] if keep is None
+                              else part["enq_ms"][keep])
             # Parts complete in FIFO order, so the posted tickets form a
             # prefix: a reattaching sidecar's orphan scan starts here.
             ring.set_posted_floor(int(part["ticket"].max()) + 1)
             off += m
+        # Posts later than the deadline, on the ring's clock, are misses.
+        self.sched.note_misses(int(
+            ((self._now_ms() - slots["enq_ms"].astype(np.int64))
+             > self.sched.config.deadline_ms).sum()))
         self.processed += n
         t_end = time.monotonic()
         self._pipe.note_stage(pipe_slot, "resolve", t_ready, t_end)
         self.stage_ms["finish"].append((t_end - t_start) * 1e3)
+
+    def _interpret_batch(self, parts, raw):
+        """The device rung's fallback: (unverified, verified_block,
+        route or None) of the whole batch through the host interpreter,
+        the oracle the device path is held to; each ring's rows route by
+        its own service order."""
+        contexts = batch_to_contexts(raw, self.lists)
+        if contexts:
+            rows = np.stack([interpret_rules_row(self.plan, c)
+                             for c in contexts])
+        else:
+            rows = np.zeros((0, len(self.plan.rules)), dtype=bool)
+        unv, vblk = action_lanes(self.plan, rows)
+        route = None
+        if self._groups:
+            route = np.full(len(contexts), int(LANE_NONE), dtype=np.int64)
+            off = 0
+            for ring, part in parts:
+                gi = self._ring_group_of.get(id(ring))
+                if gi is not None:
+                    svcs = self._groups[gi]
+                    for i in range(off, off + len(part)):
+                        for order, name in enumerate(svcs):
+                            ridx = self.plan.route_index.get(name)
+                            if ridx is None or rows[i, ridx]:
+                                route[i] = order
+                                break
+                off += len(part)
+        return (np.asarray(unv, dtype=np.int32),
+                np.asarray(vblk, dtype=bool), route)
 
     def _reconcile_orphans(self) -> None:
         """Answer the tickets the previous epoch dequeued and never

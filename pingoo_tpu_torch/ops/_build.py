@@ -12,6 +12,12 @@ Nothing here runs at import time, so the package imports on a host with
 no nvcc and no card. A build or launch failure raises; there is no
 fallback to the plain versions on a CUDA tensor.
 
+A failed build or launch raises `KernelBuildError` (a RuntimeError),
+and a CUDA runtime fault seen later (an illegal address surfacing at a
+sync) is a `DeviceFault`: the planes' degradation ladder
+(engine/ladder.py) re-raises both through every rung (`never_demoted`),
+so a broken kernel is never served around.
+
 A launch made while a CUDA graph is being captured runs nothing: it is
 queued into the graph and runs at each replay. Inside
 `record_launches()` such launches go to the recorder instead of the
@@ -55,6 +61,38 @@ _capture = threading.local()
 ptxas_reports: dict[str, str] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library that could not be built or loaded, or a launcher
+    that returned an error: never a rung failure of the ladder."""
+
+
+class DeviceFault(RuntimeError):
+    """A CUDA runtime fault (an illegal address, a kernel that failed on
+    the card) raised at an issue or a sync. CUDA errors are sticky: every
+    later call on the context fails too, so a fallback would serve around
+    the fault for the life of the process. Never a rung failure."""
+
+
+def _is_cuda_fault(exc: BaseException) -> bool:
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and str(exc).startswith(
+        "CUDA error")
+
+
+def never_demoted(exc: BaseException) -> None:
+    """Raise again what no rung of the ladder may absorb: a
+    KernelBuildError or a DeviceFault as it is, a CUDA runtime fault as a
+    DeviceFault. The first call of every rung's handler; returns for
+    anything a rung may demote on (an injected fault, a host error, an
+    out-of-memory)."""
+    if isinstance(exc, (KernelBuildError, DeviceFault)):
+        raise exc
+    if _is_cuda_fault(exc):
+        raise DeviceFault(f"CUDA runtime fault: {exc}") from exc
+
+
 def find_nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
         if cand and (Path(cand) / "bin" / "nvcc").exists():
@@ -64,7 +102,7 @@ def find_nvcc() -> str:
         return found
     if Path("/usr/local/cuda/bin/nvcc").exists():
         return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (set CUDA_HOME): the CUDA kernels are built from "
         "pingoo_tpu_torch/csrc at first use on a CUDA tensor")
 
@@ -107,7 +145,8 @@ def build(names=None, verbose: bool = False) -> dict[str, float]:
             ptxas_reports[n] = stderr
         os.replace(tmp, out)
     if errors:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+        raise KernelBuildError("CUDA kernel build failed:\n"
+                               + "\n".join(errors))
     return took
 
 
@@ -116,7 +155,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(lib_path(name)))
+            try:
+                lib = ctypes.CDLL(str(lib_path(name)))
+            except OSError as exc:
+                raise KernelBuildError(
+                    f"cannot load {lib_path(name)}: {exc}") from exc
             _libs[name] = lib
         return lib
 
@@ -159,7 +202,7 @@ class Kernel:
         rc = self._bind()(*args)
         if rc != 0:
             msg = self._err(rc).decode(errors="replace")
-            raise RuntimeError(
+            raise KernelBuildError(
                 f"CUDA kernel {self.name} failed to launch: error {rc} "
                 f"({msg})")
         recorder = getattr(_capture, "launches", None)

@@ -512,6 +512,12 @@ def test_sidecar_body_verdicts_equal_the_reference(body_served, seed):
 
 
 def test_body_scan_error_propagates_out_of_run(tmp_path, monkeypatch):
+    """A scan error demotes the ladder's body rung (as in the JAX
+    package): the flow's final window is answered action 0 on the
+    metadata verdict alone and the loop goes on. A kernel build error is
+    never demoted: it propagates out of `run()`, nothing posted."""
+    from pingoo_tpu_torch.ops._build import KernelBuildError
+
     monkeypatch.setenv("PINGOO_BODY_INSPECT", "on")
     monkeypatch.setenv("PINGOO_BODY_WINDOW", "64")
     for name, value in REF_ENV.items():
@@ -526,9 +532,20 @@ def test_body_scan_error_propagates_out_of_run(tmp_path, monkeypatch):
         def broken(windows):
             raise RuntimeError("scan failed on the device")
 
+        def unbuilt(windows):
+            raise KernelBuildError("nvcc exited 2")
+
         sidecar.body_scanner.scan_windows = broken
         assert ring.enqueue_body(0, 0, b"x=1", 3, nr.BODY_FLAG_FINAL)
-        with pytest.raises(RuntimeError, match="scan failed"):
+        assert sidecar.run(max_requests=0) == 0
+        assert ring.poll_verdict()[:2] == (nr.BODY_VERDICT_BIT, 0)
+        assert ring.poll_verdict() is None
+        snap = sidecar.stats()["ladder"]["body"]
+        assert not snap["healthy"] and "scan failed" in snap["last_error"]
+        sidecar.ladder.note_success("body")
+        sidecar.body_scanner.scan_windows = unbuilt
+        assert ring.enqueue_body(1, 0, b"x=1", 3, nr.BODY_FLAG_FINAL)
+        with pytest.raises(KernelBuildError, match="nvcc"):
             sidecar.run()
         assert ring.poll_verdict() is None  # nothing posted, no fallback
         sidecar.stop()

@@ -13,7 +13,8 @@ package's `models/botscore.py`.
     package's service's score within 1e-5 (the reference test's bound)
     under PINGOO_PIPELINE=off, on with full and with compact staging,
     and PINGOO_MEGASTEP=force, and the same verdicts as without the
-    head; `score_errors` stays 0, and a scorer failure fails the batch.
+    head; `score_errors` stays 0, and a scorer failure serves 0.0 and is
+    counted, as in the JAX package.
 
 CPU only, small batches.
 """
@@ -255,8 +256,11 @@ def test_explain_carries_the_score(plans):
 
 
 def test_scorer_failure_fails_the_batch(plans, monkeypatch):
-    """No zero score is served for a broken head: the batch's callers get
-    the error, `score_errors` stays 0, and the next batch is scored."""
+    """A broken head fails no verdict: as in the JAX package the batch is
+    served with a score of 0.0 and `score_errors` counts the failure; the
+    next batch is scored. A kernel build failure still fails the batch."""
+    from pingoo_tpu_torch.ops._build import KernelBuildError
+
     _, port = plans
     params = botscore.init_params(torch.Generator().manual_seed(6),
                                   device="cpu")
@@ -267,17 +271,23 @@ def test_scorer_failure_fails_the_batch(plans, monkeypatch):
     def broken(*args):
         raise RuntimeError("scorer lost")
 
+    def unbuilt(*args):
+        raise KernelBuildError("nvcc exited 2")
+
     async def run():
         await service.start()
         try:
             monkeypatch.setattr(botscore, "score", broken)
-            with pytest.raises(RuntimeError, match="scorer lost"):
+            lost = await service.evaluate(RequestTuple(path="/x"))
+            monkeypatch.setattr(botscore, "score", unbuilt)
+            with pytest.raises(KernelBuildError, match="nvcc"):
                 await service.evaluate(RequestTuple(path="/x"))
             monkeypatch.setattr(botscore, "score", real)
-            return await service.evaluate(RequestTuple(path="/x"))
+            return lost, await service.evaluate(RequestTuple(path="/x"))
         finally:
             await service.stop()
 
-    verdict = asyncio.run(run())
+    lost, verdict = asyncio.run(run())
+    assert lost.bot_score == 0.0 and lost.action == verdict.action
     assert 0.0 < verdict.bot_score < 1.0
-    assert service.stats.snapshot()["score_errors"] == 0
+    assert service.stats.snapshot()["score_errors"] == 1

@@ -186,9 +186,10 @@ def test_explain_and_snapshots_equal_the_jax_packages(slice_, loop_runner,
     assert any(any(n.startswith("list_") for n in e["matched_rules"])
                for e in got)
     snap, ref_snap = svc.stats.snapshot(), ref_svc.stats.snapshot()
-    # The JAX package's keys, and the swap counters, which the JAX
-    # package keeps on its metric registry.
-    assert set(snap) == set(ref_snap) | {"hotswap"}
+    # The JAX package's keys, and the swap counters and the scheduler's
+    # and the ladder's snapshots, which the JAX package keeps on its
+    # metric registry.
+    assert set(snap) == set(ref_snap) | {"hotswap", "sched", "ladder"}
     assert snap["hotswap"] == {"epoch": 0, "swaps": snap["hotswap"]["swaps"]}
     for key in ("batches", "requests", "mean_occupancy"):
         assert snap[key] == ref_snap[key], key

@@ -12,9 +12,10 @@ own test that decision on the same inputs:
     up to the device's 256-byte host field and past it;
   * the JAX backend probe: the port has none, `resolve_device` answers
     at once, and raises without a card rather than degrading;
-  * the host fallback: the port has none (ROADMAP item 9); a device
-    error reaches every waiting caller, none hangs, and the collector
-    serves the next batch.
+  * the host fallback: a kernel that fails to build or launch reaches
+    every waiting caller, none hangs, and the collector serves the next
+    batch; any other device error demotes the ladder's device rung and
+    the interpreter serves (engine/ladder.py).
 """
 
 import asyncio
@@ -401,38 +402,53 @@ class TestProfilerHook:
 class TestVerdictServiceFallback:
     def test_device_error_reaches_the_caller_without_host_fallback(
             self, loop_runner):
-        """No host fallback in the port: the device error reaches the
-        caller, and the next batch is served again once the path works."""
+        """A kernel that fails to build or launch reaches the caller, with
+        no host fallback; any other device error demotes the ladder's
+        device rung and the host interpreter serves, as in the JAX
+        package, until a probe after the backoff finds the path working."""
         from pingoo_tpu_torch.engine.batch import RequestTuple
+        from pingoo_tpu_torch.ops._build import KernelBuildError
 
         _, svc = one_rule_service('http_request.path == "/x"',
                                   max_wait_us=100)
         verdict_fn = svc._verdict_fn
+        clock = [0.0]
+        svc.ladder._clock = lambda: clock[0]
+
+        def broken(*args):
+            raise KernelBuildError("nvcc exited 2")
 
         def dead(*args):
             raise RuntimeError("device lost")
 
-        svc._verdict_fn = dead  # simulate a dead device path
-
         async def flow():
             await svc.start()
             try:
-                with pytest.raises(RuntimeError, match="device lost"):
+                svc._verdict_fn = broken
+                with pytest.raises(KernelBuildError, match="nvcc"):
                     await asyncio.wait_for(
                         svc.evaluate(RequestTuple(path="/x")), timeout=5)
+                svc._verdict_fn = dead  # simulate a dead device path
+                v0 = await asyncio.wait_for(
+                    svc.evaluate(RequestTuple(path="/x")), timeout=5)
+                demoted = svc.ladder.demoted()
                 svc._verdict_fn = verdict_fn
+                clock[0] += 1.0  # the backoff is over: the next batch probes
                 v1 = await svc.evaluate(RequestTuple(path="/x"))
                 v2 = await svc.evaluate(RequestTuple(path="/y"))
-                return v1, v2
+                return v0, demoted, v1, v2
             finally:
                 await svc.stop()
 
-        v1, v2 = loop_runner.run(flow())
-        assert v1.block and not v2.block
+        v0, demoted, v1, v2 = loop_runner.run(flow())
+        assert v0.block and v1.block and not v2.block
+        assert demoted == ["device"] and svc.ladder.demoted() == []
         snap = svc.stats.snapshot()
-        assert snap["device_errors"] == 0
-        assert snap["host_fallback_batches"] == 0
-        assert snap["batches"] == 2 and snap["requests"] == 2
+        assert snap["device_errors"] == 1
+        assert snap["host_fallback_batches"] == 1
+        assert snap["ladder"]["device"]["errors"] == 1
+        assert snap["ladder"]["device"]["demotions"] == 1
+        assert snap["batches"] == 3 and snap["requests"] == 3
 
     def test_collector_survives_total_failure(self, loop_runner):
         """Even if every batch explodes, requests must resolve (with the
@@ -440,8 +456,8 @@ class TestVerdictServiceFallback:
         from pingoo_tpu_torch.engine.batch import RequestTuple
 
         _, svc = one_rule_service("true", max_wait_us=100)
-        svc.evaluate_batch = lambda reqs: (_ for _ in ()).throw(
-            RuntimeError("boom"))
+        svc.evaluate_batch = lambda reqs, t_launch=None: (
+            _ for _ in ()).throw(RuntimeError("boom"))
 
         async def flow():
             await svc.start()

@@ -12,7 +12,9 @@
   * No source file of the port, nor chip_smoke.py, imports jax or the
     JAX package (`pingoo_tpu` not followed by `_torch`).
   * Without a card, an entry point called without device="cpu" raises,
-    and knobs of features the port does not have raise too.
+    and knobs of features the port does not have raise too (the mesh,
+    item 9b; the cost ledger, item 10); PINGOO_CHAOS is parsed, and a
+    malformed spec raises.
   * Importing the port builds no kernel; a failed build or launch
     raises, and only a successful launch is counted.
 """
@@ -235,7 +237,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert REPO / "pingoo_tpu_torch" / "native_ring.py" in files
     assert REPO / "pingoo_tpu_torch" / "engine" / "bodyscan.py" in files
     for new in ("models/botscore.py", "compiler/cache.py",
-                "compiler/obligations.py", "engine/hotswap.py"):
+                "compiler/obligations.py", "engine/hotswap.py",
+                "sched/scheduler.py", "engine/ladder.py", "obs/chaos.py"):
         assert REPO / "pingoo_tpu_torch" / new in files, new
     offenders = []
     for path in files:
@@ -290,14 +293,10 @@ def test_entry_points_raise_without_a_card(no_card):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("PINGOO_MEGASTEP", "auto"),
     ("PINGOO_MESH", "2x1x1"),
-    ("PINGOO_SCHED_MODE", "continuous"),
-    ("PINGOO_SCHED_MODE", "deadline"),
-    ("PINGOO_SCHED_FAILOPEN", "allow"),
     ("PINGOO_SCAN_PACK", "length"),
     ("PINGOO_SCAN_PACK", "batch"),
-    ("PINGOO_DEADLINE_MS", "2"),
+    ("PINGOO_COST_LEDGER", "COST_LEDGER.json"),
 ])
 def test_unported_knobs_raise(monkeypatch, name, value):
     rules, lists = generate_ruleset(20, with_lists=False, seed=3)
@@ -312,11 +311,10 @@ def test_unported_knobs_raise(monkeypatch, name, value):
 
 
 @pytest.mark.parametrize("name,value,item", [
-    ("PINGOO_SCHED_MODE", "continuous", "item 9, the scheduler"),
-    ("PINGOO_SCHED_FAILOPEN", "allow", "item 9, the scheduler"),
     ("PINGOO_SCAN_PACK", "fill", "kernel work item 1, lane packing"),
-    ("PINGOO_MEGASTEP", "auto", "item 9, the scheduler"),
-    ("PINGOO_DEADLINE_MS", "5", "item 9, the scheduler"),
+    ("PINGOO_MESH", "2x1x1", "item 9b, the mesh"),
+    ("PINGOO_MESH", "1x2x1", "item 9b, the mesh"),
+    ("PINGOO_COST_LEDGER", "on", "item 10, the cost ledger"),
 ])
 def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     monkeypatch.setenv(name, value)
@@ -351,6 +349,15 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     # The halo split (item 4, ported): the values that raised before.
     ("PINGOO_NFA_SPLIT", "1"), ("PINGOO_SCAN_STRATEGY", "halo"),
     ("PINGOO_HALO_SPLIT", "1"),
+    # The scheduler (item 9, ported): the values that raised before, an
+    # unknown mode (continuous) and policy (serve) as the JAX package
+    # reads them, and the cost ledger turned off.
+    ("PINGOO_MEGASTEP", "auto"), ("PINGOO_SCHED_MODE", "continuous"),
+    ("PINGOO_SCHED_MODE", "deadline"), ("PINGOO_SCHED_FAILOPEN", "allow"),
+    ("PINGOO_DEADLINE_MS", "2"), ("PINGOO_SCHED_MODE", "bogus"),
+    ("PINGOO_SCHED_FAILOPEN", "interpret"), ("PINGOO_MEGASTEP_K", "8"),
+    ("PINGOO_DEADLINE_MS", "5"), ("PINGOO_SCHED_FAILOPEN", "drop"),
+    ("PINGOO_COST_LEDGER", "off"), ("PINGOO_COST_LEDGER", "0"),
     # Knobs that pick among the JAX package's backends mean nothing here.
     ("PINGOO_NFA_LOOKUP", "pair"), ("PINGOO_DFA_KERNEL", "pallas"),
     ("PINGOO_PREFILTER_KERNEL", "pallas"),
@@ -358,6 +365,76 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
 def test_ported_knob_values_pass(monkeypatch, name, value):
     monkeypatch.setenv(name, value)
     port_device.check_env()
+
+
+@pytest.mark.parametrize("spec,ok", [
+    ("xla_error:1", True), ("kill:3,pause:20:2", True),
+    ("stall:encode:1.5,verdict_full:2,swap_storm", True),
+    ("heartbeat_freeze", True),
+    ("bogus", False), ("pause", False), ("stall:encode", False),
+    ("kill:x", False), ("swap_storm:0", False),
+])
+def test_chaos_spec_parses_or_raises(monkeypatch, spec, ok):
+    """PINGOO_CHAOS is read, never ignored: a spec parses as the JAX
+    package's does, and a malformed one raises at check_env() and at a
+    plane's construction."""
+    rules, lists = generate_ruleset(20, with_lists=False, seed=3)
+    plan = compile_ruleset(rules, lists, device="cpu")
+    monkeypatch.setenv("PINGOO_CHAOS", spec)
+    if ok:
+        port_device.check_env()
+        VerdictService(plan, lists, device="cpu")
+        return
+    with pytest.raises(ValueError, match="PINGOO_CHAOS"):
+        port_device.check_env()
+    with pytest.raises(ValueError, match="PINGOO_CHAOS"):
+        VerdictService(plan, lists, device="cpu")
+
+
+ISOLATED_SCHED = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["pingoo_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+from pingoo_tpu_torch.engine.ladder import DegradationLadder
+from pingoo_tpu_torch.obs.chaos import ChaosInjector
+from pingoo_tpu_torch.sched import mesh_env_spec
+from pingoo_tpu_torch.sched.scheduler import Scheduler, SchedulerConfig
+s = Scheduler(SchedulerConfig(max_batch=64, deadline_ms=50.0))
+s.observe_stage_cost("compute", 64, 4.0)
+assert s.should_launch(64, 0.0, 0.0) and s.size_megastep_k([1, 2, 4], 64,
+                                                            1.0, 1.0) >= 1
+clock = [0.0]
+ladder = DegradationLadder("python", clock=lambda: clock[0])
+ladder.note_failure("device", RuntimeError("x"))
+clock[0] = 1.0
+assert ladder.try_rung("device") and ladder.demoted() == ["device"]
+assert ChaosInjector("xla_error:2").xla_error_at == 2
+assert mesh_env_spec() == (1, 1, 1)
+assert not any(k == "jax" or k.startswith(("jax.", "pingoo_tpu."))
+               for k, v in sys.modules.items() if v is not None)
+print("ISOLATED-SCHED-OK")
+"""
+
+
+def test_scheduler_ladder_and_chaos_import_neither_jax_nor_the_jax_package():
+    """The new modules of port queue item 9 run in an interpreter where
+    jax and the JAX package cannot be imported, and the source scan
+    covers them."""
+    files = port_sources()
+    for new in ("sched/__init__.py", "sched/scheduler.py",
+                "engine/ladder.py", "obs/chaos.py"):
+        path = REPO / "pingoo_tpu_torch" / new
+        assert path in files, new
+        assert not IMPORT_RE.search(path.read_text()), new
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env.pop("PINGOO_MESH", None)
+    out = subprocess.run([sys.executable, "-c", ISOLATED_SCHED, str(REPO)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(REPO / "pingoo_tpu_torch"), env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED-SCHED-OK" in out.stdout
 
 
 def test_non_integer_sched_pipeline_raises_value_error(monkeypatch):

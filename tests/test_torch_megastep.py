@@ -139,16 +139,26 @@ def test_mode_resolves_as_the_reference(monkeypatch, value):
         == ref_verdict._resolve_megastep_mode()
 
 
-def test_auto_raises_naming_item_9(monkeypatch, crs60):
+def test_auto_raises_naming_item_9(monkeypatch, crs60, tmp_path):
+    """`auto`, refused before port queue item 9, is served: both planes
+    build their graph runner under it. The mesh, item 9b, still raises."""
     _, _, plan, lists = crs60
     monkeypatch.setenv("PINGOO_MEGASTEP", "auto")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_device.check_env()
-    with pytest.raises(NotImplementedError, match="PINGOO_MEGASTEP"):
-        VerdictService(plan, lists, device="cpu")
-    ring = nr.Ring.__new__(nr.Ring)  # never touched: the check comes first
-    with pytest.raises(NotImplementedError, match="item 9"):
-        nr.RingSidecar(ring, plan, lists, device="cpu")
+    port_device.check_env()
+    service = VerdictService(plan, lists, device="cpu")
+    assert service._mega_mode == "auto" and service._mega_runner is not None
+    ring = nr.Ring(str(tmp_path / "ring"), capacity=64, create=True)
+    try:
+        sidecar = nr.RingSidecar(ring, plan, lists, device="cpu")
+        sidecar.stop()
+        assert sidecar.stats()["megastep"]["mode"] == "auto"
+        assert sidecar._mega_runner is not None
+    finally:
+        ring.close()
+    with monkeypatch.context() as mp:
+        mp.setenv("PINGOO_MESH", "2x1x1")
+        with pytest.raises(NotImplementedError, match="item 9b"):
+            port_device.check_env()
     for ok in ("off", "force", "warp"):
         monkeypatch.setenv("PINGOO_MEGASTEP", ok)
         port_device.check_env()
@@ -710,28 +720,54 @@ def test_sidecar_warm_up_runs_every_window_shape(crs60, tmp_path,
 
 
 def test_megastep_errors_raise(crs60, tmp_path, monkeypatch):
+    """A failed window demotes the ladder's megastep rung: the Python
+    plane issues the batch per batch, the sidecar interprets the
+    window's slices, both with the per-batch path's verdicts. A kernel
+    build error raises through the rung on both planes."""
+    from pingoo_tpu_torch.ops._build import KernelBuildError
+
     _, _, port, lists = crs60
     monkeypatch.setenv("PINGOO_MEGASTEP", "force")
+    error = [RuntimeError("replay broke")]
 
     def broken(*args, **kwargs):
-        raise RuntimeError("replay broke")
+        raise error[0]
 
+    want = VerdictService(port, lists, max_batch=8, device="cpu") \
+        .evaluate_batch([RequestTuple(path="/.env")])[0]
     monkeypatch.setattr(graphs.MegastepRunner, "run", broken)
     service = VerdictService(port, lists, max_batch=8, device="cpu")
-    with pytest.raises(RuntimeError, match="replay broke"):
-        service.evaluate_batch([RequestTuple(path="/.env")])
-    assert service.stats.batches == 0
+    got = service.evaluate_batch([RequestTuple(path="/.env")])[0]
+    assert (got.action, got.matched.tolist()) \
+        == (want.action, want.matched.tolist())
+    assert service.ladder.demoted() == ["megastep"]
+    assert service.pipeline_snapshot()["megastep"]["slices"] == 0
     assert service.pipeline_snapshot()["inflight"] == 0
+    assert sorted(service._mega_queue._free) == [0, 1]
+    error[0] = KernelBuildError("nvcc exited 2")
+    service.ladder.note_success("megastep")
+    with pytest.raises(KernelBuildError, match="nvcc"):
+        service.evaluate_batch([RequestTuple(path="/.env")])
+    assert service.stats.batches == 1
     assert sorted(service._mega_queue._free) == [0, 1]
     ring = nr.Ring(str(tmp_path / "ring"), capacity=64, create=True)
     try:
+        error[0] = RuntimeError("replay broke")
         sidecar = nr.RingSidecar(ring, port, lists, max_batch=8,
                                  device="cpu")
+        ticket = ring.enqueue(*nr.pack_requests(
+            [RequestTuple(path="/.env")])[0])
+        assert sidecar.run(max_requests=1) == 1
+        assert ring.poll_verdict()[:2] == (
+            ticket, want.action | (want.verified_block << 2))
+        assert sidecar.ladder.demoted() == ["megastep"]
+        error[0] = KernelBuildError("nvcc exited 2")
+        sidecar.ladder.note_success("megastep")
         assert ring.enqueue(*nr.pack_requests(
             [RequestTuple(path="/.env")])[0]) is not None
-        with pytest.raises(RuntimeError, match="replay broke"):
-            sidecar.run(max_requests=1)
-        assert ring.poll_verdict() is None  # no per-batch fallback verdict
+        with pytest.raises(KernelBuildError, match="nvcc"):
+            sidecar.run(max_requests=2)
+        assert ring.poll_verdict() is None  # no fallback verdict
         sidecar.stop()
     finally:
         ring.close()

@@ -408,39 +408,64 @@ def test_service_modes_equal_the_reference(crs60, monkeypatch, mode):
 
 
 def test_service_staging_error_fails_only_its_batch(crs60):
-    """No fallback to the one-batch chain: the error reaches that batch's
-    callers, every in-flight slot is released (three failures in a row
-    at depth 2 would otherwise hang), and the service serves again."""
+    """A staging error demotes the ladder's pipeline rung: the batch is
+    encoded through the one-batch chain, with its verdicts, and the
+    staging encoder serves again once a probe after the backoff finds
+    it working. A kernel build error is never demoted: it fails that
+    batch's callers only, every in-flight slot is released, and the
+    service serves again."""
+    from pingoo_tpu_torch.ops._build import KernelBuildError
+
     _, _, port, lists = crs60
     service = VerdictService(port, lists, max_batch=8, max_wait_us=0,
                              device="cpu")
     assert service._pipeline_depth == 2
+    clock = [0.0]
+    service.ladder._clock = lambda: clock[0]
     encode = service._staging.encode_requests
+    want = VerdictService(port, lists, max_batch=8, device="cpu") \
+        .evaluate_batch([RequestTuple(path="/.env")])[0]
 
     def broken(*args, **kwargs):
         raise RuntimeError("staging broke")
+
+    def unbuilt(*args, **kwargs):
+        raise KernelBuildError("nvcc exited 2")
 
     async def run():
         await service.start()
         try:
             service._staging.encode_requests = broken
+            served = [await asyncio.wait_for(
+                service.evaluate(RequestTuple(path="/.env")), 10)
+                for _ in range(3)]
+            demoted = service.ladder.demoted()
+            service._staging.encode_requests = unbuilt
             out = []
             for path in ("/a", "/b", "/c"):
-                with pytest.raises(RuntimeError, match="staging broke"):
+                clock[0] += 1.0  # a probe window opens
+                with pytest.raises(KernelBuildError, match="nvcc"):
                     await asyncio.wait_for(
                         service.evaluate(RequestTuple(path=path)), 10)
                 out.append(path)
             service._staging.encode_requests = encode
+            clock[0] += 10.0
             v = await asyncio.wait_for(
                 service.evaluate(RequestTuple(path="/.env")), 10)
-            return out, v
+            return served, demoted, out, v
         finally:
             await service.stop()
 
-    out, v = asyncio.run(run())
+    served, demoted, out, v = asyncio.run(run())
+    assert demoted == ["pipeline"]
+    for got in served + [v]:
+        np.testing.assert_array_equal(got.matched, want.matched)
+        assert got.action == want.action
     assert out == ["/a", "/b", "/c"]
     assert v.matched.shape == (len(port.rules),)
     assert service.pipeline_snapshot()["inflight"] == 0
+    assert service.ladder.demoted() == []
+    assert service.stats.snapshot()["ladder"]["pipeline"]["errors"] == 1
 
 
 # -- RingSidecar -------------------------------------------------------------------
@@ -520,6 +545,11 @@ def test_sidecar_modes_equal_the_reference(crs60, ref_ring_bytes, tmp_path,
 
 
 def test_sidecar_staging_error_propagates(crs60, tmp_path):
+    """A staging error demotes the sidecar's pipeline rung and the batch
+    decodes through the one-batch chain, posting its verdict; a kernel
+    build error propagates out of `run()`, with no fallback verdict."""
+    from pingoo_tpu_torch.ops._build import KernelBuildError
+
     _, _, port, lists = crs60
     ring = nr.Ring(str(tmp_path / "ring"), capacity=64, create=True)
     try:
@@ -530,14 +560,39 @@ def test_sidecar_staging_error_propagates(crs60, tmp_path):
         def broken(*args, **kwargs):
             raise RuntimeError("staging broke")
 
+        def unbuilt(*args, **kwargs):
+            raise KernelBuildError("nvcc exited 2")
+
         sidecar._staging.encode_slots = broken
-        assert enqueue(ring, 0) is not None
-        with pytest.raises(RuntimeError, match="staging broke"):
-            sidecar.run(max_requests=1)
+        ticket = enqueue(ring, 0)
+        assert sidecar.run(max_requests=1) == 1
+        got = ring.poll_verdict()
+        want = VerdictService(port, lists, device="cpu").evaluate_batch(
+            as_port(nr_requests(ring, [0])))[0]
+        assert got[:2] == (ticket, want.action | (want.verified_block << 2))
+        assert sidecar.ladder.demoted() == ["pipeline"]
+        sidecar.ladder.note_success("pipeline")
+        sidecar._staging.encode_slots = unbuilt
+        assert enqueue(ring, 1) is not None
+        with pytest.raises(KernelBuildError, match="nvcc"):
+            sidecar.run(max_requests=2)
         assert ring.poll_verdict() is None  # no fallback verdict
         sidecar.stop()
     finally:
         ring.close()
+
+
+def nr_requests(ring, ids):
+    """The tuples `enqueue` put on the ring for `ids`."""
+    out = []
+    for i in ids:
+        body = f"/p{i}?q={'x' * (i % 90)}"
+        out.append(RequestTuple(
+            method="GET" if i % 3 else "POST", host=f"h{i % 7}.test",
+            path=body, url=body, user_agent=f"ua-{i % 5}",
+            ip=f"10.{i % 256}.{(i * 7) % 256}.1", remote_port=1000 + i,
+            asn=64500 + (i % 9), country="FR" if i % 2 else "DE"))
+    return out
 
 
 def test_service_batch_held_past_later_batches(monkeypatch):

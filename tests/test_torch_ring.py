@@ -581,13 +581,24 @@ def test_sidecar_without_a_card_raises(tmp_path, monkeypatch):
     ("PINGOO_SCHED_MODE", "continuous"), ("PINGOO_SCHED_FAILOPEN", "allow")])
 def test_sidecar_refuses_the_scheduler_knobs(tmp_path, monkeypatch, name,
                                              value):
+    """The scheduler's knobs, refused before port queue item 9, are read
+    as the JAX package reads them; the sidecar still refuses the mesh
+    (item 9b) before it attaches."""
     plan = both_plans(EVIL)[1]
     monkeypatch.setenv(name, value)
     ring = nr.Ring(str(tmp_path / "ring"), capacity=64, create=True)
     try:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            nr.RingSidecar(ring, plan, {}, device="cpu")
+        with monkeypatch.context() as mp:
+            mp.setenv("PINGOO_MESH", "2x1x1")
+            with pytest.raises(NotImplementedError, match="item 9b"):
+                nr.RingSidecar(ring, plan, {}, device="cpu")
         assert ring.liveness()["epoch"] == 0
+        sidecar = nr.RingSidecar(ring, plan, {}, device="cpu")
+        sidecar.stop()
+        snap = sidecar.stats()["sched"]
+        key = "mode" if name == "PINGOO_SCHED_MODE" else "failopen_policy"
+        assert snap[key] == value
+        assert ring.liveness()["epoch"] == 1
     finally:
         ring.close()
 

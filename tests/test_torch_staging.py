@@ -696,7 +696,7 @@ def test_sidecar_compact_checksum_and_overflow_rows(tail_stream, tmp_path):
             queue.release(buf)
             caps = sidecar._staging.stage_caps
             assert key == ("lanes", 1, 16,
-                           tuple(caps[f] for f in STRING_FIELDS))
+                           tuple(caps[f] for f in STRING_FIELDS), "auto")
     assert got["full"] == got["compact"] == got["compact_force"] \
         == want.actions
     assert res.checksum == want.checksum
