@@ -34,7 +34,10 @@
    flight), and the default mode once more under PINGOO_PIPELINE=off;
    every matched row, action and verified_block must equal the
    interpreter oracle (computed in processes of its own while the
-   kernels build) and the port's CPU path. The default mode (auto,
+   kernels build) and the port's CPU path, and each batch's Stage-A aux
+   vector (the prefilter counters' input, reduced from the prefilter
+   kernel's hits) on the card must equal the plain versions' on the
+   CPU. The default mode (auto,
    banks) under on is the main path: the kernels' launch counts are
    reset just before it and read just after, and each kernel must have
    launched. Both executor modes print req/s, and the main path's
@@ -96,7 +99,11 @@
    capturing its graph) and counts the captures its warm stream still
    makes; both must give the same
    checksum and bytes, launch every kernel through graph replays and
-   echo every slice's epoch. Then bench.py's staging pair on the same
+   echo every slice's epoch. Each of these four arms' sidecars keeps a
+   metric registry of its own, scraped after its drives: its
+   `pingoo_ring_*` series and wait-histogram buckets must be its ring's
+   `ring_telemetry()`, its text must lint clean and its prefilter
+   counters must have moved. Then bench.py's staging pair on the same
    ring: bench_staging's warm (seed 22) and measured (seed 21) streams
    of 8,192 requests with its long-URL tail (one request in 200 with a
    url and path of about 1,800 more bytes), at PINGOO_STAGING_DEPTH=256,
@@ -157,7 +164,15 @@
    static site's 200/404/405), every request answered once, no engine
    error and no body scan failed open, stats.snapshot() the requests
    evaluated, and the measured pass must launch all three kernels
-   (counts set to 0 just before it, read just after). Last, `python -m
+   (counts set to 0 just before it, read just after). In each pass the
+   registry's `pingoo_requests_total{plane="python"}` must move by the
+   requests sent and its wait histogram's count by those evaluated.
+   After the passes, one batch of 48 distinct requests and 16 repeats
+   of them goes straight into the listener's handler at once: dedup_hits
+   must move by 16 in one collector batch, each repeat answered as its
+   first; then a scrape of /__pingoo/metrics (no Accept header) must
+   answer 200 `text/plain; version=0.0.4` that lints clean and carries
+   the shared, prefilter, DFA and scheduler families. Last, `python -m
    pingoo_tpu_torch` on the card answers a blocked, a captcha and a
    proxied request and exits 0 within 20 s of SIGTERM. Prints
    {"listener": ...}: req/s, client latency p50/p99, batches and rows a
@@ -187,7 +202,12 @@
    requests (each response the merged oracle's, no body scan failed
    open), and `python -m pingoo_tpu_torch --native-plane` answering a
    blocked, a captcha and a proxied request and exiting 0 within 20 s
-   of SIGTERM with no httpd left. Prints {"native": ...}: req/s, client
+   of SIGTERM with no httpd left. After the loadgen runs the httpd's
+   Prometheus text must carry every shared metric name, and the
+   sidecar's registry its ring's verdicts posted; the phase prints the
+   httpd's pingoo_degraded_entered_total over the plane's life and the
+   largest heartbeat age of the passes (the evidence on a stall of the
+   sidecar's process). Prints {"native": ...}: req/s, client
    and added latency p50/p99, the httpd's and the ring's verdict-wait
    percentiles, the sidecar's stages and busy share, rows and launches
    per batch, the largest heartbeat age and the device's busy share.
@@ -1498,20 +1518,26 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
     (the interpreter's rows of `reqs`); returns the main path's launch
     counts and its (matched, actions, verified_block)."""
     import numpy as np
+    import torch
 
     from pingoo_tpu_torch.compiler.plan import compile_ruleset
     from pingoo_tpu_torch.engine.batch import (RequestBatch, bucket_arrays,
                                                encode_requests)
     from pingoo_tpu_torch.engine.service import VerdictService
     from pingoo_tpu_torch.engine.verdict import (action_lanes, finish_batch,
-                                                 make_verdict_fn)
+                                                 make_verdict_program)
     from pingoo_tpu_torch.ops import _build
 
     o_act, o_vb = action_lanes(plan, oracle)
     print(f"oracle: {int(oracle.sum())} matches, "
           f"{int((o_act != 0).sum())} acted", flush=True)
     cpu_plan = compile_ruleset(rules, lists, device="cpu")
-    cpu_fn = make_verdict_fn(cpu_plan)
+    # With the Stage-A aux vector: the card's (its prefilter kernel's
+    # hits) is held to the plain versions' on the CPU, batch by batch.
+    cpu_fn = make_verdict_program(cpu_plan)
+    card_fn = make_verdict_program(plan)
+    aux_checked = {}
+    aux_s = 0.0  # the card's half of the aux check, its added cost
     main_counts = None
     # Every mode under the default executor (PINGOO_PIPELINE=on); the
     # main path's mode also under off, one batch at a time, and under
@@ -1622,15 +1648,28 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
                      caps=service.stage_caps, **staging_cols)
         # The port's CPU path on the same batches, once per mode.
         if (dfa_mode, pf_mode) not in cpu_rows:
-            cpu = []
+            cpu, auxes = [], []
             for lo in range(0, N_REQUESTS, B):
                 chunk = reqs[lo:lo + B]
                 arrays = bucket_arrays(
                     encode_requests(chunk, cpu_plan.field_specs).arrays)
+                m, cpu_aux, _ = cpu_fn(cpu_plan.np_tables, arrays)
                 cpu.append(finish_batch(
-                    cpu_plan, cpu_fn(cpu_plan.np_tables, arrays),
-                    RequestBatch(size=len(chunk), arrays=arrays), lists))
+                    cpu_plan, m, RequestBatch(size=len(chunk), arrays=arrays),
+                    lists))
+                t_aux = time.monotonic()
+                card_aux = card_fn(plan.np_tables, arrays)[1]
+                aux_equal = (cpu_aux is None) == (card_aux is None) and (
+                    cpu_aux is None or torch.equal(cpu_aux, card_aux.cpu()))
+                aux_s += time.monotonic() - t_aux
+                if not aux_equal:
+                    fail(f"{label}: the Stage-A aux vector on the card "
+                         f"{None if card_aux is None else card_aux.tolist()}"
+                         f" differs from the plain versions' on the CPU "
+                         f"{None if cpu_aux is None else cpu_aux.tolist()}")
+                auxes.append(None if cpu_aux is None else cpu_aux.tolist())
             cpu_rows[dfa_mode, pf_mode] = np.concatenate(cpu)
+            aux_checked[f"{dfa_mode}/{pf_mode}"] = auxes
         cpu = cpu_rows[dfa_mode, pf_mode]
         bad = int((matched != oracle).any(axis=1).sum())
         bad_cpu = int((cpu != oracle).any(axis=1).sum())
@@ -1682,6 +1721,11 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
                  else str(c["busy"]))
               + f" under the profiler; caps {c['caps']}; launches "
               f"{c['launches']}", flush=True)
+    print("Stage-A aux vectors [candidate rows, banks skipped, per bank "
+          "candidates, per bank skipped] of each batch, equal on the card "
+          f"and in the plain versions on the CPU (the card's calls and "
+          f"the comparison {aux_s:.2f} s): " + json.dumps(aux_checked),
+          flush=True)
     compacts["decode"] = decode_phase(plan, reqs, dev)
     os.environ["PINGOO_DFA"], os.environ["PINGOO_PREFILTER"] = MODES[0]
     profile_main_path(plan, lists, reqs, dev)
@@ -1913,11 +1957,13 @@ def config_phase(rules, lists, reqs, oracle, main, dev) -> dict:
                  f"interpreter: {e['parity']}, {e['matched_rules']} != "
                  f"{want_rules}, digest {e['digest']} != {digest}")
     snap = service.stats.snapshot()
-    if (snap["batches"], snap["requests"]) != (served["batches"],
-                                               served["requests"]):
+    # Batch dedup: a duplicate tuple of a batch rides its first's row.
+    if (snap["batches"], snap["requests"]) != (
+            served["batches"], served["requests"] + snap["dedup_hits"]):
         fail(f"config: stats.snapshot() counts {snap['batches']} batches "
-             f"and {snap['requests']} requests, the service served "
-             f"{served['batches']} and {served['requests']}")
+             f"and {snap['requests']} requests ({snap['dedup_hits']} of "
+             f"them duplicates), the service evaluated "
+             f"{served['batches']} batches of {served['requests']} rows")
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"the config phase launched no {missing} kernel")
@@ -2643,6 +2689,48 @@ def ring_drive(sidecar, drive, want, profiled: bool = False,
     return out
 
 
+def sidecar_metrics(sidecar, label: str) -> dict:
+    """The sidecar's registry, scraped with its drain loop idle: each
+    `pingoo_ring_*` value and the wait histogram's buckets must be its
+    rings' `ring_telemetry()`, the text must lint clean, and the
+    prefilter counters must have moved. Returns the registry's sidecar
+    series."""
+    from pingoo_tpu_torch.obs.registry import lint_prometheus_text
+
+    t0 = time.monotonic()
+    reg = sidecar._registry
+    text = reg.prometheus_text()
+    snap = reg.json_snapshot()
+    t = sidecar.ring_telemetry()
+    lab = "plane=sidecar"
+    wait = snap["pingoo_verdict_wait_ms"][lab]
+    got = {f: snap[f"pingoo_ring_{f}" + ("" if f.startswith("depth")
+                                          else "_total")][lab]
+           for f in ("enqueued", "dequeued", "enqueue_full",
+                     "verdicts_posted", "verdict_post_full", "depth",
+                     "depth_hwm")}
+    want = {f: t[f] for f in got}
+    problems = lint_prometheus_text(text)
+    cum = list(wait["buckets"].values())
+    if got != want or cum != [sum(t["wait_hist"][:i + 1])
+                              for i in range(len(t["wait_hist"]))] \
+            or wait["sum"] != round(float(t["wait_sum_ms"]), 6) \
+            or problems or not snap["pingoo_scan_banks_skipped_total"][lab] \
+            and not snap["pingoo_prefilter_candidate_rate"][lab]:
+        fail(f"{label}: the registry's ring series {got}, wait buckets "
+             f"{cum} sum {wait['sum']}, against ring_telemetry() {want}, "
+             f"{t['wait_hist']} sum {t['wait_sum_ms']}; lint {problems[:5]}; "
+             f"prefilter counters "
+             f"{snap['pingoo_scan_banks_skipped_total'][lab]}, "
+             f"{snap['pingoo_prefilter_candidate_rate'][lab]}")
+    return dict(ring=got, wait_count=wait["count"],
+                banks_skipped=snap["pingoo_scan_banks_skipped_total"][lab],
+                candidate_rate=snap["pingoo_prefilter_candidate_rate"][lab],
+                dfa_banks=snap["pingoo_dfa_banks_total"],
+                staged_bytes=snap["pingoo_staged_bytes_total"],
+                text_bytes=len(text), seconds=time.monotonic() - t0)
+
+
 def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
              megastep: str = "off", max_batch: int = B, quick: bool = False,
              need=None) -> dict:
@@ -2659,12 +2747,14 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
     import threading
 
     from pingoo_tpu_torch import native_ring as nr
+    from pingoo_tpu_torch.obs.registry import MetricRegistry
 
     os.environ["PINGOO_PIPELINE"] = mode
     os.environ["PINGOO_MEGASTEP"] = megastep
     try:
         sidecar = nr.RingSidecar(ring, plan, lists, max_batch=max_batch,
-                                 device=dev, pipeline_depth=3)
+                                 device=dev, pipeline_depth=3,
+                                 registry=MetricRegistry())
     finally:
         os.environ.pop("PINGOO_PIPELINE")
         os.environ.pop("PINGOO_MEGASTEP")
@@ -2692,6 +2782,7 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
                              profiled, need=need)
                   for profiled in ((False, True) if mode == "on"
                                    and not quick else (False,))]
+        metrics = sidecar_metrics(sidecar, f"ring arm {mode}/{megastep}")
     finally:
         sidecar.stop()
         thread.join(timeout=30)
@@ -2717,7 +2808,7 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
                 pipeline=pipe, megastep_stats=stats["megastep"],
                 graph_keys=(sorted(sidecar._mega_runner.keys)
                             if megastep == "force" else None),
-                drives=drives)
+                metrics=metrics, drives=drives)
 
 
 def staging_arm(ring, producer, plan, lists, dev, staging: str,
@@ -2963,6 +3054,12 @@ SCHED_ORACLE_N = 1024  # interpreter rows the Python arms are held to
 SCHED_SEED_BATCH = 1024  # the port's max_batch default: the cost seed's batch
 SCHED_SEED_REPS = 8
 SCHED_SLACK_MS = "1000"  # a deadline that leaves slack on this card
+# The ring's slack arm's max_batch: not a divisor of the stream's 16,384
+# requests, so its last 1,024 arrive as a partial batch that continuous
+# admission holds until its slack runs out, however fast the producer
+# fills the ring (a producer ahead of the drain by a whole batch on
+# every pass leaves the earlier batches nothing to hold).
+SCHED_SLACK_BATCH = 1536
 SCHED_ALLOW_MS = "500"  # lets the first batches of a burst in time
 SCHED_RING_ALLOW_MS = "150"  # below the ring stream's wait p50
 SCHED_PACE = (64, 0.004)  # the paced arm: 64 requests every 4 ms
@@ -3243,7 +3340,8 @@ def sched_phase() -> int:
     of a burst miss (those fail open, the rest as VerdictService); and
     `interpret` under an impossible one (the interpreter's rows). The
     ring: `continuous` and `fixed` at the default deadline, a deadline
-    with slack (passes held), `auto` (windows of K > 1), `allow`; then
+    with slack at max_batch SCHED_SLACK_BATCH (passes held: at least the
+    stream's partial last batch), `auto` (windows of K > 1), `allow`; then
     the chaos arms at max_batch 256: `xla_error:1` per batch and under
     `force` (the error demotes a rung and the interpreter serves, a
     probe after the backoff re-promotes it, and a third drive launches
@@ -3353,7 +3451,8 @@ def sched_phase() -> int:
                         ("continuous 2", {})):
                     ring_arms[label] = sched_ring_arm(
                         label, ring, producer, plan, lists, want, dev, env,
-                        warm=label == "continuous")
+                        max_batch=SCHED_SLACK_BATCH if label == "slack"
+                        else B, warm=label == "continuous")
                 if ring_arms["slack"]["sched"]["held_passes"] == 0:
                     fail("the ring's slack arm held no pass")
                 m = ring_arms["auto"]["pipeline_megastep"]
@@ -4307,6 +4406,9 @@ def listener_pass(label, client, server, proto, reqs, bodies, conns,
     listener = server.http_listeners[0]
     verdict = server.verdict
     jobs = listener_jobs(reqs, bodies, proto)
+    t_snap = time.monotonic()
+    m0, d0 = verdict.registry.json_snapshot(), verdict.stats.dedup_hits
+    snapshot_s = time.monotonic() - t_snap
     b0, r0 = verdict.stats.batches, verdict.stats.requests
     s0 = {k: v.count for k, v in verdict.stats.stages.items()}
     w0 = verdict.stats.batch.count
@@ -4331,6 +4433,24 @@ def listener_pass(label, client, server, proto, reqs, bodies, conns,
              f"after the last responses")
     batches = verdict.stats.batches - b0
     evaluated = verdict.stats.requests - r0
+    # The registry's view of the pass: the listener's requests and the
+    # verdict waits, as a scrape would read them.
+    t_snap = time.monotonic()
+    m1 = verdict.registry.json_snapshot()
+    snapshot_s += time.monotonic() - t_snap
+    metrics = dict(
+        requests_total=registry_delta(
+            m0, m1, "pingoo_requests_total",
+            f"listener={listener.name},plane=python"),
+        wait_count=registry_delta(m0, m1, "pingoo_verdict_wait_ms",
+                                  "plane=python", "count"),
+        dedup_hits=verdict.stats.dedup_hits - d0, snapshot_s=snapshot_s)
+    if (metrics["requests_total"], metrics["wait_count"]) != \
+            (len(reqs), evaluated):
+        fail(f"listener {label}: the registry's pingoo_requests_total "
+             f"moved by {metrics['requests_total']} and the wait "
+             f"histogram's count by {metrics['wait_count']}, for "
+             f"{len(reqs)} requests of which {evaluated} were evaluated")
     lat = np.array([r[4] for r in results])
     res = dict(
         proto=proto, requests=len(reqs), conns=conns,
@@ -4338,7 +4458,7 @@ def listener_pass(label, client, server, proto, reqs, bodies, conns,
         req_per_s=len(reqs) / out["wall_s"], wall_s=out["wall_s"],
         latency_p50_ms=float(np.percentile(lat, 50)),
         latency_p99_ms=float(np.percentile(lat, 99)),
-        batches=batches, evaluated=evaluated,
+        batches=batches, evaluated=evaluated, metrics=metrics,
         rows_per_batch=evaluated / batches if batches else 0.0,
         stage_p50_ms={k: float(np.percentile(w.since(s0[k]), 50))
                       for k, w in verdict.stats.stages.items()
@@ -4373,6 +4493,102 @@ def listener_pass(label, client, server, proto, reqs, bodies, conns,
              f"{res['device_busy_pct']}% of the wall" if profiled else ""),
           flush=True)
     return res
+
+
+def registry_delta(before: dict, after: dict, name: str, key: str,
+                   field: str = None):
+    """after - before of one series of two registry JSON snapshots
+    (`field` of a histogram's, e.g. "count"); 0 where absent."""
+    def value(snap):
+        v = snap.get(name, {}).get(key, 0)
+        return v.get(field, 0) if field is not None and v else v
+    return value(after) - value(before)
+
+
+def listener_scrape(port: int) -> dict:
+    """GET /__pingoo/metrics without an Accept header, as a Prometheus
+    scraper sends it: the status, content type, lint problems and size
+    of the text, and the samples of a few families."""
+    import http.client
+
+    from pingoo_tpu_torch.obs import schema
+    from pingoo_tpu_torch.obs.registry import lint_prometheus_text
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/__pingoo/metrics",
+                     headers={"user-agent": "chip-smoke-scraper"})
+        resp = conn.getresponse()
+        text = resp.read().decode()
+        ctype = resp.getheader("content-type", "")
+    finally:
+        conn.close()
+    lines = [ln for ln in text.splitlines() if ln and not ln.startswith("#")]
+    names = {ln.split("{", 1)[0].split(" ", 1)[0] for ln in lines}
+    return dict(status=resp.status, content_type=ctype,
+                problems=lint_prometheus_text(text), bytes=len(text),
+                samples=len(lines),
+                missing=sorted(n for n in (*schema.SHARED_METRICS,
+                                           *schema.PREFILTER_METRICS,
+                                           *schema.DFA_METRICS,
+                                           *schema.SCHED_METRICS,
+                                           "pingoo_staged_bytes_total",
+                                           "pingoo_degrade_total",
+                                           "pingoo_ruleset_epoch",
+                                           "pingoo_pipeline_inflight")
+                               if not any(x == n or x.startswith(n + "_")
+                                          for x in names)),
+                series={n: [ln for ln in lines if ln.startswith(n)]
+                        for n in ("pingoo_requests_total",
+                                  "pingoo_scan_banks_skipped_total",
+                                  "pingoo_prefilter_candidate_rate",
+                                  "pingoo_dfa_banks_total",
+                                  "pingoo_verdict_wait_ms_count")})
+
+
+LISTENER_DEDUP = 48  # distinct requests of the dedup step's one batch
+LISTENER_DEDUP_REPEATS = (0, 0, 1, 2, 3, 5, 8, 13, 21, 34, 34, 34, 40, 47,
+                          47, 47)
+
+
+def listener_dedup(lt, server, reqs) -> dict:
+    """One batch straight into the listener's handler, all at once on its
+    event loop (so one collector batch): LISTENER_DEDUP distinct requests
+    that need a verdict and LISTENER_DEDUP_REPEATS of them again.
+    `dedup_hits` must move by the repeats, the batch be one, and each
+    repeat be answered as its first."""
+    from pingoo_tpu_torch.host.httpd import Request
+
+    verdict = server.verdict
+    listener = server.http_listeners[0]
+    base = [r for r in reqs
+            if r.user_agent and len(r.user_agent) < 256][:LISTENER_DEDUP]
+    batch = base + [base[i] for i in LISTENER_DEDUP_REPEATS]
+    d0, b0 = verdict.stats.dedup_hits, verdict.stats.batches
+
+    async def send():
+        return await asyncio.gather(*[listener.handle_request(Request(
+            method=r.method, target=quote_target(r.url), path=r.path,
+            headers=[("host", r.host), ("user-agent", r.user_agent)]),
+            (r.ip, 40000)) for r in batch])
+
+    resps = lt.run(send())
+    hits = verdict.stats.dedup_hits - d0
+    batches = verdict.stats.batches - b0
+    first = {i: resps[i].status for i in range(len(base))}
+    wrong = [(i, resps[len(base) + j].status, first[i])
+             for j, i in enumerate(LISTENER_DEDUP_REPEATS)
+             if resps[len(base) + j].status != first[i]]
+    if hits != len(LISTENER_DEDUP_REPEATS) or batches != 1 or wrong:
+        fail(f"listener dedup: {len(batch)} requests with "
+             f"{len(LISTENER_DEDUP_REPEATS)} repeats in one batch gave "
+             f"dedup_hits +{hits} over {batches} batches; repeats answered "
+             f"otherwise than their first: {wrong}")
+    out = dict(requests=len(batch), repeats=len(LISTENER_DEDUP_REPEATS),
+               dedup_hits=hits, batches=batches,
+               statuses=sorted({r.status for r in resps}))
+    print(f"listener dedup: {out}", flush=True)
+    return out
 
 
 def listener_check(label, res, oracle) -> dict:
@@ -4665,6 +4881,18 @@ def listener_phase(device=None, n: int = N_REQUESTS) -> int:
             for label, proto, rq, bd, conns, prof in passes:
                 results[label] = listener_pass(label, client, server, proto,
                                                rq, bd, conns, prof)
+            t0 = time.monotonic()
+            dedup = listener_dedup(lt, server, reqs)
+            scrape = listener_scrape(server.http_listeners[0].bound_port)
+            if scrape["status"] != 200 or not scrape["content_type"] \
+                    .startswith("text/plain; version=0.0.4") \
+                    or scrape["problems"] or scrape["missing"]:
+                fail(f"listener: /__pingoo/metrics answered "
+                     f"{scrape['status']} {scrape['content_type']!r}, lint "
+                     f"{scrape['problems'][:5]}, missing families "
+                     f"{scrape['missing']}")
+            scrape["seconds"] = time.monotonic() - t0  # dedup included
+            print(f"listener scrape: {json.dumps(scrape)}", flush=True)
             snap = server.verdict.stats.snapshot()
             max_batch = server.verdict.max_batch
             listener_stop(lt, server)
@@ -4688,7 +4916,7 @@ def listener_phase(device=None, n: int = N_REQUESTS) -> int:
             pong.stdin.close()
             pong.wait(timeout=30)
         served = sum(r["evaluated"] for k, r in results.items()
-                     if k != "body")
+                     if k != "body") + dedup["requests"]
         if (snap["requests"], body_snap["requests"]) != \
                 (served, results["body"]["evaluated"]):
             fail(f"stats.snapshot() counts {snap['requests']} and "
@@ -4732,10 +4960,14 @@ def listener_phase(device=None, n: int = N_REQUESTS) -> int:
     check_ladder("listener phase")
     print(json.dumps({"listener": dict(
         requests=n, conns=LISTENER_CONNS, max_batch=max_batch, boot_s=boot_s,
-        passes=results, outcomes=kinds, entry_point=entry,
+        passes=results, outcomes=kinds, entry_point=entry, dedup=dedup,
+        scrape={k: v for k, v in scrape.items() if k != "series"},
         snapshot={k: snap[k] for k in ("batches", "requests",
                                        "mean_occupancy", "verdict_p50_ms",
-                                       "verdict_p99_ms")},
+                                       "verdict_p99_ms", "dedup_hits",
+                                       "prefilter_candidate_rate",
+                                       "scan_banks_skipped", "dfa_banks",
+                                       "dfa_rechecks")},
         seconds=time.monotonic() - t_phase)}), flush=True)
     return 0
 
@@ -4861,6 +5093,62 @@ def native_metrics(port: int) -> dict:
         while chunk := c.recv(65536):
             raw += chunk
     return json.loads(raw.partition(b"\r\n\r\n")[2])
+
+
+def native_prometheus(port: int) -> str:
+    """The httpd's /__pingoo/metrics in its default exposition, the
+    Prometheus text."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), 30) as c:
+        c.sendall(b"GET /__pingoo/metrics HTTP/1.1\r\nhost: m\r\n"
+                  b"user-agent: chip-smoke\r\nconnection: close\r\n\r\n")
+        raw = b""
+        while chunk := c.recv(65536):
+            raw += chunk
+    return raw.partition(b"\r\n\r\n")[2].decode()
+
+
+def native_liveness(port: int, plane, ages) -> dict:
+    """The C++ httpd's Prometheus text against the shared inventory (it
+    must carry every SHARED_METRICS name), its degraded-mode entries over
+    the plane's life and the largest heartbeat age the passes sampled
+    (`ages`), and the sidecar's registry against its ring's telemetry:
+    the evidence on a stall of the sidecar's process."""
+    import re as _re
+
+    from pingoo_tpu_torch.obs import REGISTRY, schema
+    from pingoo_tpu_torch.obs.registry import lint_prometheus_text
+
+    text = native_prometheus(port)
+    missing = [n for n in schema.SHARED_METRICS if n not in text]
+    if missing:
+        fail(f"native: the httpd's Prometheus text lacks {missing}")
+    entered = [int(float(m)) for m in _re.findall(
+        r"^pingoo_degraded_entered_total(?:\{[^}]*\})? (\S+)$", text,
+        _re.M)]
+    t = plane.sidecar.ring_telemetry()
+    snap = REGISTRY.json_snapshot()
+    exported = snap.get("pingoo_ring_verdicts_posted_total", {}).get(
+        "plane=sidecar")
+    out = dict(shared_metrics=sorted(schema.SHARED_METRICS),
+               degraded_entered_total=entered,
+               max_heartbeat_age_ms=max(ages), heartbeat_ages_ms=ages,
+               lint_problems=len(lint_prometheus_text(text)),
+               text_bytes=len(text),
+               sidecar_verdicts_posted=dict(exported=exported,
+                                            ring=t["verdicts_posted"]))
+    if exported != t["verdicts_posted"]:
+        fail(f"native: the sidecar's registry exports "
+             f"{exported} verdicts posted, its ring's telemetry "
+             f"{t['verdicts_posted']}")
+    print(f"native liveness: the httpd's text carries "
+          f"{len(schema.SHARED_METRICS)} shared metrics; "
+          f"pingoo_degraded_entered_total {entered}, the heartbeat's "
+          f"largest age {max(ages)} ms over the passes {ages}; "
+          f"{out['lint_problems']} lint problems in {len(text)} bytes",
+          flush=True)
+    return out
 
 
 def native_delta(before: dict, after: dict) -> dict:
@@ -5363,6 +5651,10 @@ def native_phase(device=None, n: int = N_REQUESTS) -> int:
                 loadgen[label] = native_loadgen(label, plane, port, args,
                                                 prof)
                 step(f"loadgen {label}")
+            liveness = native_liveness(port, plane, [
+                results["correctness"]["max_heartbeat_age_ms"],
+                *(r["max_heartbeat_age_ms"] for r in loadgen.values())])
+            step("liveness")
             sidecar_stats = {k: v for k, v in plane.sidecar.stats().items()
                              if k != "ring_telemetry"}
             boot_s, warm_up = plane.boot_s, plane.warm_up
@@ -5442,7 +5734,7 @@ def native_phase(device=None, n: int = N_REQUESTS) -> int:
         requests=n, conns=NATIVE_CONNS, listed=len(listed),
         boot_s=boot_s, warm_up=warm_up, builds=took, sonames=sonames,
         nofile=nofile, passes=results, loadgen=loadgen, outcomes=kinds,
-        entry_point=entry, sidecar=sidecar_stats,
+        entry_point=entry, sidecar=sidecar_stats, liveness=liveness,
         body_verdicts=body_verdicts, steps_s=steps,
         seconds=time.monotonic() - t_phase)}), flush=True)
     return 0
@@ -6405,18 +6697,28 @@ def main() -> int:
         return ring_producer(sys.argv[2])
     import numpy as np
 
-    rules, lists, reqs, oracle, dev, plan = setup()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        phase_s[name] = round(time.monotonic() - t0, 1)
+        return out
+
+    rules, lists, reqs, oracle, dev, plan = timed("setup", setup)
     rng = np.random.default_rng(SEED)
-    results = kernel_phase(plan, dev, rng)
-    results["prefilter"]["stage_a"] = stage_a_child()
-    ring = ring_child()
-    sched = sched_child()
-    body = body_child()
-    listener = listener_child()
-    native = native_child()
-    counts, main_path, megas, compacts = slice_phase(plan, rules, lists,
-                                                     reqs, dev, oracle)
-    config_counts = config_phase(rules, lists, reqs, oracle, main_path, dev)
+    results = timed("kernels", kernel_phase, plan, dev, rng)
+    results["prefilter"]["stage_a"] = timed("stage_a", stage_a_child)
+    ring = timed("ring", ring_child)
+    sched = timed("sched", sched_child)
+    body = timed("body", body_child)
+    listener = timed("listener", listener_child)
+    native = timed("native", native_child)
+    counts, main_path, megas, compacts = timed(
+        "slice", slice_phase, plan, rules, lists, reqs, dev, oracle)
+    config_counts = timed("config", config_phase, rules, lists, reqs, oracle,
+                          main_path, dev)
+    t_capture = time.monotonic()
     calls, launched = capture_main_path(plan, lists, reqs, dev)
     batches = -(-N_REQUESTS // B)
     if not len(calls["prefilter"]) == launched["prefilter"] == batches:
@@ -6441,13 +6743,17 @@ def main() -> int:
                  f"captured megastep launch")
         results[name].update({k.replace("main_path", "megastep_path"): v
                               for k, v in m.items()})
-    halo = halo_phase(plan, rules, lists, reqs, dev, oracle, main_path, rng)
+    phase_s["main_path_capture"] = round(time.monotonic() - t_capture, 1)
+    halo = timed("halo", halo_phase, plan, rules, lists, reqs, dev, oracle,
+                 main_path, rng)
     results["nfa_scan"]["halo"] = halo["kernel"]
     print(json.dumps({"halo": halo}), flush=True)
-    bot = bot_phase(plan, lists, reqs, dev, oracle)
+    bot = timed("bot", bot_phase, plan, lists, reqs, dev, oracle)
     print(json.dumps({"bot": bot}), flush=True)
-    swap = swap_phase(rules, lists, plan, reqs, dev, oracle)
+    swap = timed("swap", swap_phase, rules, lists, plan, reqs, dev, oracle)
     print(json.dumps({"swap": swap}), flush=True)
+    print("main process, seconds a phase (children from spawn to exit): "
+          + json.dumps(phase_s), flush=True)
     ring_halo = ring["halo"][f"{HALO_KNOBS[0][0]} on/off"]["drives"][0]
     out = []
     for name in ("nfa_scan", "bitsplit_dfa", "prefilter"):

@@ -16,7 +16,8 @@ from .obs.chaos import ChaosInjector
 from .sched import mesh_env_spec
 
 # Knobs of the JAX package whose features the port does not have yet:
-# (variable, predicate on its value, the ROADMAP.md port-queue item).
+# (variable, predicate on its value, the ROADMAP.md port-queue item). Each
+# raises only where its value asks for its feature.
 # The scheduler's knobs (PINGOO_SCHED_MODE, PINGOO_SCHED_FAILOPEN,
 # PINGOO_DEADLINE_MS, PINGOO_SCHED_SEED_MS, PINGOO_MEGASTEP=auto) and
 # PINGOO_CHAOS are read as the JAX package reads them (sched/scheduler.py,
@@ -36,7 +37,38 @@ _UNPORTED = (
     ("PINGOO_COST_LEDGER",
      lambda v: v.strip().lower() not in ("", "0", "off"),
      "port queue item 10, the cost ledger"),
+    # The compile ledger: empty, 0, off and false disable it (the JAX
+    # package's default), as does an empty surface file.
+    ("PINGOO_PERF_LEDGER",
+     lambda v: v.strip().lower() not in ("", "0", "off", "false"),
+     "port queue item 10, the compile ledger"),
+    ("PINGOO_COMPILE_SURFACE", lambda v: bool(v),
+     "port queue item 10, the compile ledger"),
+    # Provenance: the JAX package's default is on; the port has none, so
+    # only unset or 0 passes.
+    ("PINGOO_PROVENANCE", lambda v: v not in ("", "0"),
+     "port queue item 10, provenance"),
+    # Parity sampling: a rate above 0, or a fault to inject into it.
+    ("PINGOO_PARITY_SAMPLE", lambda v: _positive(v),
+     "port queue item 10, parity sampling"),
+    ("PINGOO_PARITY_FAULT_INJECT", lambda v: bool(v),
+     "port queue item 10, parity sampling"),
+    # The cross-plane timeline: a sample rate above 0.
+    ("PINGOO_TIMELINE_SAMPLE", lambda v: _positive(v),
+     "port queue item 10, the timeline"),
+    # The flight recorder's dump on drain.
+    ("PINGOO_FLIGHT_DUMP_DIR", lambda v: bool(v),
+     "port queue item 10, the flight recorder"),
 )
+
+
+def _positive(value: str) -> bool:
+    """A rate that asks for its feature: a number above 0 (the JAX
+    package reads anything else as 0, off)."""
+    try:
+        return float(value) > 0.0
+    except ValueError:
+        return False
 
 
 def _unported(name: str, value: str, item: str) -> NotImplementedError:

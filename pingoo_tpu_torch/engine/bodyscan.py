@@ -424,6 +424,56 @@ class BodyScanner:
         self._now_ms = now_ms
         self.stage_ms = {k: TimingWindow(self.STAGE_ROUNDS)
                          for k in ("pack", "prefilter", "scan", "finish")}
+        self._carry_hist = None  # set by attach_metrics
+        self._collector = None
+        self._registry = None
+
+    # -- observability (obs/schema.py BODY_METRICS) ---------------------------
+
+    def attach_metrics(self, plane: str, registry=None) -> None:
+        """Export this scanner's BODY_METRICS under {plane=}, as the JAX
+        package's scanner does: the counters and the flows gauge are
+        read from `stats` by a registry collector at scrape time (no
+        cost per window); the carry-depth histogram observes each
+        finished flow."""
+        if registry is None:
+            from ..obs.registry import REGISTRY as registry  # noqa: N813
+        from ..obs.schema import BODY_METRICS
+
+        windows = registry.counter(
+            "pingoo_body_windows_total",
+            BODY_METRICS["pingoo_body_windows_total"],
+            labels={"plane": plane})
+        nbytes = registry.counter(
+            "pingoo_body_bytes_total", BODY_METRICS["pingoo_body_bytes_total"],
+            labels={"plane": plane})
+        flows = registry.gauge(
+            "pingoo_body_flows_active",
+            BODY_METRICS["pingoo_body_flows_active"],
+            labels={"plane": plane})
+        self._carry_hist = registry.histogram(
+            "pingoo_body_carry_depth", BODY_METRICS["pingoo_body_carry_depth"],
+            buckets=(1, 2, 4, 8, 16, 64, 256), labels={"plane": plane})
+
+        def _collect():
+            windows.set_total(self.stats.windows_total)
+            nbytes.set_total(self.stats.bytes_total)
+            flows.set(self.flows_active)
+            for reason, n in self.stats.degrade_reasons.items():
+                registry.counter(
+                    "pingoo_body_degrade_total",
+                    BODY_METRICS["pingoo_body_degrade_total"],
+                    labels={"plane": plane, "reason": reason},
+                ).set_total(n)
+
+        registry.register_collector(_collect)
+        self._collector = _collect
+        self._registry = registry
+
+    def detach_metrics(self) -> None:
+        if self._registry is not None and self._collector is not None:
+            self._registry.unregister_collector(self._collector)
+        self._collector = self._registry = None
 
     # -- flow lifecycle -------------------------------------------------------
 
@@ -663,6 +713,8 @@ class BodyScanner:
         for j, fs in enumerate(flows):
             self.flows.pop(fs.flow_id, None)
             self.stats.flows_finished += 1
+            if self._carry_hist is not None:
+                self._carry_hist.observe(float(max(1, fs.next_seq)))
             if degraded or fs.degraded:
                 out.append(BodyVerdict(fs.flow_id, degraded=True))
             elif not fs.started:

@@ -33,6 +33,13 @@ hundreds of kernel launches cost the host one call.
     rules, so `capture_mode="global"` gives the same graphs where no
     other thread uses the card (chip_smoke.py captures its warm-up pass
     so, which shows the kernels' launchers legal under capture).
+  * A graph is destroyed only under the capture lock, before a
+    capture: one destroyed while a capture is under way invalidates it,
+    and a graph dies wherever its last reference goes (an evicted
+    entry, a swap's dropped plan state, the cyclic collector on a
+    capturing thread). A dead entry hands its graph to `_RELEASED`,
+    which the next capture empties, or the next window run of any
+    runner when the lock is free (`_free_released`).
   * Captures are serialized across the process (`_CAPTURE_LOCK`):
     entering `torch.cuda.graph` synchronizes the device and empties the
     allocator's cache, which is illegal while another thread's capture
@@ -68,6 +75,21 @@ from .verdict import MegastepProgram
 
 
 _CAPTURE_LOCK = threading.Lock()
+# Dead entries' graphs and pool tensors, destroyed under _CAPTURE_LOCK by
+# the next capture or `_free_released` (list.append and list.clear are
+# atomic).
+_RELEASED: list = []
+
+
+def _free_released() -> None:
+    """Destroy the dead entries' graphs unless a capture is under way
+    (its holder of `_CAPTURE_LOCK` empties `_RELEASED` at its next
+    capture instead)."""
+    if _RELEASED and _CAPTURE_LOCK.acquire(blocking=False):
+        try:
+            _RELEASED.clear()
+        finally:
+            _CAPTURE_LOCK.release()
 
 
 class _Graph:
@@ -78,6 +100,12 @@ class _Graph:
         self.inputs = inputs  # the flat device buffer of the window
         self.outputs = outputs
         self.launches = launches
+
+    def __del__(self):
+        # Runs on any thread, possibly inside another thread's capture:
+        # the graph is kept alive for the next capture to destroy.
+        if _RELEASED is not None:
+            _RELEASED.append((self.graph, self.inputs, self.outputs))
 
 
 class MegastepRunner:
@@ -112,13 +140,14 @@ class MegastepRunner:
 
     def run(self, queue: DeviceInputQueue, buf_id: int, k_used: int,
             k_ship: int):
-        """(out, rule_hits, epoch_echo) of the window of set `buf_id`
-        (`k_used` slices filled, shipped as `k_ship`), on the device. On
-        the card they are the graph's static outputs: queue their copies
-        before the next run."""
+        """(out, rule_hits, epoch_echo, pf_aux) of the window of set
+        `buf_id` (`k_used` slices filled, shipped as `k_ship`), on the
+        device. On the card they are the graph's static outputs: queue
+        their copies before the next run."""
         if self.device.type != "cuda":
             stacked, nv, ep = queue.device_stack(buf_id, k_used, k_ship)
             return self.program.fn(self.tables, stacked, nv, ep)
+        _free_released()
         key = self.key(queue, buf_id, k_ship)
         entry = self._graphs.get(key)
         if entry is None:
@@ -151,9 +180,16 @@ class MegastepRunner:
             wait_ms = (time.monotonic() - t_wait) * 1e3
             self.capture_wait_ms_total += wait_ms
             self.capture_wait_ms_max = max(self.capture_wait_ms_max, wait_ms)
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode=self.capture_mode):
-                outputs = self.program.fn(*args)
+            _RELEASED.clear()  # no capture is under way
+            try:
+                with torch.cuda.graph(graph, stream=stream,
+                                      capture_error_mode=self.capture_mode):
+                    outputs = self.program.fn(*args)
+            except BaseException:
+                # A failed capture's graph, too, dies under the lock.
+                _RELEASED.append(graph)
+                del graph
+                raise
         graph.replay()
         entry = _Graph(graph, flat, outputs, dict(launches))
         self._graphs[key] = entry

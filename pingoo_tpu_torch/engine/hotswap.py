@@ -11,10 +11,11 @@ compile excluded by construction) is what a swap costs the traffic.
 tenant-scoped in the artifact cache, so one deployment serves several
 rulesets and swaps each on its own.
 
-Until the port has the JAX package's metric registry, `note_swap` and
-`set_epoch_gauge` keep the counters here: swaps by plane, tenant and
-result, and the epoch per plane (`swap_counts`, `epoch_of`), which the
-planes' statistics show.
+`note_swap` and `set_epoch_gauge` count on the metric registry, as in
+the JAX package: `pingoo_ruleset_swap_total{plane,tenant,result}` and
+`pingoo_ruleset_epoch{plane}`. `swap_counts` and `epoch_of` read those
+same instruments back for the planes' statistics, so there is one
+source.
 """
 
 from __future__ import annotations
@@ -25,36 +26,50 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from ..compiler.plan import RulesetPlan
+from ..obs.registry import REGISTRY
+from ..obs.schema import HOTSWAP_METRICS
 
+# The registry's instruments, by (plane, tenant, result) and by plane,
+# as note_swap and set_epoch_gauge made them in this process.
 _lock = threading.Lock()
-_swaps: dict[tuple[str, str, str], int] = {}
-_epochs: dict[str, int] = {}
+_swaps: dict = {}
+_epochs: dict = {}
 
 
 def note_swap(plane: str, tenant: str, result: str) -> None:
     """Count one swap attempt of `plane` ("python" or "sidecar") for
     `tenant` with `result` ("ok" or "rejected")."""
     key = (plane, tenant or "default", result)
+    ctr = REGISTRY.counter(
+        "pingoo_ruleset_swap_total",
+        HOTSWAP_METRICS["pingoo_ruleset_swap_total"],
+        labels={"plane": key[0], "tenant": key[1], "result": key[2]})
     with _lock:
-        _swaps[key] = _swaps.get(key, 0) + 1
+        _swaps[key] = ctr
+        ctr.inc()
 
 
 def set_epoch_gauge(plane: str, epoch: int) -> None:
+    gauge = REGISTRY.gauge("pingoo_ruleset_epoch",
+                           HOTSWAP_METRICS["pingoo_ruleset_epoch"],
+                           labels={"plane": plane})
     with _lock:
-        _epochs[plane] = int(epoch)
+        _epochs[plane] = gauge
+        gauge.set(int(epoch))
 
 
 def swap_counts(plane: str) -> dict[str, int]:
     """{"<tenant>/<result>": swaps} of one plane, in this process."""
     with _lock:
-        return {f"{t}/{r}": n for (p, t, r), n in sorted(_swaps.items())
-                if p == plane}
+        return {f"{t}/{r}": c.value
+                for (p, t, r), c in sorted(_swaps.items()) if p == plane}
 
 
 def epoch_of(plane: str) -> int:
     """The epoch last set for `plane` in this process (0 before any)."""
     with _lock:
-        return _epochs.get(plane, 0)
+        gauge = _epochs.get(plane)
+        return 0 if gauge is None else int(gauge.value)
 
 
 @dataclass

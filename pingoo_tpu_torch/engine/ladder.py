@@ -42,8 +42,9 @@ Caller protocol, per batch::
 `try_rung` on a demoted rung returns True at most once per backoff
 window (the probe); a failed probe doubles the backoff (up to its cap),
 a successful one re-promotes and resets it. The counts live in
-`snapshot()` (the JAX package's `pingoo_degrade_total` waits for the
-metric registry, ROADMAP.md port queue item 10).
+`snapshot()`, and each failure also counts in the JAX package's
+`pingoo_degrade_total{plane,rung}` on the metric registry (`registry=`,
+the process's REGISTRY by default).
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ import time
 from typing import Callable, Optional
 
 from ..logging_utils import get_logger
+from ..obs.schema import RESILIENCE_METRICS
 from .verdict import dfa_dispatch_counts
 
 RUNGS = ("pipeline", "megastep", "dfa", "mesh", "device", "body")
@@ -91,12 +93,21 @@ class DegradationLadder:
 
     def __init__(self, plane: str, base_backoff_s: float = 1.0,
                  max_backoff_s: float = 60.0,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 registry=None):
+        if registry is None:
+            from ..obs.registry import REGISTRY as registry  # noqa: N813
         self.plane = plane
         self.base_backoff_s = base_backoff_s
         self.max_backoff_s = max_backoff_s
         self._clock = clock
         self._rungs = {name: _Rung(name, base_backoff_s) for name in RUNGS}
+        self._counters = {
+            name: registry.counter(
+                "pingoo_degrade_total",
+                RESILIENCE_METRICS["pingoo_degrade_total"],
+                labels={"plane": plane, "rung": name})
+            for name in RUNGS}
 
     def healthy(self, rung: str) -> bool:
         return self._rungs[rung].healthy
@@ -119,6 +130,7 @@ class DegradationLadder:
         r = self._rungs[rung]
         r.errors += 1
         r.last_error = repr(exc) if exc is not None else ""
+        self._counters[rung].inc()
         if r.healthy:
             r.demotions += 1
             r.backoff_s = self.base_backoff_s

@@ -80,18 +80,26 @@ Every `Verdict` carries the epoch it was evaluated under. A swap whose
 state fails to build or warm up raises to its caller, and the old plan
 goes on serving.
 
+Batch dedup, as in the JAX package: the collector evaluates each
+distinct `RequestTuple` of a batch once (`dedup_requests`) and fans its
+verdict out to the duplicates, counted in `dedup_hits`.
+
 What the listener reads, with the JAX package's keys: `stats.snapshot()`
 (counts, the verdict wait and the stages, and the scheduler's and the
 ladder's snapshots), `pipeline_snapshot()` (the executor's
 `PipelineStats`: depth, batches in flight, stage occupancy, overlap)
 and `explain(req)` (one request through the batched path and the
-interpreter, per rule). Every timing is kept in a bounded window
-(`obs/window.py`).
+interpreter, per rule). The registry (`registry=`, the process's
+REGISTRY by default) carries the JAX package's instruments of the
+Python plane: the wait and stage histograms, the prefilter, DFA and
+staged-bytes counters, the staging caps, and those of the scheduler,
+the ladder and the executor.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import os
 import threading
 import time
@@ -104,6 +112,10 @@ from ..compiler.plan import RulesetPlan
 from ..device import check_env, pipeline_depth, pipeline_mode, resolve_device
 from ..models import botscore
 from ..obs.pipeline import PipelineStats
+from ..obs.registry import LATENCY_BUCKETS_MS, WAIT_BUCKETS_MS
+from ..obs.schema import (DFA_METRICS, PREFILTER_METRICS,
+                          SHARED_WAIT_HISTOGRAM, STAGING_METRICS,
+                          VERDICT_STAGES)
 from ..ops._build import never_demoted
 from ..sched import Scheduler, SchedulerConfig
 from ..obs.trace import tuple_digest
@@ -117,9 +129,11 @@ from .graphs import MegastepRunner
 from .hotswap import note_swap, set_epoch_gauge, swap_counts
 from .ladder import DegradationLadder, DfaRung
 from .verdict import (_host_array, _resolve_megastep_mode, action_lanes,
-                      finish_batch, finish_megastep, interpret_rules_row,
-                      make_megastep_fn, make_verdict_fn, megastep_k_cap,
-                      megastep_k_ladder, to_host_async, unpack_staged)
+                      dfa_dispatch_counts, finish_batch, finish_megastep,
+                      interpret_rules_row, make_megastep_fn,
+                      make_verdict_program, megastep_k_cap, megastep_k_ladder,
+                      prefilter_aux_banks, prefilter_aux_len, to_host_async,
+                      unpack_staged)
 
 
 # PINGOO_MEGASTEP_K's default here. A window is one graph replay at any
@@ -199,13 +213,36 @@ STAGES = ("encode", "verdict", "finish")
 # batch: the first pop to the launch decision ("sched").
 ADMISSION_STAGES = ("queue_wait", "batch_assembly", "sched")
 
+# The `pingoo_verdict_stage_ms{plane="python",stage}` stages that have a
+# timing window of their own: (window family, window name).
+_STAGE_WINDOWS = {"queue_wait": ("admission", "queue_wait"),
+                  "batch_assembly": ("admission", "batch_assembly"),
+                  "sched": ("admission", "sched"),
+                  "encode": ("stages", "encode"),
+                  "device_dispatch": ("stages", "verdict")}
+
 
 class ServiceStats:
-    """Counters and bounded timing windows of one VerdictService, read
-    through `snapshot()` with the JAX package's keys."""
+    """Counters, bounded timing windows and the registry's instruments
+    of one VerdictService, read through `snapshot()` with the JAX
+    package's keys.
+
+    The instruments are the JAX package's: the verdict-wait histogram,
+    the `pingoo_verdict_stage_ms{plane="python",stage}` histograms over
+    obs/schema.VERDICT_STAGES, the prefilter, DFA and staged-bytes
+    counters. They live on `registry` (the process's REGISTRY by
+    default), so services of one process share them, as in the JAX
+    package; `snapshot()` reads the wait percentiles and the stages from
+    them, as the JAX package does. Each timing is recorded once, at one
+    site (`observe_stage`, `observe_wait`), into its histogram and, where
+    the port keeps one, its timing window (`stages`, `admission`, `wait`,
+    which chip_smoke.py reads). The port runs no provenance stage (item
+    10, slice 3), so that histogram stays empty."""
 
     def __init__(self, window: int = WINDOW, epoch=None, sched=None,
-                 ladder=None):
+                 ladder=None, registry=None):
+        if registry is None:
+            from ..obs.registry import REGISTRY as registry  # noqa: N813
         self.batches = 0
         self.requests = 0
         # Batches whose device work failed (each demoted a ladder rung),
@@ -213,6 +250,15 @@ class ServiceStats:
         self.device_errors = 0
         self.host_fallback_batches = 0
         self.score_errors = 0
+        # Duplicate tuples of a collector batch served by their first's
+        # verdict (batch dedup).
+        self.dedup_hits = 0
+        # The Stage-A aux vector's fold (`_observe_prefilter`) and the
+        # DFA dispatch counts (`_observe_dfa`).
+        self.prefilter_candidate_rate = 0.0
+        self.scan_banks_skipped = 0
+        self.dfa_banks = 0
+        self.dfa_rechecks = 0
         self.wait = TimingWindow(window)  # evaluate() -> resolved
         self.batch = TimingWindow(window)  # one batch's wall time
         self.stages = {k: TimingWindow(window) for k in STAGES}
@@ -226,13 +272,63 @@ class ServiceStats:
         self.epoch = epoch or (lambda: 0)
         self._sched = sched or dict
         self._ladder = ladder or dict
+        # Counts written from `evaluate_batch` callers' threads.
+        self._lock = threading.Lock()
+        self.wait_hist = registry.histogram(
+            SHARED_WAIT_HISTOGRAM, "verdict wait: evaluate() -> resolve (ms)",
+            buckets=WAIT_BUCKETS_MS, labels={"plane": "python"})
+        self.stage_hist = {
+            stage: registry.histogram(
+                "pingoo_verdict_stage_ms",
+                "verdict pipeline stage latency (ms)",
+                buckets=LATENCY_BUCKETS_MS,
+                labels={"plane": "python", "stage": stage})
+            for stage in VERDICT_STAGES}
+        self.pf_rate_gauge = registry.gauge(
+            "pingoo_prefilter_candidate_rate",
+            PREFILTER_METRICS["pingoo_prefilter_candidate_rate"],
+            labels={"plane": "python"})
+        self.pf_skip_counter = registry.counter(
+            "pingoo_scan_banks_skipped_total",
+            PREFILTER_METRICS["pingoo_scan_banks_skipped_total"],
+            labels={"plane": "python"})
+        self.dfa_banks_counter = {
+            mode: registry.counter(
+                "pingoo_dfa_banks_total", DFA_METRICS["pingoo_dfa_banks_total"],
+                labels={"plane": "python", "mode": mode})
+            for mode in ("auto", "force")}
+        self.dfa_recheck_counter = registry.counter(
+            "pingoo_dfa_recheck_total", DFA_METRICS["pingoo_dfa_recheck_total"],
+            labels={"plane": "python"})
+        self.staged_bytes_counter = {
+            mode: registry.counter(
+                "pingoo_staged_bytes_total",
+                STAGING_METRICS["pingoo_staged_bytes_total"],
+                labels={"plane": "python", "mode": mode})
+            for mode in ("full", "compact")}
+
+    def observe_stage(self, stage: str, ms: float) -> None:
+        """One timing of `stage` (obs/schema.VERDICT_STAGES), into its
+        histogram and its timing window where it has one."""
+        self.stage_hist[stage].observe(ms)
+        family = _STAGE_WINDOWS.get(stage)
+        if family is not None:
+            getattr(self, family[0])[family[1]].append(ms)
+
+    def observe_wait(self, ms: float) -> None:
+        """One request's evaluate() -> resolve wall (on the loop)."""
+        self.wait.append(ms)
+        self.wait_hist.observe(ms)
+
+    def note_batch(self, requests: int) -> None:
+        with self._lock:
+            self.batches += 1
+            self.requests += requests
 
     def snapshot(self) -> dict:
-        """O(window), whatever the uptime. The counts of features the
-        port does not have read 0: batch dedup and the prefilter and
-        DFA counters of the metric registry (ROADMAP item 10). `sched` is
-        the scheduler's snapshot with the admission windows, `ladder`
-        the ladder's; `hotswap` has the epoch and this process's swaps of
+        """O(buckets + window), whatever the uptime. `sched` is the
+        scheduler's snapshot with the admission windows, `ladder` the
+        ladder's; `hotswap` has the epoch and this process's swaps of
         the Python plane by tenant and result."""
         return {
             "batches": self.batches,
@@ -242,14 +338,21 @@ class ServiceStats:
             "host_fallback_batches": self.host_fallback_batches,
             "mean_occupancy": (self.requests / self.batches
                                if self.batches else 0.0),
-            "dedup_hits": 0,
-            "prefilter_candidate_rate": 0.0,
-            "scan_banks_skipped": 0,
-            "dfa_banks": 0,
-            "dfa_rechecks": 0,
-            "verdict_p50_ms": self.wait.percentile(50),
-            "verdict_p99_ms": self.wait.percentile(99),
-            "stages": {k: w.summary() for k, w in self.stages.items()},
+            "dedup_hits": self.dedup_hits,
+            "prefilter_candidate_rate": round(
+                self.prefilter_candidate_rate, 4),
+            "scan_banks_skipped": self.scan_banks_skipped,
+            "dfa_banks": self.dfa_banks,
+            "dfa_rechecks": self.dfa_rechecks,
+            "verdict_p50_ms": self.wait_hist.percentile(0.50),
+            "verdict_p99_ms": self.wait_hist.percentile(0.99),
+            "stages": {
+                stage: {"count": h.count,
+                        "p50_ms": h.percentile(0.50),
+                        "p99_ms": h.percentile(0.99),
+                        "mean_ms": round(h.sum / h.count, 4)
+                        if h.count else 0.0}
+                for stage, h in self.stage_hist.items()},
             "sched": {**self._sched(),
                       "admission": {k: w.summary()
                                     for k, w in self.admission.items()}},
@@ -259,8 +362,29 @@ class ServiceStats:
         }
 
 
+def dedup_requests(reqs: list[RequestTuple]):
+    """(the distinct tuples in first-seen order, for each request the
+    index of its tuple there), or (reqs, None) when all are distinct.
+    The key is the JAX package's: everything a verdict can depend on,
+    never the trace id, which does not reach the device arrays."""
+    seen: dict = {}
+    uniq: list = []
+    row_of: list = []
+    for req in reqs:
+        key = (req.method, req.path, req.url, req.host, req.user_agent,
+               req.ip, req.remote_port, req.asn, req.country)
+        j = seen.get(key)
+        if j is None:
+            j = seen[key] = len(uniq)
+            uniq.append(req)
+        row_of.append(j)
+    if len(uniq) == len(reqs):
+        return reqs, None
+    return uniq, row_of
+
+
 class VerdictService:
-    """The scheduler's batching collector over `make_verdict_fn`, with
+    """The scheduler's batching collector over `make_verdict_program`, with
     the pipelined executor and the ladder of the module's docstring."""
 
     # Timing samples kept per window (tests shrink it).
@@ -268,7 +392,7 @@ class VerdictService:
 
     def __init__(self, plan: RulesetPlan, lists: dict,
                  max_batch: int = 1024, max_wait_us: int = 300,
-                 device=None, bot_score_params=None):
+                 device=None, bot_score_params=None, registry=None):
         dev = resolve_device(device)
         if dev.type != plan.device.type:
             raise ValueError(f"plan tables live on {plan.device}, the "
@@ -284,14 +408,19 @@ class VerdictService:
             else bot_score_params.to(self.device)
         self._queue: Optional[asyncio.Queue] = None
         self._task: Optional[asyncio.Task] = None
+        if registry is None:
+            from ..obs.registry import REGISTRY as registry  # noqa: N813
+        # The metric registry of this plane's instruments.
+        self.registry = registry
         self.sched = Scheduler(SchedulerConfig.from_env(max_batch),
-                               plane="python")
-        self.ladder = DegradationLadder("python")
+                               plane="python", registry=registry)
+        self.ladder = DegradationLadder("python", registry=registry)
         self._dfa_rung = DfaRung(self.ladder, plan)
         self.stats = ServiceStats(self.WINDOW,
                                   epoch=lambda: self.ruleset_epoch,
                                   sched=self.sched.snapshot,
-                                  ladder=self.ladder.snapshot)
+                                  ladder=self.ladder.snapshot,
+                                  registry=registry)
         # The executor: batches in flight at most `_pipeline_depth`
         # (PINGOO_SCHED_PIPELINE, default 2; a non-integer raises
         # ValueError as in the JAX package; PINGOO_PIPELINE_DEPTH
@@ -300,7 +429,8 @@ class VerdictService:
         self.pipeline_mode = pipeline_mode()
         self._pipeline_depth = pipeline_depth(depth) \
             if self.pipeline_mode == "on" else 1
-        self._pipe = PipelineStats("python", self._pipeline_depth)
+        self._pipe = PipelineStats("python", self._pipeline_depth,
+                                   registry=registry)
         # Host stages are serialized across batches (the dispatch token
         # covers the whole issue, the verdict function's lazily built
         # constants included), while a batch waiting for its result
@@ -349,7 +479,10 @@ class VerdictService:
         if plan.device.type != self.device.type:
             raise ValueError(f"plan tables live on {plan.device}, the "
                              f"service runs on {self.device}")
-        state = {"plan": plan, "verdict_fn": make_verdict_fn(plan),
+        state = {"plan": plan,
+                 "verdict_fn": make_verdict_program(plan),
+                 "pf_gated_banks": len(prefilter_aux_banks(plan)[0]),
+                 "aux_len": prefilter_aux_len(plan),
                  "stage_caps": None, "staging": None, "mega_runner": None,
                  "mega_queue": None}
         if self.pipeline_mode == "on":
@@ -378,10 +511,18 @@ class VerdictService:
         a swap's flip, when no batch is in `evaluate_batch`."""
         self.plan = state["plan"]
         self._verdict_fn = state["verdict_fn"]
+        self._pf_gated_banks = state["pf_gated_banks"]
+        self._aux_len = state["aux_len"]
         self.stage_caps = state["stage_caps"]
         self._staging = state["staging"]
         self._mega_runner = state["mega_runner"]
         self._mega_queue = state["mega_queue"]
+        # The adopted plan's staging widths (`pingoo_staging_field_cap`).
+        for field, cap in (self.stage_caps or {}).items():
+            self.registry.gauge(
+                "pingoo_staging_field_cap",
+                STAGING_METRICS["pingoo_staging_field_cap"],
+                labels={"field": field}).set(int(cap))
 
     def _warm_state(self, state: dict) -> None:
         """One padded batch of one empty request through a built state's
@@ -497,12 +638,9 @@ class VerdictService:
         deadline."""
         if self._task is None:
             raise RuntimeError("VerdictService.evaluate before start()")
-        t0 = time.monotonic()
         fut = asyncio.get_running_loop().create_future()
-        await self._queue.put((req, fut, t0))
-        verdict = await fut
-        self.stats.wait.append((time.monotonic() - t0) * 1e3)
-        return verdict
+        await self._queue.put((req, fut, time.monotonic()))
+        return await fut
 
     def pipeline_snapshot(self) -> dict:
         """The executor's `PipelineStats.snapshot()` and its mode, with
@@ -569,7 +707,7 @@ class VerdictService:
         time, admit time)."""
         sched = self.sched
         continuous = sched.config.mode == "continuous"
-        admission = self.stats.admission
+        observe = self.stats.observe_stage
         sem = asyncio.Semaphore(self._pipeline_depth)
         while True:
             item = await self._queue.get()
@@ -577,7 +715,7 @@ class VerdictService:
                 await self._apply_swap(item)
                 continue
             t_first = time.monotonic()
-            admission["queue_wait"].append((t_first - item[2]) * 1e3)
+            observe("queue_wait", (t_first - item[2]) * 1e3)
             pending = [(*item, t_first)]
             oldest_enq = item[2]
             fixed_deadline = t_first + self.max_wait_s
@@ -600,7 +738,7 @@ class VerdictService:
                     swap = item
                     break
                 t_adm = time.monotonic()
-                admission["queue_wait"].append((t_adm - item[2]) * 1e3)
+                observe("queue_wait", (t_adm - item[2]) * 1e3)
                 pending.append((*item, t_adm))
             # Whatever is already queued rides this batch for free.
             while swap is None and len(pending) < self.max_batch \
@@ -610,13 +748,12 @@ class VerdictService:
                     swap = item
                     break
                 t_adm = time.monotonic()
-                admission["queue_wait"].append((t_adm - item[2]) * 1e3)
+                observe("queue_wait", (t_adm - item[2]) * 1e3)
                 pending.append((*item, t_adm))
             t_launch = time.monotonic()
-            admission["sched"].append((t_launch - t_first) * 1e3)
+            observe("sched", (t_launch - t_first) * 1e3)
             for entry in pending:
-                admission["batch_assembly"].append(
-                    (t_launch - entry[3]) * 1e3)
+                observe("batch_assembly", (t_launch - entry[3]) * 1e3)
             sched.note_launch(len(pending), self._queue.qsize())
             await sem.acquire()
             task = asyncio.create_task(
@@ -681,6 +818,7 @@ class VerdictService:
         pause_ms = (time.monotonic() - t0) * 1e3
         set_epoch_gauge("python", self.ruleset_epoch)
         note_swap("python", swap.tenant, "ok")
+        self.stats.observe_stage("sched", pause_ms)
         if not swap.fut.done():
             swap.fut.set_result({"epoch": self.ruleset_epoch,
                                  "tenant": swap.tenant,
@@ -708,16 +846,21 @@ class VerdictService:
         to its callers, and its in-flight slot is released whatever
         happens. Under a fail-open policy other than `serve` the requests
         no immediate launch can serve in time are answered first, and a
-        batch that overruns a stage's budget is answered whole."""
+        batch that overruns a stage's budget is answered whole. Then
+        batch dedup, as in the JAX package: each distinct tuple is
+        evaluated once and its verdict goes to its duplicates. The
+        batch's counts (requests, dedup hits, the waits) are written
+        here, on the event loop."""
         try:
             if self.sched.config.failopen != "serve":
                 pending = await self._apply_failopen(pending)
                 if not pending:
                     return
             reqs = [p[0] for p in pending]
+            uniq, row_of = dedup_requests(reqs)
             try:
                 verdicts = await asyncio.get_running_loop().run_in_executor(
-                    None, self.evaluate_batch, reqs, t_launch)
+                    None, self.evaluate_batch, uniq, t_launch)
             except _StageBudgetExceeded:
                 await self._failopen_batch(pending)
                 return
@@ -726,14 +869,29 @@ class VerdictService:
                     if not p[1].done():
                         p[1].set_exception(exc)
                 return
+            if row_of is not None:
+                self.stats.dedup_hits += len(reqs) - len(uniq)
+                first = set()
+                fanned = []
+                for j in row_of:
+                    fanned.append(verdicts[j] if j not in first
+                                  else dataclasses.replace(verdicts[j]))
+                    first.add(j)
+                verdicts = fanned
+            self.stats.note_batch(len(reqs))
+            t_res = time.monotonic()
             self._resolve(pending, verdicts)
+            self.stats.observe_stage("resolve",
+                                     (time.monotonic() - t_res) * 1e3)
         finally:
             sem.release()
 
     def _resolve(self, pending, verdicts) -> None:
-        """Answer `pending` and count its deadline misses."""
+        """Answer `pending`, on the event loop, with each request's wait
+        and its deadline miss."""
         t_res = time.monotonic()
         for (_, fut, t_enq, _), verdict in zip(pending, verdicts):
+            self.stats.observe_wait((t_res - t_enq) * 1e3)
             self.sched.note_resolved(t_enq, t_res)
             if not fut.done():
                 fut.set_result(verdict)
@@ -803,7 +961,9 @@ class VerdictService:
         `_pipeline_depth` batches are in flight; during a swap's flip a
         caller waits for the new plan). `t_launch` is the collector's
         launch time: the stage budgets and the megastep's K count from
-        there."""
+        there. The collector, which always passes it, counts the batch's
+        requests on the event loop; a direct call (without it) counts
+        them here."""
         with self._gate:
             while self._swapping:
                 self._gate.wait()
@@ -814,9 +974,12 @@ class VerdictService:
             try:
                 slot = self._pipe.enter(self.pipeline_mode)
                 try:
-                    return self._evaluate(reqs, slot, staged, t_launch)
+                    out = self._evaluate(reqs, slot, staged, t_launch)
                 finally:
                     self._pipe.exit()
+                if t_launch is None:
+                    self.stats.note_batch(len(reqs))
+                return out
             finally:
                 if staged is not None:
                     staging.release(staged)
@@ -835,12 +998,13 @@ class VerdictService:
         t_start = time.monotonic()
         with tokens["encode"]:
             t0 = time.monotonic()
-            fast, overflow = self._encode_laddered(reqs, P, staged)
+            fast, overflow, via_staging = self._encode_laddered(reqs, P,
+                                                                staged)
             t1 = time.monotonic()
         self._check_stage_budget("encode", t_launch)
         epoch = self.ruleset_epoch
         matched, scores, t2, t3 = self._device_batch(fast, n, epoch,
-                                                     t_launch)
+                                                     t_launch, via_staging)
         t4 = time.monotonic()
         if matched is None:
             # The device rung is demoted, or this batch's device work
@@ -869,11 +1033,9 @@ class VerdictService:
         pipe.note_stage(slot, "resolve", t4, t5)
         stats = self.stats
         stats.batch.append((t5 - t_start) * 1e3)
-        stats.stages["encode"].append((t1 - t0) * 1e3)
-        stats.stages["verdict"].append((t3 - t2) * 1e3)
+        stats.observe_stage("encode", (t1 - t0) * 1e3)
+        stats.observe_stage("device_dispatch", (t3 - t2) * 1e3)
         stats.stages["finish"].append((t5 - t3) * 1e3)
-        stats.batches += 1
-        stats.requests += n
         stats.staged_bytes += fast.staged_bytes
         # The cost model: the batch's wall, and the executor's stages
         # (issue and compute only when the card served the batch).
@@ -889,33 +1051,46 @@ class VerdictService:
                          staged: Optional[int]):
         """`_encode` into the checked-out staging set while the ladder's
         pipeline rung is healthy (or probing); a staging error demotes it
-        and the batch encodes through the one-batch chain."""
+        and the batch encodes through the one-batch chain. Returns the
+        batch, its overflow rows and whether the staging encoder made
+        it."""
         if staged is not None and self.ladder.try_rung("pipeline"):
             try:
                 out = self._encode(reqs, P, self._staging, staged, self.plan)
                 self.ladder.note_success("pipeline")
-                return out
+                return (*out, True)
             except Exception as exc:
                 never_demoted(exc)
                 self.ladder.note_failure("pipeline", exc)
-        return self._encode(reqs, P, None, None, self.plan)
+        return (*self._encode(reqs, P, None, None, self.plan), False)
 
     def _device_batch(self, fast: RequestBatch, n: int, epoch: int,
-                      t_launch: Optional[float]):
+                      t_launch: Optional[float], via_staging: bool = False):
         """The batch's [n, R] matrix from the card, its scores' queued
         copy (None without the head, or after a scorer error) and its
         issue's start and end. The matrix is None when the device rung is
         demoted or the device work failed (`DfaRung.failure`): the
         caller interprets the batch. A window that fails demotes the
-        megastep rung and the batch is issued per batch."""
+        megastep rung and the batch is issued per batch.
+
+        After the device served the batch, its Stage-A aux vector (per
+        batch, or summed over the window's slices) and the plan's DFA
+        dispatch counts go to the registry's counters; a batch from the
+        staging encoder issued per batch counts its staged bytes, as in
+        the JAX package."""
         state = {"plan": self.plan, "verdict_fn": self._verdict_fn,
                  "mega_runner": self._mega_runner,
                  "mega_queue": self._mega_queue}
         tokens = self._stage_tokens
+        stats = self.stats
         self._dfa_rung.tick(self.plan)
         t2 = t3 = time.monotonic()
         if not self.ladder.try_rung("device"):
             return None, None, t2, t3
+
+        def waited(ms):
+            stats.observe_stage("device_compute", ms)
+
         try:
             matched = scores = None
             k = self._megastep_k(fast.size, t_launch)
@@ -923,15 +1098,19 @@ class VerdictService:
                 try:
                     with tokens["dispatch"]:
                         t2 = time.monotonic()
-                        dev, echo, scores, slices = self._issue(
+                        dev, echo, scores, slices, aux, _ = self._issue(
                             fast, n, epoch, state, k)
                         self._pipe.note_megastep(k, self._mega_mode)
                         t3 = time.monotonic()
                     self._check_dispatch_budget(t_launch, dev, scores)
                     matched = finish_megastep(self.plan, dev, slices, fast,
-                                              self.lists)[:n]
+                                              self.lists, waited)[:n]
                     self.mega_echo_mismatch += int(
                         (_host_array(echo) != epoch).sum())
+                    if self._aux_len:
+                        # Per-slice row counts, additive over the window.
+                        self._observe_prefilter(
+                            _host_array(aux).sum(axis=0), fast.size)
                     self.sched.observe_megastep_cost(
                         k, fast.size // k, (time.monotonic() - t2) * 1e3)
                     self.ladder.note_success("megastep")
@@ -947,15 +1126,26 @@ class VerdictService:
                     # result's copy to the host is queued here, so the
                     # wait below is for this batch alone.
                     t2 = time.monotonic()
-                    dev, _, scores, _ = self._issue(fast, n, epoch, state)
+                    dev, _, scores, _, aux, stage_a_ms = self._issue(
+                        fast, n, epoch, state)
                     t3 = time.monotonic()
+                if stage_a_ms is not None:
+                    stats.observe_stage("prefilter", stage_a_ms)
                 if fast.staged_bytes:
                     self.sched.observe_dispatch_bytes(fast.staged_bytes,
                                                       (t3 - t2) * 1e3)
+                    if via_staging:
+                        stats.staged_bytes_counter[
+                            "compact" if fast.packed is not None
+                            else "full"].inc(fast.staged_bytes)
                 self._check_dispatch_budget(t_launch, dev, scores)
-                # Host rules run first, then the one wait.
+                # Host rules run first, then the one wait; the aux
+                # vector's copy was queued behind the matrix's.
                 matched = finish_batch(self.plan, dev, fast,
-                                       self.lists)[:n]
+                                       self.lists, waited)[:n]
+                if aux is not None:
+                    self._observe_prefilter(_host_array(aux), fast.size)
+            self._observe_dfa()
             self._dfa_rung.success()
             return matched, scores, t2, t3
         except _StageBudgetExceeded:
@@ -1032,8 +1222,11 @@ class VerdictService:
         `k` slices when `k` is given. A packed batch is uploaded once and
         decoded on the device. Returns the queued host copies of the
         matrix, the epoch echo (None off the megastep) and the scores
-        (None without the head or after a scorer error, counted), and
-        the window's slices (None off the megastep)."""
+        (None without the head or after a scorer error, counted), the
+        window's slices (None off the megastep), the Stage-A aux
+        vector's ([K, aux_len] under the megastep; None with the
+        prefilter off per batch) and Stage A's issue ms (None under the
+        megastep or with the prefilter off)."""
         mega = k is not None
         if mega:
             arrays = None
@@ -1055,12 +1248,13 @@ class VerdictService:
                 self.stats.score_errors += 1
                 scores = None
         if mega:
-            dev, echo, slices = self._issue_megastep(
+            dev, echo, slices, aux = self._issue_megastep(
                 fast, n, k, state["mega_runner"], state["mega_queue"], epoch)
-            return dev, echo, scores, slices
-        dev = to_host_async(state["verdict_fn"](state["plan"].np_tables,
-                                                arrays))
-        return dev, None, scores, None
+            return dev, echo, scores, slices, aux, None
+        out, aux, stage_a_ms = state["verdict_fn"](state["plan"].np_tables,
+                                                   arrays)
+        return (to_host_async(out), None, scores, None,
+                None if aux is None else to_host_async(aux), stage_a_ms)
 
     def _issue_megastep(self, fast: RequestBatch, n: int, k: int,
                         runner: MegastepRunner, queue: DeviceInputQueue,
@@ -1068,8 +1262,8 @@ class VerdictService:
         """One batch as a megastep window (for `_issue`): its P padded
         rows as k slices of P / k rows, the n live rows in the first
         slices, each stamped with `epoch`. Returns the matrix's and the
-        echo's queued copies to the host and each slice's (row offset,
-        live rows)."""
+        echo's queued copies to the host, each slice's (row offset, live
+        rows) and the [K, aux_len] aux vectors' queued copy."""
         size = fast.size
         rows = size // k
         buf = queue.checkout()
@@ -1080,12 +1274,43 @@ class VerdictService:
                     buf, j, {name: arr[off:off + rows]
                              for name, arr in fast.arrays.items()},
                     max(0, min(rows, n - off)), epoch)
-            out, _, echo = runner.run(queue, buf, k, k)
+            out, _, echo, aux = runner.run(queue, buf, k, k)
             dev, echo = to_host_async(out), to_host_async(echo)
+            aux = to_host_async(aux)
         finally:
             queue.release(buf)
         return dev, echo, [(j * rows, max(0, min(rows, n - j * rows)))
-                           for j in range(k)]
+                           for j in range(k)], aux
+
+    def _observe_prefilter(self, aux: np.ndarray, batch_rows: int) -> None:
+        """Fold a Stage-A aux vector (host int32, the JAX package's
+        layout) into `prefilter_candidate_rate` (candidate rows over
+        rows x gated banks, of this batch) and `scan_banks_skipped`, and
+        their registry instruments."""
+        cand_rows, skipped = int(aux[0]), int(aux[1])
+        denom = batch_rows * self._pf_gated_banks
+        stats = self.stats
+        stats.prefilter_candidate_rate = cand_rows / denom if denom else 0.0
+        stats.scan_banks_skipped += skipped
+        stats.pf_rate_gauge.set(stats.prefilter_candidate_rate)
+        stats.pf_skip_counter.inc(skipped)
+
+    def _observe_dfa(self) -> None:
+        """The banks this batch ran through a lowered DFA under the
+        resolved PINGOO_DFA mode, and the approximate ones among them
+        that rechecked through the NFA (`dfa_dispatch_counts`: static per
+        plan and environment, so nothing waits on the device)."""
+        mode, banks, rechecks = dfa_dispatch_counts(self.plan)
+        if not banks:
+            return
+        stats = self.stats
+        stats.dfa_banks += banks
+        stats.dfa_rechecks += rechecks
+        ctr = stats.dfa_banks_counter.get(mode)
+        if ctr is not None:
+            ctr.inc(banks)
+        if rechecks:
+            stats.dfa_recheck_counter.inc(rechecks)
 
     def _rewrite_overflow_rows(self, reqs, overflow, matched: np.ndarray):
         """Rows whose fields exceeded device capacity (`overflow`) are

@@ -27,10 +27,17 @@ over K stacked batch slices, each through the same body with Stage B
 taken on the device (no host sync, so that engine/graphs.py can capture
 the whole window as one CUDA graph).
 
+The Stage-A aux vector (`_stage_a_aux`, the JAX package's layout) is
+reduced on the device from the prefilter kernel's hits: per batch
+beside the matrix and Stage A's issue ms in the planes' served
+programs (`make_verdict_program`, `make_lane_program`), per slice as
+the megastep's [K, aux_len] output. It feeds the planes'
+`pingoo_prefilter_candidate_rate` and `pingoo_scan_banks_skipped_total`.
+
 Compact staging: a batch's packed buffer (engine/batch.py
 `PackedLayout`) is decoded on the device (`unpack_staged`) into the
 arrays full staging gives, which the Python plane hands to
-`make_verdict_fn`'s program and `make_packed_lane_fn` to the lane body,
+`make_verdict_program` and `make_packed_lane_program` to the lane body,
 so full and compact staging share every predicate by construction.
 
 The halo split: a halo-compatible NFA bank (or the @short sub-bank of a
@@ -55,6 +62,7 @@ knobs of unported features raise (device.check_env).
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -183,6 +191,33 @@ def dfa_dispatch_counts(plan: RulesetPlan) -> tuple[str, int, int]:
     return mode, banks, recheck
 
 
+def prefilter_aux_banks(plan: RulesetPlan) -> tuple[tuple, tuple]:
+    """The Stage-A aux vector's bank inventory, the JAX package's
+    (`_make_prefilter_body`): `gated`, every cascade-gated bank the
+    evaluator scans (NFA banks split-aware, then the window banks), and
+    `masked`, those of them with a non-empty factor mask, in the order
+    of the aux vector's per-bank lanes."""
+    pf = plan.prefilter
+    if pf is None or not pf.fields:
+        return (), ()
+    scanned: list = []
+    for key, entry in plan.scan_plans.items():
+        scanned.extend(entry.split if entry.split else (key,))
+    scanned.extend(k for k in pf.bank_masks if k.startswith("win_"))
+    gated = tuple(k for k in scanned
+                  if pf.bank_gated.get(k) and k in pf.bank_masks
+                  and pf.bank_field.get(k) in pf.fields)
+    return gated, tuple(k for k in gated if pf.bank_masks[k].any())
+
+
+def prefilter_aux_len(plan: RulesetPlan) -> int:
+    """Lanes of the Stage-A aux vector under the resolved PINGOO_PREFILTER
+    mode: 2 + 2 * masked banks, 0 when the prefilter is off."""
+    if _resolve_pf_mode(plan) == "off":
+        return 0
+    return 2 + 2 * len(prefilter_aux_banks(plan)[1])
+
+
 # -- numeric IR evaluation ---------------------------------------------------
 
 
@@ -265,9 +300,32 @@ def _span_leaf_matrix(hits: torch.Tensor, lo: torch.Tensor,
     return (cs.index_select(1, hi) - cs.index_select(1, lo)) > 0
 
 
+def _stage_a_aux(plan: RulesetPlan, consts: dict, candidates, dev):
+    """The Stage-A aux vector, int32 on the device, the JAX package's
+    layout: [candidate rows over the masked banks, banks skipped,
+    *per masked bank its candidate rows, *per masked bank 1 if skipped],
+    where a gated bank with an empty mask always counts as skipped.
+    Reduced from the prefilter kernel's hits (through `candidates`,
+    Stage B's [B] masks) with a few device ops and no host sync."""
+    gated, masked = _const(consts, "aux_banks",
+                           lambda: prefilter_aux_banks(plan))
+    never = len(gated) - len(masked)
+    if not masked:
+        return _const(consts, "aux_never", lambda: torch.tensor(
+            [0, never], dtype=torch.int32, device=dev))
+    counts = torch.stack([candidates(k).sum(dtype=torch.int32)
+                          for k in masked])
+    skips = (counts == 0).to(torch.int32)
+    head = torch.stack([counts.sum(dtype=torch.int32),
+                        skips.sum(dtype=torch.int32) + never])
+    return torch.cat([head, counts, skips])
+
+
 def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
                  sync_free: bool = False):
-    """Every leaf's ([B] val, [B] err), with shared group ops.
+    """(every leaf's ([B] val, [B] err), with shared group ops; the
+    batch's Stage-A aux vector (`_stage_a_aux`); the host's issue ms of
+    Stage A), the last two None with the prefilter off.
 
     `sync_free` takes Stage B on the device, with no host sync: each
     gated bank scans its candidate rows only (`gathered_rows`), as the
@@ -288,12 +346,15 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
 
     # -- Stage A: every field's prefilter scan in one call ------------------
     pf_hits: dict[str, torch.Tensor] = {}
+    stage_a_ms = None
     if pf is not None and pf_mode != "off":
         names = list(pf.fields)
+        t0 = time.monotonic()
         pf_hits = dict(zip(names, prefilter_scan_fields(
             [tables[pf.fields[f].table_key] for f in names],
             [arrays[f"{f}_bytes"] for f in names],
             [arrays[f"{f}_len"] for f in names])))
+        stage_a_ms = (time.monotonic() - t0) * 1e3
 
     def bank_candidates(key):
         """[B] candidate rows of bank `key`, or None when it is ungated."""
@@ -333,6 +394,9 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
     cands = {key: bank_candidates(key)
              for key in scan_keys + list(win_groups)}
     gated = [k for k, c in cands.items() if c is not None]
+    aux = None if not pf_hits else _stage_a_aux(
+        plan, consts, lambda k: cands[k] if k in cands
+        else bank_candidates(k), dev)
     run: dict[str, bool] = {}
     counts: dict[str, int] = {}
     if gated and not sync_free:
@@ -542,7 +606,7 @@ def _eval_leaves(plan: RulesetPlan, tables, arrays, B, consts: dict,
             results[leaf_id] = (_CMP[cmp.op](lv, rv), le | re_)
         else:
             raise AssertionError(k)
-    return results
+    return results, aux, stage_a_ms
 
 
 # -- boolean IR evaluation ---------------------------------------------------
@@ -586,15 +650,17 @@ def _eval_bool(ir, leaves, B, dev):
 
 def _matched_cols(plan: RulesetPlan, tables, arrays, consts: dict,
                   sync_free: bool = False):
-    """(tables, device arrays) -> [B, R_dev] bool in device_rule_indices
-    order. Single-leaf rules read their column straight out of the
-    stacked leaf matrix; compound rules evaluate their boolean tree
-    (error -> no-match either way)."""
+    """(tables, device arrays) -> ([B, R_dev] bool in device_rule_indices
+    order, the Stage-A aux vector, Stage A's issue ms; the last two None
+    with the prefilter off). Single-leaf rules read their column
+    straight out of the stacked leaf matrix; compound rules evaluate
+    their boolean tree (error -> no-match either way)."""
     dev = plan.device
     device_rules = [r for r in plan.rules if not r.host]
     n_leaves = len(plan.leaves)
     B = arrays["asn"].shape[0]
-    leaves = _eval_leaves(plan, tables, arrays, B, consts, sync_free)
+    leaves, aux, stage_a_ms = _eval_leaves(plan, tables, arrays, B, consts,
+                                           sync_free)
     eff: list = [None] * n_leaves
     for leaf_id, (v, e) in leaves.items():
         eff[leaf_id] = v & ~e
@@ -618,22 +684,36 @@ def _matched_cols(plan: RulesetPlan, tables, arrays, consts: dict,
             rule_col.append(len(base) + len(extra_cols))
             extra_cols.append(v & ~e)
     if not rule_col:
-        return torch.zeros((B, 0), dtype=torch.bool, device=dev)
+        return (torch.zeros((B, 0), dtype=torch.bool, device=dev), aux,
+                stage_a_ms)
     allmat = torch.stack(base + extra_cols, dim=1)  # [B, NL + 2 + extra]
     idx = _const(consts, "rule_cols",
                  lambda: torch.tensor(rule_col, dtype=torch.long, device=dev))
-    return allmat.index_select(1, idx)
+    return allmat.index_select(1, idx), aux, stage_a_ms
 
 
-def make_verdict_fn(plan: RulesetPlan):
-    """(tables, arrays) -> [B, R_dev] bool tensor on the plan's device.
-    `arrays` is a batch's arrays dict (numpy or tensors)."""
+def make_verdict_program(plan: RulesetPlan):
+    """The Python plane's served program: (tables, arrays) -> ([B, R_dev]
+    bool tensor on the plan's device, the Stage-A aux vector, Stage A's
+    issue ms; the last two None with the prefilter off). `arrays` is a
+    batch's arrays dict (numpy or tensors)."""
     consts: dict = {}
 
     def verdict(tables, arrays):
         check_env()
         return _matched_cols(plan, tables, batch_tensors(arrays, plan.device),
                              consts)
+
+    return verdict
+
+
+def make_verdict_fn(plan: RulesetPlan):
+    """(tables, arrays) -> [B, R_dev] bool tensor on the plan's device:
+    `make_verdict_program`'s matrix alone (the JAX package's signature)."""
+    program = make_verdict_program(plan)
+
+    def verdict(tables, arrays):
+        return program(tables, arrays)[0]
 
     return verdict
 
@@ -678,14 +758,27 @@ def make_lane_fn(plan: RulesetPlan, services: list[str] | None = None,
         raise ValueError("pass services or service_groups, not both")
     groups = (service_groups if service_groups is not None
               else ([services] if services else []))
-    return _make_lane_body(plan, groups, with_rule_hits)
+    body = _make_lane_body(plan, groups, with_rule_hits)
+
+    def lanes(tables, arrays, n_valid=None):
+        return body(tables, arrays, n_valid=n_valid)[0]
+
+    return lanes
 
 
-def make_packed_lane_fn(plan: RulesetPlan,
-                        service_groups: list[list[str]] | None = None):
-    """`make_lane_fn(plan, service_groups=...)` under compact staging:
-    (tables, packed, layout, n_valid=None) -> the same lanes, through
-    `unpack_staged` and the same body."""
+def make_lane_program(plan: RulesetPlan,
+                      service_groups: list[list[str]] | None = None):
+    """The sidecar's served program: (tables, arrays, n_valid=None) ->
+    (`make_lane_fn`'s lanes, the Stage-A aux vector, Stage A's issue ms;
+    the last two None with the prefilter off)."""
+    return _make_lane_body(plan, service_groups or [], False)
+
+
+def make_packed_lane_program(plan: RulesetPlan,
+                             service_groups: list[list[str]] | None = None):
+    """`make_lane_program` under compact staging: (tables, packed,
+    layout, n_valid=None) -> the same triple, through `unpack_staged`
+    and the same body."""
     lanes = _make_lane_body(plan, service_groups or [], False)
 
     def lanes_packed(tables, packed, layout, n_valid=None):
@@ -729,19 +822,21 @@ def _make_lane_body(plan: RulesetPlan, groups: list[list[str]],
     consts: dict = {}
 
     def lanes(tables, arrays, n_valid=None, sync_free=False):
+        """-> (the lanes, with the [C] hit counts when `with_rule_hits`;
+        the Stage-A aux vector; Stage A's issue ms)."""
         check_env()
         arrays = batch_tensors(arrays, plan.device)
-        matched = _matched_cols(plan, tables, arrays, consts,
-                                sync_free)  # [B, C]
+        matched, aux, stage_a_ms = _matched_cols(plan, tables, arrays, consts,
+                                                 sync_free)  # [B, C]
         B = arrays["asn"].shape[0]
 
         def pack(stack):
-            if not with_rule_hits:
-                return stack
-            m = matched
-            if n_valid is not None:
-                m = m & (torch.arange(B, device=dev) < n_valid)[:, None]
-            return stack, m.sum(dim=0, dtype=torch.int32)
+            if with_rule_hits:
+                m = matched
+                if n_valid is not None:
+                    m = m & (torch.arange(B, device=dev) < n_valid)[:, None]
+                stack = stack, m.sum(dim=0, dtype=torch.int32)
+            return stack, aux, stage_a_ms
 
         none = torch.full((B,), none_val, dtype=torch.int32, device=dev)
         n_route = max(len(groups), 1)
@@ -817,7 +912,8 @@ class MegastepProgram(NamedTuple):
     """`make_megastep_fn`'s bundle: the K-slice body and what its
     callers need to read its outputs."""
 
-    fn: Any  # (tables, stacked, n_valid, epoch) -> (out, rule_hits, echo)
+    # (tables, stacked, n_valid, epoch) -> (out, rule_hits, echo, pf_aux)
+    fn: Any
     kind: str  # "lanes" (sidecar) | "matrix" (Python plane)
     with_rule_hits: bool
     # The plan the body reads: its DFA mode, which the ladder's dfa rung
@@ -832,7 +928,7 @@ def make_megastep_fn(plan: RulesetPlan, kind: str = "lanes",
                      service_groups: list[list[str]] | None = None,
                      with_rule_hits: bool = False) -> MegastepProgram:
     """The megastep: (tables, stacked, n_valid, epoch) -> (out,
-    rule_hits, epoch_echo) over K batch slices.
+    rule_hits, epoch_echo, pf_aux) over K batch slices.
 
       stacked  {name: [K, B, ...] tensor}: K slices padded to one row
                count (DeviceInputQueue, engine/batch.py);
@@ -842,11 +938,13 @@ def make_megastep_fn(plan: RulesetPlan, kind: str = "lanes",
     `kind="lanes"` gives [K, 3 + max(G, 1), B] int32 action lanes
     (`make_lane_fn`'s body per slice), `kind="matrix"` the [K, B, C]
     bool match matrix (`make_verdict_fn`'s); rule_hits is [K, C] int32
-    (C = 0 without `with_rule_hits`), epoch_echo [K]. Each slice runs
-    the per-batch body with Stage B on the device (`sync_free`), which
-    gives the per-batch path's bits. The JAX package's fourth output,
-    the prefilter's aux counters, feeds its metric registry only
-    (ROADMAP.md, port queue item 10) and is left out."""
+    (C = 0 without `with_rule_hits`), epoch_echo [K], pf_aux [K,
+    aux_len] int32: each slice's Stage-A aux vector (`_stage_a_aux`;
+    [K, 2] zeros with the prefilter off), the JAX package's third
+    output, last here. Each slice runs the per-batch body with Stage B
+    on the device (`sync_free`), which gives the per-batch path's bits
+    and, row for row, its aux vector. Every output is there on every
+    call, so a graph captured of the body replays all four."""
     if kind not in ("lanes", "matrix"):
         raise ValueError(f"bad megastep kind {kind!r}")
     dev = plan.device
@@ -858,22 +956,25 @@ def make_megastep_fn(plan: RulesetPlan, kind: str = "lanes",
 
     def megastep(tables, stacked, n_valid, epoch):
         check_env()
-        outs, hits = [], []
+        outs, hits, auxes = [], [], []
         for j in range(n_valid.shape[0]):
             arrays = {name: t[j] for name, t in stacked.items()}
             h = None
             if kind == "lanes":
-                out = lane_body(tables, arrays, n_valid=n_valid[j],
-                                sync_free=True)
+                out, aux, _ = lane_body(tables, arrays, n_valid=n_valid[j],
+                                        sync_free=True)
                 if with_rule_hits:
                     out, h = out
             else:
-                out = _matched_cols(plan, tables, arrays, consts,
-                                    sync_free=True)
+                out, aux, _ = _matched_cols(plan, tables, arrays, consts,
+                                            sync_free=True)
             outs.append(out)
             hits.append(h if h is not None else torch.zeros(
                 (n_hit_cols,), dtype=torch.int32, device=dev))
-        return torch.stack(outs), torch.stack(hits), epoch.clone()
+            auxes.append(aux if aux is not None else torch.zeros(
+                (2,), dtype=torch.int32, device=dev))
+        aux = torch.stack(auxes)
+        return torch.stack(outs), torch.stack(hits), epoch.clone(), aux
 
     return MegastepProgram(fn=megastep, kind=kind,
                            with_rule_hits=with_rule_hits, plan=plan)
@@ -986,26 +1087,37 @@ def _host_matrix(plan, batch, lists) -> np.ndarray:
     return out
 
 
-def finish_batch(plan, dev, batch, lists) -> np.ndarray:
+def _waited(dev, on_device_wait=None) -> np.ndarray:
+    """`_host_array(dev)`, handing the ms it waited to `on_device_wait`."""
+    t0 = time.monotonic()
+    out = _host_array(dev)
+    if on_device_wait is not None:
+        on_device_wait((time.monotonic() - t0) * 1e3)
+    return out
+
+
+def finish_batch(plan, dev, batch, lists, on_device_wait=None) -> np.ndarray:
     """Combine a device verdict with the host-interpreted rules. `dev`
     may be a tensor still being computed on the card, or its
     `HostResult`: the host rules run first and `_host_array` then waits
-    once, so they overlap the device work (as in the JAX package)."""
+    once, so they overlap the device work (as in the JAX package).
+    `on_device_wait` takes that wait's ms."""
     out = _host_matrix(plan, batch, lists)
-    dev = _host_array(dev)
+    dev = _waited(dev, on_device_wait)
     for col, idx in enumerate(plan.device_rule_indices):
         out[:, idx] = dev[:, col]
     return out
 
 
-def finish_megastep(plan, dev, slices, batch, lists) -> np.ndarray:
+def finish_megastep(plan, dev, slices, batch, lists,
+                    on_device_wait=None) -> np.ndarray:
     """`finish_batch` for the Python plane's megastep: `dev` is the
     [K, Bs, C] matrix of a kind="matrix" window (or its `HostResult`)
     and `slices` gives each slice j its (row offset, n_valid) span of
     `batch`. Host rules first, then one wait; padding rows past a
     slice's n_valid are never read."""
     out = _host_matrix(plan, batch, lists)
-    dev = _host_array(dev)
+    dev = _waited(dev, on_device_wait)
     cols = plan.device_rule_indices
     for j, (off, nv) in enumerate(slices):
         out[off:off + nv, cols] = dev[j, :nv]

@@ -28,11 +28,14 @@ features the port does not have:
     down the service's degradation ladder and is served; what reaches
     the listener is a kernel that failed to build or launch) answers
     503 and counts in `ListenerStats.engine_errors`, and never allows;
-  * /__pingoo/metrics serves its JSON payload (listener counts, the
-    verdict service's `stats.snapshot()` and `pipeline_snapshot()`)
-    under `Accept: application/json`; the Prometheus exposition and the
-    flight-recorder, compile-ledger and timeline routes answer 501, as
-    the metric registry is ROADMAP.md item 10;
+  * /__pingoo/metrics serves the metric registry's Prometheus text
+    (`text/plain; version=0.0.4`) by default, as the JAX package does,
+    and its JSON payload (listener counts, the verdict service's
+    `stats.snapshot()` and `pipeline_snapshot()`) under
+    `Accept: application/json`; the listener's counts reach the
+    registry through a collector (`_export_metrics`, unregistered by
+    `close()`). The flight-recorder, compile-ledger and timeline routes
+    answer 501 (ROADMAP.md item 10, slice 3);
   * /__pingoo/profile opens a torch.profiler window
     (`VerdictService.capture_profile`).
 """
@@ -54,6 +57,7 @@ from ..engine.batch import RequestTuple
 from ..engine.service import VerdictService
 from ..expr import Context
 from ..logging_utils import get_logger
+from ..obs import schema as obs_schema
 from ..obs.trace import TRACE_HEADER, AccessLogSampler, new_trace_id
 from .captcha import (
     CAPTCHA_PATH_PREFIX,
@@ -197,8 +201,8 @@ def unavailable_response() -> Response:
 
 
 def not_ported_response(route: str) -> Response:
-    """501 for an observability route of the JAX package's metric
-    registry, which the port does not have yet."""
+    """501 for an observability route of the JAX package that the port
+    does not have yet."""
     return Response(501, [("content-type", "application/json")],
                     json.dumps({"error": (
                         f"{route} is not supported by pingoo_tpu_torch yet "
@@ -389,15 +393,41 @@ class HttpListener:
         # verdict on both planes. Unlike the native plane, this covers
         # h2 streams too (their bodies buffer through the same Request).
         # A broken scanner fails open to metadata-only.
+        self._registry = verdict.registry
         self._body_scanner = None
         if bodyscan.body_inspect_enabled():
             try:
                 self._body_scanner = bodyscan.BodyScanner(
                     device=verdict.device)
+                self._body_scanner.attach_metrics("python", self._registry)
             except Exception:
                 log.exception("body scanner unavailable: metadata-only")
                 self._body_scanner = None
                 self.stats.body_fail_open += 1
+        self._registry.register_collector(self._export_metrics)
+
+    def _export_metrics(self) -> None:
+        """Registry collector: the listener's counts under the shared
+        metric names (obs/schema.SHARED_METRICS), as the JAX package's
+        listener exports them, so the Prometheus text carries this
+        listener beside the verdict service's instruments."""
+        reg = self._registry
+        lab = {"plane": "python", "listener": self.name}
+        for name, value in (
+                ("pingoo_requests_total", self.stats.requests),
+                ("pingoo_blocked_total", self.stats.blocked),
+                ("pingoo_captcha_total", self.stats.captcha_served),
+                ("pingoo_fail_open_total", self.stats.fail_open)):
+            reg.counter(name, obs_schema.SHARED_METRICS[name],
+                        labels=lab).set_total(value)
+        reg.counter(
+            "pingoo_body_degrade_total",
+            obs_schema.BODY_METRICS["pingoo_body_degrade_total"],
+            labels={**lab, "reason": "ladder"},
+        ).set_total(self.stats.body_fail_open)
+        uptime = time.time() - self.stats.started_at
+        reg.gauge("pingoo_uptime_seconds", "listener uptime",
+                  labels=lab).set(round(uptime, 1))
 
     async def bind(self) -> None:
         # reuse_port: N processes can share the port for zero-downtime
@@ -418,6 +448,9 @@ class HttpListener:
             await self._server.serve_forever()
 
     async def close(self) -> None:
+        if self._body_scanner is not None:
+            self._body_scanner.detach_metrics()
+        self._registry.unregister_collector(self._export_metrics)
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
@@ -927,10 +960,15 @@ class HttpListener:
         return False
 
     def _metrics_response(self, req: Request) -> Response:
-        """The JSON payload under Accept: application/json; the
-        Prometheus exposition (the default) answers 501."""
+        """Content-negotiated exposition: the registry's Prometheus text
+        by default (what a scraper or a plain curl sees), the JSON
+        payload under Accept: application/json."""
         if not self._accepts_json(req):
-            return not_ported_response("the Prometheus exposition")
+            return Response(
+                200,
+                [("content-type",
+                  "text/plain; version=0.0.4; charset=utf-8")],
+                self._registry.prometheus_text().encode())
         uptime = time.time() - self.stats.started_at
         payload = {
             "listener": self.name,

@@ -69,14 +69,19 @@ from .engine.graphs import MegastepRunner
 from .engine.hotswap import SwapHandle, note_swap, set_epoch_gauge, swap_counts
 from .engine.ladder import DegradationLadder, DfaRung
 from .engine.verdict import (LANE_NONE, _host_array, _resolve_megastep_mode,
-                             action_lanes, host_rule_lanes,
-                             interpret_rules_row, make_lane_fn,
-                             make_megastep_fn, make_packed_lane_fn,
-                             megastep_k_cap, megastep_k_ladder, merge_lanes,
+                             action_lanes, dfa_dispatch_counts,
+                             host_rule_lanes, interpret_rules_row,
+                             make_lane_program, make_megastep_fn,
+                             make_packed_lane_program, megastep_k_cap,
+                             megastep_k_ladder, merge_lanes,
+                             prefilter_aux_banks, prefilter_aux_len,
                              to_host_async)
 from .expr import execute_as_bool
 from .obs.chaos import ChaosInjector
 from .obs.pipeline import PipelineStats
+from .obs.schema import (DFA_METRICS, PREFILTER_METRICS, RESILIENCE_METRICS,
+                         RING_METRICS, SHARED_WAIT_HISTOGRAM,
+                         STAGING_METRICS)
 from .obs.window import WINDOW, TimingWindow
 from .ops import _build
 from .ops._build import never_demoted
@@ -738,7 +743,8 @@ class _MegaWindow:
     """One megastep window in flight: its slices, its input set and its
     result's queued copies to the host."""
 
-    __slots__ = ("slices", "buf_id", "lanes", "echo", "t_launch", "k_ship")
+    __slots__ = ("slices", "buf_id", "lanes", "echo", "aux", "t_launch",
+                 "k_ship")
 
 
 class RingSidecar:
@@ -784,7 +790,7 @@ class RingSidecar:
     Compact staging (PINGOO_STAGING=compact, under `on`): the encoder
     copies each field's capped prefix (`resolve_stage_caps`) straight
     from the slots into one packed buffer, which uploads as one copy
-    and is decoded on the device (`make_packed_lane_fn`); megastep
+    and is decoded on the device (`make_packed_lane_program`); megastep
     slices take the capped views. Rows whose true length passes a cap
     clamped below the plan's required depth (PINGOO_STAGING_DEPTH) are
     flagged and re-served from their full slot bytes through the
@@ -830,6 +836,18 @@ class RingSidecar:
     dequeued in. `swap_pauses_ms` keeps each flip's pause; a swap still
     queued when `run()` ends is resolved "rejected".
 
+    Metrics (obs/registry.py, `registry=`, the process's REGISTRY by
+    default), the JAX package's of plane "sidecar": the
+    `pingoo_verdict_stage_ms` histograms (each timing recorded once,
+    beside its `stage_ms` window), staged bytes, the prefilter counters
+    from each batch's Stage-A aux vector (a window's summed over its
+    slices), the DFA dispatch counts, `pingoo_reattach_reconciled_total`,
+    `pingoo_sidecar_epoch`, and a collector that reads the rings'
+    shared-memory telemetry blocks at scrape time (`pingoo_ring_*` and the
+    ring's verdict-wait histogram: nothing is observed per request). The
+    collector is unregistered first thing in `stop()`, before any caller
+    can unmap a ring.
+
     `device=None` means the CUDA card (raises without one). Orphans of
     an earlier sidecar and rows whose url/path went past the slot caps
     are evaluated by the interpreter over their full strings.
@@ -844,7 +862,7 @@ class RingSidecar:
     def __init__(self, ring, plan, lists, max_batch: int = 1024,
                  services: Optional[list] = None, geoip=None,
                  ring_services: Optional[list] = None, device=None,
-                 pipeline_depth: int = 3):
+                 pipeline_depth: int = 3, registry=None):
         dev = resolve_device(device)
         if dev.type != plan.device.type:
             raise ValueError(f"plan tables live on {plan.device}, the "
@@ -881,15 +899,20 @@ class RingSidecar:
             if svc not in self._groups:
                 self._groups.append(svc)
             self._ring_group_of[id(r)] = self._groups.index(svc)
+        if registry is None:
+            from .obs.registry import REGISTRY as registry  # noqa: N813
+        self._registry = registry
+        self._init_metrics(registry)
         self.sched = Scheduler(SchedulerConfig.from_env(max_batch),
-                               plane="sidecar")
-        self.ladder = DegradationLadder("sidecar")
+                               plane="sidecar", registry=registry)
+        self.ladder = DegradationLadder("sidecar", registry=registry)
         self._dfa_rung = DfaRung(self.ladder, plan)
         self.chaos = ChaosInjector.from_env()
         self.pipeline_mode = pipeline_mode()
         on = self.pipeline_mode == "on"
         self.pipeline_depth = _env_depth(pipeline_depth) if on else 1
-        self._pipe = PipelineStats("sidecar", self.pipeline_depth)
+        self._pipe = PipelineStats("sidecar", self.pipeline_depth,
+                                   registry=registry)
         # Under `on`: a slot buffer per batch in flight plus the one the
         # next pass dequeues into.
         self._slot_pool: deque = deque()
@@ -955,6 +978,7 @@ class RingSidecar:
         if body_inspect_enabled():
             try:
                 self.body_scanner = BodyScanner(device=dev)
+                self.body_scanner.attach_metrics("sidecar", registry)
             except Exception as exc:
                 never_demoted(exc)
                 # As in the JAX package: no scanner, the rung demoted.
@@ -969,6 +993,11 @@ class RingSidecar:
         # dequeued and never answered, before the drain loop starts.
         self.reconciled = {"reeval": 0, "failopen": 0}
         self.epoch = max(r.sidecar_attach() for r in self.rings)
+        registry.gauge("pingoo_sidecar_epoch",
+                       RESILIENCE_METRICS["pingoo_sidecar_epoch"],
+                       labels={"plane": "sidecar"}).set(self.epoch)
+        self._collector_live = True
+        registry.register_collector(self._export_ring_telemetry)
         # The loop stamps the heartbeat every pass; inside a declared
         # blocking window (device work, reconciliation) the watchdog
         # stamps for it, up to the grace cap, so a stall anywhere else
@@ -980,6 +1009,75 @@ class RingSidecar:
         self._hb_watchdog.start()
         with self._hb_busy():
             self._reconcile_orphans()
+
+    def _init_metrics(self, registry) -> None:
+        """The sidecar's instruments on `registry`, as the JAX package's
+        sidecar makes them."""
+        lab = {"plane": "sidecar"}
+        self._stage = {
+            stage: registry.histogram(
+                "pingoo_verdict_stage_ms",
+                "verdict pipeline stage latency (ms)",
+                labels={"plane": "sidecar", "stage": stage})
+            for stage in ("sched", "encode", "prefilter", "device_dispatch",
+                          "device_compute", "resolve", "provenance")}
+        self._staged_bytes_counter = {
+            mode: registry.counter(
+                "pingoo_staged_bytes_total",
+                STAGING_METRICS["pingoo_staged_bytes_total"],
+                labels={"plane": "sidecar", "mode": mode})
+            for mode in ("full", "compact")}
+        self._pf_rate_gauge = registry.gauge(
+            "pingoo_prefilter_candidate_rate",
+            PREFILTER_METRICS["pingoo_prefilter_candidate_rate"], labels=lab)
+        self._pf_skip_counter = registry.counter(
+            "pingoo_scan_banks_skipped_total",
+            PREFILTER_METRICS["pingoo_scan_banks_skipped_total"], labels=lab)
+        self._dfa_banks_counter = {
+            mode: registry.counter(
+                "pingoo_dfa_banks_total", DFA_METRICS["pingoo_dfa_banks_total"],
+                labels={"plane": "sidecar", "mode": mode})
+            for mode in ("auto", "force")}
+        self._dfa_recheck_counter = registry.counter(
+            "pingoo_dfa_recheck_total", DFA_METRICS["pingoo_dfa_recheck_total"],
+            labels=lab)
+        self._reattach_counters = {
+            action: registry.counter(
+                "pingoo_reattach_reconciled_total",
+                RESILIENCE_METRICS["pingoo_reattach_reconciled_total"],
+                labels={"plane": "sidecar", "action": action})
+            for action in ("reeval", "failopen")}
+
+    def _export_ring_telemetry(self) -> None:
+        """Registry collector: the rings' telemetry blocks, summed, as
+        the `pingoo_ring_*` metrics and the ring's verdict-wait
+        histogram (its bucket counts set whole, never observed per
+        request). Runs at scrape time; touches no ring after `stop()`."""
+        if not self._collector_live:
+            return
+        t = self.ring_telemetry()
+        reg = self._registry
+        lab = {"plane": "sidecar"}
+        for name, field in (
+                ("pingoo_ring_enqueued_total", "enqueued"),
+                ("pingoo_ring_dequeued_total", "dequeued"),
+                ("pingoo_ring_enqueue_full_total", "enqueue_full"),
+                ("pingoo_ring_verdicts_posted_total", "verdicts_posted"),
+                ("pingoo_ring_verdict_post_full_total",
+                 "verdict_post_full")):
+            reg.counter(name, RING_METRICS[name],
+                        labels=lab).set_total(t[field])
+        reg.gauge("pingoo_ring_depth", RING_METRICS["pingoo_ring_depth"],
+                  labels=lab).set(t["depth"])
+        reg.gauge("pingoo_ring_depth_hwm",
+                  RING_METRICS["pingoo_ring_depth_hwm"],
+                  labels=lab).set(t["depth_hwm"])
+        reg.histogram(
+            SHARED_WAIT_HISTOGRAM,
+            "verdict wait: ring enqueue -> verdict post (ms)",
+            buckets=WAIT_BUCKET_BOUNDS_MS,
+            labels=lab).set_bucket_counts(
+                t["wait_hist"], total_sum=float(t["wait_sum_ms"]))
 
     def _build_plan_state(self, plan) -> dict:
         """Everything plan-derived that the drain loop reads, built
@@ -1010,10 +1108,12 @@ class RingSidecar:
         on = self.pipeline_mode == "on"
         caps = resolve_stage_caps(plan) if on else None
         state = {"plan": plan,
-                 "lane_fn": make_lane_fn(plan, service_groups=groups),
+                 "lane_fn": make_lane_program(plan, service_groups=groups),
+                 "pf_gated_banks": len(prefilter_aux_banks(plan)[0]),
+                 "aux_len": prefilter_aux_len(plan),
                  "host_routes": host_routes, "stage_caps": caps,
                  "packed_lane_fn": None if caps is None
-                 else make_packed_lane_fn(plan, service_groups=groups),
+                 else make_packed_lane_program(plan, service_groups=groups),
                  "staging": None, "mega_runner": None, "mega_queue": None}
         slot_caps = dict(FIELD_CAPS, country=2)
         if self._mega_mode != "off":
@@ -1040,8 +1140,16 @@ class RingSidecar:
         if lists is not None:
             self.lists = lists
         self._lane_fn = state["lane_fn"]
+        self._pf_gated_banks = state["pf_gated_banks"]
+        self._aux_len = state["aux_len"]
         self._host_routes = state["host_routes"]
         self.stage_caps = state["stage_caps"]
+        # The adopted plan's staging widths (`pingoo_staging_field_cap`).
+        for field, cap in (self.stage_caps or {}).items():
+            self._registry.gauge(
+                "pingoo_staging_field_cap",
+                STAGING_METRICS["pingoo_staging_field_cap"],
+                labels={"field": field}).set(int(cap))
         self._packed_lane_fn = state["packed_lane_fn"]
         self._staging = state["staging"]
         self._mega_runner = state["mega_runner"]
@@ -1102,6 +1210,7 @@ class RingSidecar:
                 pause_ms = (time.monotonic() - t0) * 1e3
                 set_epoch_gauge("sidecar", self.ruleset_epoch)
                 note_swap("sidecar", handle.tenant, "ok")
+                self._stage["sched"].observe(pause_ms)
                 self.swap_pauses_ms.append(pause_ms)
                 handle.resolve(self.ruleset_epoch, pause_ms)
 
@@ -1390,22 +1499,28 @@ class RingSidecar:
             raw, batch = self._decode(slots)
         t1 = time.monotonic()
         self.chaos.stage("dispatch")
-        dev = None
+        dev = aux = None
+        stage_a_ms = None
         self._dfa_rung.tick(self.plan)
         if self.ladder.try_rung("device"):
             try:
                 # Raised before any launch: the CUDA context stays clean.
                 self.chaos.maybe_xla_error(self.batches)
                 with self._hb_busy():
-                    dev = to_host_async(self._issue_lanes(batch))
+                    lanes, aux, stage_a_ms = self._issue_lanes(batch)
+                    dev = to_host_async(lanes)
+                    if aux is not None:
+                        aux = to_host_async(aux)
             except Exception as exc:
                 never_demoted(exc)
                 self._dfa_rung.failure(self.plan, exc)
-                dev = None
+                dev = aux = None
         t2 = time.monotonic()
         self._count_staged(batch)
-        self.stage_ms["decode"].append((t1 - t0) * 1e3)
-        self.stage_ms["verdict"].append((t2 - t1) * 1e3)
+        self._note_stage("decode", "encode", (t1 - t0) * 1e3)
+        self._note_stage("verdict", "device_dispatch", (t2 - t1) * 1e3)
+        if stage_a_ms is not None:
+            self._stage["prefilter"].observe(stage_a_ms)
         self._pipe.note_stage(slot, "encode", t0, t1)
         self._pipe.note_stage(slot, "dispatch", t1, t2)
         sched = self.sched
@@ -1414,6 +1529,7 @@ class RingSidecar:
         if batch.staged_bytes:
             sched.observe_dispatch_bytes(batch.staged_bytes, (t2 - t1) * 1e3)
         sched.note_launch(n, 0)
+        self._note_hold(oldest_enq_ms)
         skip_masks = None
         if sched.config.failopen == "allow":
             # Encode and issue are spent: a row is charged the compute
@@ -1422,7 +1538,7 @@ class RingSidecar:
                 parts, self._now_ms(),
                 sched.cost.estimate_stage("compute", self.max_batch))
         return (parts, slots, raw, dev, t2, slot_buf, staged, slot,
-                skip_masks, time.monotonic())
+                skip_masks, time.monotonic(), None, None, aux)
 
     def _failopen_late_rows(self, parts, now_ms: int, est_ms: float) -> list:
         """PINGOO_SCHED_FAILOPEN=allow: the rows whose deadline cannot be
@@ -1464,7 +1580,8 @@ class RingSidecar:
     def _issue_lanes(self, batch: RequestBatch, state=None):
         """The lane program (the served one, or a built `state`'s) on one
         padded batch: its packed buffer under compact staging, its
-        arrays otherwise."""
+        arrays otherwise. Returns (lanes, the Stage-A aux vector, Stage A's
+        issue ms), the last two None with the prefilter off."""
         if state is not None:
             tables = state["plan"].np_tables
             lane_fn, packed_fn = state["lane_fn"], state["packed_lane_fn"]
@@ -1476,7 +1593,45 @@ class RingSidecar:
         return lane_fn(tables, batch.arrays)
 
     def _count_staged(self, batch: RequestBatch) -> None:
+        """A per-batch issue's staged bytes, as the JAX package counts
+        them (`pingoo_staged_bytes_total{mode}`)."""
         self.staged_bytes += batch.staged_bytes
+        if batch.staged_bytes:
+            self._staged_bytes_counter[
+                "compact" if batch.packed is not None
+                else "full"].inc(batch.staged_bytes)
+
+    def _note_stage(self, window: str, stage: str, ms: float) -> None:
+        """One timing, at one site: its `stage_ms` window and its
+        `pingoo_verdict_stage_ms` histogram."""
+        self.stage_ms[window].append(ms)
+        self._stage[stage].observe(ms)
+
+    def _note_hold(self, oldest_enq_ms: Optional[int]) -> None:
+        """The `sched` stage of a launch: its oldest slot's enqueue to the
+        launch, on the ring's clock."""
+        if oldest_enq_ms is not None:
+            self._stage["sched"].observe(
+                max(0.0, float(self._now_ms() - oldest_enq_ms)))
+
+    def _observe_prefilter(self, aux: np.ndarray, rows: int) -> None:
+        """Fold a Stage-A aux vector (host int32, the JAX package's
+        layout) into the sidecar's prefilter instruments: the candidate
+        rate over `rows` x gated banks, the banks skipped."""
+        denom = rows * self._pf_gated_banks
+        if denom:
+            self._pf_rate_gauge.set(int(aux[0]) / denom)
+        self._pf_skip_counter.inc(int(aux[1]))
+
+    def _observe_dfa(self) -> None:
+        """The plan's DFA dispatch counts of one batch (host-static)."""
+        mode, banks, rechecks = dfa_dispatch_counts(self.plan)
+        if banks:
+            ctr = self._dfa_banks_counter.get(mode)
+            if ctr is not None:
+                ctr.inc(banks)
+            if rechecks:
+                self._dfa_recheck_counter.inc(rechecks)
 
     # -- the megastep -------------------------------------------------------
 
@@ -1547,11 +1702,12 @@ class RingSidecar:
         rec.oldest_enq_ms = oldest_enq_ms
         rec.skip_masks = None
         t1 = time.monotonic()
-        self.stage_ms["decode"].append((t1 - t0) * 1e3)
+        self._note_stage("decode", "encode", (t1 - t0) * 1e3)
         self._pipe.note_stage(slot, "encode", t0, t1)
         sched = self.sched
         sched.observe_stage_cost("encode", self.max_batch, (t1 - t0) * 1e3)
         sched.note_launch(n, 0)
+        self._note_hold(oldest_enq_ms)
         if sched.config.failopen == "allow":
             rec.skip_masks = self._failopen_late_rows(
                 parts, self._now_ms(), sched.cost.estimate_megastep(
@@ -1620,7 +1776,7 @@ class RingSidecar:
         self.chaos.stage("dispatch")
         self._dfa_rung.tick(self.plan)
         win = _MegaWindow()
-        win.lanes = win.echo = None
+        win.lanes = win.echo = win.aux = None
         t0 = time.monotonic()
         try:
             # Raised before the replay or capture: the CUDA context and
@@ -1629,18 +1785,19 @@ class RingSidecar:
             # The first window of a shape captures its graph (and runs
             # the body once before): the watchdog heartbeats through it.
             with self._hb_busy():
-                lanes, _, echo = self._mega_runner.run(
+                lanes, _, echo, aux = self._mega_runner.run(
                     self._mega_queue, self._mega_buf_id, k, k_ship)
                 win.lanes, win.echo = to_host_async(lanes), to_host_async(echo)
+                win.aux = to_host_async(aux)
         except Exception as exc:
             never_demoted(exc)
             self.ladder.note_failure("megastep", exc)
-            win.lanes = win.echo = None
+            win.lanes = win.echo = win.aux = None
         t1 = time.monotonic()
         win.slices, win.buf_id, win.t_launch = staged, self._mega_buf_id, t1
         win.k_ship = k_ship
         self._mega_buf_id = None
-        self.stage_ms["verdict"].append((t1 - t0) * 1e3)
+        self._note_stage("verdict", "device_dispatch", (t1 - t0) * 1e3)
         self._pipe.note_stage(staged[0].pipe_slot, "dispatch", t0, t1)
         self.sched.observe_stage_cost("dispatch", self.max_batch,
                                       (t1 - t0) * 1e3)
@@ -1663,13 +1820,14 @@ class RingSidecar:
         try:
             hosts = [host_rule_lanes(self.plan, s.raw, self.lists)
                      for s in win.slices]
-            lanes = echo = None
+            lanes = echo = aux = None
             t0 = time.monotonic()
             if win.lanes is not None:
                 try:
                     with self._hb_busy():
                         lanes = _host_array(win.lanes)
                         echo = _host_array(win.echo)
+                        aux = _host_array(win.aux)
                     self._dfa_rung.success()
                     self.ladder.note_success("megastep")
                 except Exception as exc:
@@ -1678,6 +1836,12 @@ class RingSidecar:
                     lanes = echo = None
             t_ready = time.monotonic()
             self.device_wait_s += t_ready - t0
+            self._stage["device_compute"].observe((t_ready - t0) * 1e3)
+            if lanes is not None and self._aux_len:
+                # The used slices' aux rows, additive over the window.
+                k = len(win.slices)
+                self._observe_prefilter(aux[:k].sum(axis=0),
+                                        k * self.max_batch)
             self.stage_ms["window"].append((t_ready - win.t_launch) * 1e3)
             self._pipe.note_stage(win.slices[0].pipe_slot, "compute",
                                   win.t_launch, t_ready)
@@ -1760,7 +1924,7 @@ class RingSidecar:
                     _, batch = self._decode(slots)
                 with busy():
                     _host_array(to_host_async(self._issue_lanes(batch,
-                                                                state)))
+                                                                state)[0]))
                 if staged is not None:
                     staging.release(staged)
                 out.append((rows, batch.arrays["url_bytes"].shape[1],
@@ -1790,7 +1954,7 @@ class RingSidecar:
                         self._encode_mega_slice(slots, buf, j, state=state)
                     width = queue.window_shape(buf, k)["url_bytes"][2]
                     with busy():
-                        lanes, _, _ = runner.run(queue, buf, k, k)
+                        lanes = runner.run(queue, buf, k, k)[0]
                         _host_array(to_host_async(lanes))
                 finally:
                     queue.release(buf)
@@ -1874,7 +2038,7 @@ class RingSidecar:
     def _complete(self, parts, slots, raw, dev, t_issued: float,
                   slot_buf=None, staged=None, pipe_slot: int = 0,
                   skip_masks=None, t_disp: Optional[float] = None,
-                  host=None, dev_lanes=None) -> None:
+                  host=None, dev_lanes=None, aux=None) -> None:
         """Finish one batch: host rules, the wait for its own lanes,
         routes, spill rows and the posts (a megastep slice comes with its
         host and device lanes already on the host). Its slot buffer and
@@ -1882,7 +2046,7 @@ class RingSidecar:
         pipeline; then the chaos injector's kill and pause triggers."""
         try:
             self._finish(parts, slots, raw, dev, t_issued, pipe_slot,
-                         skip_masks, t_disp, host, dev_lanes)
+                         skip_masks, t_disp, host, dev_lanes, aux)
         finally:
             if slot_buf is not None:
                 self._slot_pool.append(slot_buf)
@@ -1893,7 +2057,7 @@ class RingSidecar:
 
     def _finish(self, parts, slots, raw, dev, t_issued: float,
                 pipe_slot: int, skip_masks=None, t_disp=None, host=None,
-                dev_lanes=None) -> None:
+                dev_lanes=None, aux=None) -> None:
         t_start = t_ready = time.monotonic()
         n = len(slots)
         if host is None:
@@ -1904,13 +2068,20 @@ class RingSidecar:
             try:
                 with self._hb_busy():
                     dev_lanes = _host_array(dev)[:, :n]
+                    if aux is not None:
+                        # Its copy was queued behind the lanes'.
+                        aux = _host_array(aux)
                 self._dfa_rung.success()
             except Exception as exc:
                 never_demoted(exc)
                 # A device error surfaces at the wait as well.
                 self._dfa_rung.failure(self.plan, exc)
+                aux = None
             t_ready = time.monotonic()
             self.device_wait_s += t_ready - t0
+            self._stage["device_compute"].observe((t_ready - t0) * 1e3)
+            if aux is not None:
+                self._observe_prefilter(aux, self.max_batch)
             # The compute window: end of issue to the lanes on the host.
             self._pipe.note_stage(pipe_slot, "compute", t_issued, t_ready)
             self.sched.observe_stage_cost("compute", self.max_batch,
@@ -1918,6 +2089,7 @@ class RingSidecar:
             if t_disp is not None:
                 self.sched.observe_cost(self.max_batch,
                                         (t_ready - t_disp) * 1e3)
+        self._observe_dfa()
         self.chaos.stage("resolve")
         self.batches += 1
         interpreted = dev_lanes is None
@@ -2042,6 +2214,7 @@ class RingSidecar:
         self.processed += n
         t_end = time.monotonic()
         self._pipe.note_stage(pipe_slot, "resolve", t_ready, t_end)
+        self._stage["resolve"].observe((t_end - t_ready) * 1e3)
         self.stage_ms["finish"].append((t_end - t_start) * 1e3)
 
     def _interpret_batch(self, parts, raw):
@@ -2100,6 +2273,7 @@ class RingSidecar:
                         action = 0  # interpreter error: fail open
                 self._post_one(ring, ticket, action)
                 self.reconciled[kind] += 1
+                self._reattach_counters[kind].inc()
             ring.set_posted_floor(tail)
 
     def _reeval_reclaimed(self, ring: Ring, slots1: np.ndarray) -> int:
@@ -2171,7 +2345,13 @@ class RingSidecar:
     def stop(self, join_timeout_s: float = 10.0) -> None:
         """Stop the drain loop and wait for it and the watchdog (when
         called from another thread): only then may the caller close the
-        rings, which the loop may be inside."""
+        rings, which the loop may be inside. The registry's collector is
+        detached first, so that no scrape reads a ring the caller unmaps
+        next."""
+        self._collector_live = False
+        self._registry.unregister_collector(self._export_ring_telemetry)
+        if self.body_scanner is not None:
+            self.body_scanner.detach_metrics()
         self._stop = True
         for t in (self._thread, self._hb_watchdog):
             if t is not None and t.is_alive() \

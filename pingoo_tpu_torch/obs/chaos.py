@@ -27,8 +27,9 @@ Spec grammar, comma-separated faults, each ``name[:arg[:arg]]``::
                     batches (default 5).
 
 A malformed spec raises ValueError. What was injected is counted in
-`injected` (the JAX package's `pingoo_chaos_injected_total` waits for
-the metric registry, ROADMAP.md port queue item 10).
+`injected` and in the JAX package's
+`pingoo_chaos_injected_total{plane="sidecar",fault}` on the metric
+registry.
 """
 
 from __future__ import annotations
@@ -97,7 +98,14 @@ class ChaosInjector:
         return cls(os.environ.get("PINGOO_CHAOS", ""))
 
     def _count(self, fault: str) -> None:
+        from .registry import REGISTRY
+        from .schema import RESILIENCE_METRICS
+
         self.injected[fault] = self.injected.get(fault, 0) + 1
+        REGISTRY.counter(
+            "pingoo_chaos_injected_total",
+            RESILIENCE_METRICS["pingoo_chaos_injected_total"],
+            labels={"plane": "sidecar", "fault": fault}).inc()
 
     # -- hooks (called by RingSidecar) --------------------------------------
 

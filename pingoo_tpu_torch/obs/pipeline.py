@@ -20,7 +20,10 @@ Both planes run the pipelined executor, the Python plane's
     window and an EWMA of K (slices per device dispatch).
 
 The numbers are plain attributes, read through `snapshot()` with the
-JAX package's keys. Overlap is scored from the stages' wall intervals
+JAX package's keys, and each is also exported under the JAX package's
+`pingoo_pipeline_*` and `pingoo_megastep_*` names (obs/schema.py
+PIPELINE_METRICS) on the metric registry, created at construction so
+the whole family exists from the first scrape. Overlap is scored from the stages' wall intervals
 (monotonic seconds) kept in a short ring: whichever interval of a
 (host stage of one batch, compute of another) pair is recorded second
 finds the first, so each pair counts once. The Python plane records
@@ -32,6 +35,8 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
+
+from .schema import PIPELINE_METRICS
 
 # The executor's stages in the order a batch goes through them: host
 # staging fill ("encode"), the host's issue of the device work
@@ -50,8 +55,11 @@ _RECENT_INTERVALS = 32
 class PipelineStats:
     """One plane's executor counters and overlap bookkeeping."""
 
-    def __init__(self, plane: str, depth: int):
+    def __init__(self, plane: str, depth: int, registry=None):
+        if registry is None:
+            from .registry import REGISTRY as registry  # noqa: N813
         self.plane = plane
+        self._registry = registry
         self.depth = max(1, int(depth))
         self.inflight = 0
         # The most batches in flight at once since construction.
@@ -71,6 +79,33 @@ class PipelineStats:
         self._megastep_slices_by_mode: dict[str, int] = {}
         self._amort_ewma: float | None = None
         self._lock = threading.Lock()
+        labels = {"plane": plane}
+        self._inflight_gauge = registry.gauge(
+            "pingoo_pipeline_inflight",
+            PIPELINE_METRICS["pingoo_pipeline_inflight"], labels=labels)
+        registry.gauge("pingoo_pipeline_depth",
+                       PIPELINE_METRICS["pingoo_pipeline_depth"],
+                       labels=labels).set(self.depth)
+        self._overlap_gauge = registry.gauge(
+            "pingoo_pipeline_overlap_ratio",
+            PIPELINE_METRICS["pingoo_pipeline_overlap_ratio"], labels=labels)
+        self._occupancy = {
+            stage: registry.gauge(
+                "pingoo_pipeline_stage_occupancy",
+                PIPELINE_METRICS["pingoo_pipeline_stage_occupancy"],
+                labels={"plane": plane, "stage": stage})
+            for stage in PIPELINE_EXEC_STAGES}
+        self._k_gauge = registry.gauge(
+            "pingoo_megastep_k", PIPELINE_METRICS["pingoo_megastep_k"],
+            labels=labels)
+        self._amort_gauge = registry.gauge(
+            "pingoo_megastep_amortization",
+            PIPELINE_METRICS["pingoo_megastep_amortization"], labels=labels)
+
+    def _mode_counter(self, name: str, mode: str):
+        return self._registry.counter(
+            name, PIPELINE_METRICS[name],
+            labels={"plane": self.plane, "mode": mode})
 
     def enter(self, mode: str = "on") -> int:
         """A batch entered the executor under `mode`; returns its
@@ -80,11 +115,14 @@ class PipelineStats:
             self.inflight += 1
             self.peak_inflight = max(self.peak_inflight, self.inflight)
             self._batches[mode] = self._batches.get(mode, 0) + 1
+            self._inflight_gauge.inc()
+            self._mode_counter("pingoo_pipeline_batches_total", mode).inc()
             return self._slot_seq
 
     def exit(self) -> None:
         with self._lock:
             self.inflight -= 1
+            self._inflight_gauge.dec()
 
     def note_megastep(self, k: int, mode: str) -> None:
         """One megastep window of `k` slices launched under
@@ -99,6 +137,9 @@ class PipelineStats:
             prev = self._amort_ewma
             self._amort_ewma = float(k) if prev is None \
                 else prev + _EWMA_ALPHA * (k - prev)
+            self._k_gauge.set(k)
+            self._mode_counter("pingoo_megastep_batches_total", mode).inc(k)
+            self._amort_gauge.set(round(self._amort_ewma, 6))
 
     def note_stage(self, slot: int, stage: str, t_start: float,
                    t_end: float) -> None:
@@ -111,6 +152,10 @@ class PipelineStats:
             return
         with self._lock:
             self._busy[stage] += dur
+            wall = t_end - self._t_boot
+            if wall > 0.0:
+                self._occupancy[stage].set(
+                    min(1.0, round(self._busy[stage] / wall, 6)))
             if stage == "compute":
                 self._score_overlap(slot, t_start, t_end, want_host=True,
                                     compute_dur=dur)
@@ -141,6 +186,7 @@ class PipelineStats:
         prev = self._overlap_ewma
         self._overlap_ewma = ratio if prev is None \
             else prev + _EWMA_ALPHA * (ratio - prev)
+        self._overlap_gauge.set(round(self._overlap_ewma, 6))
 
     def snapshot(self) -> dict:
         """The JAX package's keys."""

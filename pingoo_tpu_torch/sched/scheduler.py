@@ -22,9 +22,11 @@ native_ring.RingSidecar's drain loop), a copy of the JAX package's
     off the device path).
 
 The policy is pure float math on the host: it reads no tensor and never
-waits for the device. The counters live in `Scheduler.snapshot()`; the
-JAX package's metric registry, its `pingoo_sched_*` instruments and the
-durable cost ledger are not ported yet (ROADMAP.md, port queue item 10).
+waits for the device. The counters live in `Scheduler.snapshot()` and
+in the JAX package's `pingoo_sched_*` instruments and
+`pingoo_mesh_devices` (1: one card) on the metric registry
+(`SchedMetrics`); the durable cost ledger and its reload counter are not
+ported yet (ROADMAP.md, port queue item 10, slice 2).
 Unlike the JAX package, the cost model is not seeded from a bench
 history: `PINGOO_SCHED_SEED_MS`, else `DEFAULT_SEED_MS`.
 """
@@ -34,6 +36,12 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from typing import Optional
+
+from ..obs.schema import SCHED_METRICS
+
+# The pow2 launch-size ladder of `pingoo_sched_batch_size`'s buckets.
+BATCH_SIZE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024,
+                      2048, 4096)
 
 # The default per-request deadline (the JAX package's 2 ms budget).
 DEFAULT_DEADLINE_MS = 2.0
@@ -315,6 +323,34 @@ class CostModel:
         return restored
 
 
+class SchedMetrics:
+    """The plane's `pingoo_sched_*` instruments (obs/schema.py
+    SCHED_METRICS), created at construction so both planes expose the
+    whole family from boot. The serving mesh is one device here."""
+
+    def __init__(self, plane: str, registry=None):
+        if registry is None:
+            from ..obs.registry import REGISTRY as registry  # noqa: N813
+        labels = {"plane": plane}
+        self.queue_depth = registry.gauge(
+            "pingoo_sched_queue_depth",
+            SCHED_METRICS["pingoo_sched_queue_depth"], labels=labels)
+        self.batch_size = registry.histogram(
+            "pingoo_sched_batch_size",
+            SCHED_METRICS["pingoo_sched_batch_size"],
+            buckets=BATCH_SIZE_BUCKETS, labels=labels)
+        self.deadline_miss = registry.counter(
+            "pingoo_sched_deadline_miss_total",
+            SCHED_METRICS["pingoo_sched_deadline_miss_total"], labels=labels)
+        self.failopen = registry.counter(
+            "pingoo_sched_failopen_total",
+            SCHED_METRICS["pingoo_sched_failopen_total"], labels=labels)
+        self.mesh_devices = registry.gauge(
+            "pingoo_mesh_devices", SCHED_METRICS["pingoo_mesh_devices"],
+            labels=labels)
+        self.mesh_devices.set(1)
+
+
 class Scheduler:
     """One plane's admission scheduler: the launch policy and deadline
     accounting over its cost model.
@@ -323,10 +359,11 @@ class Scheduler:
     sidecar passes the ring's `enq_ms` clock in seconds."""
 
     def __init__(self, config: SchedulerConfig, plane: str = "python",
-                 cost_model: Optional[CostModel] = None):
+                 cost_model: Optional[CostModel] = None, registry=None):
         self.config = config
         self.plane = plane
         self.cost = cost_model or CostModel(max_batch=config.max_batch)
+        self.metrics = SchedMetrics(plane, registry=registry)
         self.launches = 0
         self.deadline_misses = 0
         self.failopens = 0
@@ -376,12 +413,15 @@ class Scheduler:
     def note_launch(self, batch_size: int, queue_depth: int) -> None:
         """One batch left admission for the device."""
         self.launches += 1
+        self.metrics.batch_size.observe(batch_size)
+        self.metrics.queue_depth.set(queue_depth)
 
     def note_resolved(self, admit_s: float, resolve_s: float) -> bool:
         """Per-request deadline accounting; True on a miss."""
         missed = (resolve_s - admit_s) * 1e3 > self.config.deadline_ms
         if missed:
             self.deadline_misses += 1
+            self.metrics.deadline_miss.inc()
         return missed
 
     def note_misses(self, n: int) -> None:
@@ -389,9 +429,11 @@ class Scheduler:
         compare per batch)."""
         if n > 0:
             self.deadline_misses += n
+            self.metrics.deadline_miss.inc(n)
 
     def note_failopen(self, n: int = 1) -> None:
         self.failopens += n
+        self.metrics.failopen.inc(n)
 
     def observe_cost(self, batch_size: int, ms: float) -> None:
         self.cost.observe(batch_size, ms)

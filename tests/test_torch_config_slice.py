@@ -37,6 +37,7 @@ from pingoo_tpu_torch.compiler.plan import compile_ruleset
 from pingoo_tpu_torch.engine import verdict
 from pingoo_tpu_torch.engine.batch import tuple_to_context
 from pingoo_tpu_torch.engine.service import VerdictService
+from pingoo_tpu_torch.obs.registry import MetricRegistry
 from pingoo_tpu_torch.utils.crs import (deployment, generate_ruleset,
                                         generate_traffic)
 from test_torch_config import plain
@@ -165,7 +166,8 @@ def test_explain_and_snapshots_equal_the_jax_packages(slice_, loop_runner,
     picks = explain_picks(slice_)
     assert len(picks) >= 6
     ref_svc = RefVerdictService(ref[2], ref[1], max_wait_us=100)
-    svc = VerdictService(port, lists, max_wait_us=100, device="cpu")
+    svc = VerdictService(port, lists, max_wait_us=100, device="cpu",
+                         registry=MetricRegistry())
 
     async def flow(service, reqs):
         await service.start()
@@ -194,7 +196,10 @@ def test_explain_and_snapshots_equal_the_jax_packages(slice_, loop_runner,
     for key in ("batches", "requests", "mean_occupancy"):
         assert snap[key] == ref_snap[key], key
     assert snap["batches"] == len(picks)
-    assert all(w["count"] == len(picks) for w in snap["stages"].values())
+    # Every stage of the port's own registry saw each batch once, but
+    # provenance, which the port does not run.
+    assert {k: w["count"] for k, w in snap["stages"].items()} == {
+        k: 0 if k == "provenance" else len(picks) for k in snap["stages"]}
     pipe, ref_pipe = svc.pipeline_snapshot(), ref_svc.pipeline_snapshot()
     assert set(pipe) == set(ref_pipe)
     assert set(pipe["megastep"]) == set(ref_pipe["megastep"])

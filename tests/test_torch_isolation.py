@@ -13,8 +13,9 @@
     JAX package (`pingoo_tpu` not followed by `_torch`).
   * Without a card, an entry point called without device="cpu" raises,
     and knobs of features the port does not have raise too (the mesh,
-    item 9b; the cost ledger, item 10); PINGOO_CHAOS is parsed, and a
-    malformed spec raises.
+    item 9b; the cost ledger, provenance, parity sampling, the compile
+    ledger, the timeline and the flight recorder, item 10);
+    PINGOO_CHAOS is parsed, and a malformed spec raises.
   * Importing the port builds no kernel; a failed build or launch
     raises, and only a successful launch is counted.
 """
@@ -96,7 +97,7 @@ for mod in ("config.load", "lists", "logging_utils", "obs.trace",
             "host.captcha_frontend", "host.geoip", "host.services",
             "host.discovery", "host.tlsmgr", "host.acme", "host.h2",
             "host.httpd", "host.server", "host.native_plane", "__main__",
-            "engine.graphs"):
+            "engine.graphs", "obs.registry", "obs.schema"):
     importlib.import_module("pingoo_tpu_torch." + mod)
 # The megastep (PINGOO_MEGASTEP=force, K=4): one window of 4 slices.
 import os
@@ -297,6 +298,15 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_SCAN_PACK", "length"),
     ("PINGOO_SCAN_PACK", "batch"),
     ("PINGOO_COST_LEDGER", "COST_LEDGER.json"),
+    # Observability knobs of later slices of port queue item 10.
+    ("PINGOO_PROVENANCE", "1"),
+    ("PINGOO_PARITY_SAMPLE", "0.5"),
+    ("PINGOO_PARITY_FAULT_INJECT", "rule_"),
+    ("PINGOO_PERF_LEDGER", "on"),
+    ("PINGOO_PERF_LEDGER", "perf.jsonl"),
+    ("PINGOO_COMPILE_SURFACE", "COMPILE_SURFACE.json"),
+    ("PINGOO_TIMELINE_SAMPLE", "0.01"),
+    ("PINGOO_FLIGHT_DUMP_DIR", "flight"),
 ])
 def test_unported_knobs_raise(monkeypatch, name, value):
     rules, lists = generate_ruleset(20, with_lists=False, seed=3)
@@ -315,6 +325,13 @@ def test_unported_knobs_raise(monkeypatch, name, value):
     ("PINGOO_MESH", "2x1x1", "item 9b, the mesh"),
     ("PINGOO_MESH", "1x2x1", "item 9b, the mesh"),
     ("PINGOO_COST_LEDGER", "on", "item 10, the cost ledger"),
+    ("PINGOO_PROVENANCE", "on", "item 10, provenance"),
+    ("PINGOO_PARITY_SAMPLE", "1", "item 10, parity sampling"),
+    ("PINGOO_PARITY_FAULT_INJECT", "x", "item 10, parity sampling"),
+    ("PINGOO_PERF_LEDGER", "1", "item 10, the compile ledger"),
+    ("PINGOO_COMPILE_SURFACE", "s.json", "item 10, the compile ledger"),
+    ("PINGOO_TIMELINE_SAMPLE", "1", "item 10, the timeline"),
+    ("PINGOO_FLIGHT_DUMP_DIR", "/d", "item 10, the flight recorder"),
 ])
 def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     monkeypatch.setenv(name, value)
@@ -361,9 +378,17 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     # Knobs that pick among the JAX package's backends mean nothing here.
     ("PINGOO_NFA_LOOKUP", "pair"), ("PINGOO_DFA_KERNEL", "pallas"),
     ("PINGOO_PREFILTER_KERNEL", "pallas"),
+    # Item 10's observability knobs where they ask for nothing (None:
+    # unset): provenance off, rates of 0, the compile ledger off.
+    ("PINGOO_PROVENANCE", "0"), ("PINGOO_PROVENANCE", None),
+    ("PINGOO_PARITY_SAMPLE", "0"), ("PINGOO_TIMELINE_SAMPLE", "0"),
+    ("PINGOO_PERF_LEDGER", "off"), ("PINGOO_PERF_LEDGER", "0"),
 ])
 def test_ported_knob_values_pass(monkeypatch, name, value):
-    monkeypatch.setenv(name, value)
+    if value is None:
+        monkeypatch.delenv(name, raising=False)
+    else:
+        monkeypatch.setenv(name, value)
     port_device.check_env()
 
 

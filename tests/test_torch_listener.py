@@ -4,9 +4,11 @@
   * Every case of test_host_integration.py, under the same names, against
     the port's `Server(device="cpu")` with the same config and the same
     pong upstream, and its `HttpListener` for the XFF-token cases. The
-    port's own decisions: the metrics route serves its JSON payload and
-    answers 501 for the Prometheus text (the metric registry is ROADMAP
-    item 10); /__pingoo/profile opens a torch.profiler window.
+    port's own decisions: the metrics route serves Prometheus text that
+    lints clean, and its JSON payload under `Accept: application/json`;
+    the flight recorder, compile ledger and timeline routes answer 501
+    (ROADMAP item 10's later slices); /__pingoo/profile opens a
+    torch.profiler window.
   * Cross-package parity: the same raw requests to the JAX package's
     `Server(use_device=True)` (its CPU backend, as its own test runs it)
     and to the port's `Server(device="cpu")`, on one config and one
@@ -274,9 +276,22 @@ class TestEndToEnd:
         assert payload["pipeline"]["depth"] == 2  # PINGOO_SCHED_PIPELINE
         assert payload["engine_errors"] == 0
         assert "ladder" not in payload
-        # The Prometheus text (the default exposition) and the other
-        # routes of the metric registry answer 501 with the reason.
-        for path in ("/__pingoo/metrics", "/__pingoo/flightrecorder",
+        # The Prometheus text is the default exposition, and lints clean;
+        # the flight-recorder, compile-ledger and timeline routes answer
+        # 501 with the reason.
+        from pingoo_tpu_torch.obs.registry import lint_prometheus_text
+
+        status, headers, body = env.run(http_get(env.port,
+                                                 "/__pingoo/metrics"))
+        assert status == 200
+        assert headers["content-type"].startswith(
+            "text/plain; version=0.0.4")
+        text = body.decode()
+        assert lint_prometheus_text(text) == []
+        assert 'pingoo_requests_total{listener="' in text
+        assert 'pingoo_verdict_wait_ms_bucket{le="+Inf",plane="python"}' \
+            in text
+        for path in ("/__pingoo/flightrecorder",
                      "/__pingoo/compileledger", "/__pingoo/timeline"):
             status, headers, body = env.run(http_get(env.port, path))
             assert status == 501, path

@@ -13,7 +13,8 @@
     on CRS traffic at 64 rows a slice, it equals the JAX package's
     `make_megastep_fn` and the port's per-batch path, the epoch echoed.
   * `PipelineStats.note_megastep` gives the JAX package's snapshot, and
-    the launch recorder of a capture counts at each replay only.
+    the launch recorder of a capture counts at each replay only; a dead
+    entry's graph is destroyed only when no capture is under way.
   * VerdictService and RingSidecar under `off` and `force` (K=4) give
     equal verdicts, equal to the JAX package's `off`; the Python plane's
     K is 1 unless PINGOO_MEGASTEP_K is set; the sidecar stream
@@ -33,6 +34,7 @@ import asyncio
 import dataclasses
 import random
 import threading
+import weakref
 
 import numpy as np
 import pytest
@@ -422,6 +424,29 @@ def test_capture_launches_count_at_replay_only(monkeypatch):
     _build.add_launches(rec)
     _build.add_launches(rec)
     assert kernel.launches == 6
+
+
+def test_dead_graphs_wait_for_the_capture_lock(monkeypatch):
+    """A dead entry's graph outlives its last reference, dropped on any
+    thread, until `_free_released` finds no capture under way."""
+    class FakeGraph:
+        pass
+
+    released = []
+    monkeypatch.setattr(graphs, "_RELEASED", released)
+    fake = FakeGraph()
+    alive = weakref.ref(fake)
+    cache = {"key": graphs._Graph(fake, "inputs", "outputs", {})}
+    del fake
+    t = threading.Thread(target=cache.clear)
+    t.start()
+    t.join()
+    assert released == [(alive(), "inputs", "outputs")]
+    with graphs._CAPTURE_LOCK:  # a capture is under way
+        graphs._free_released()
+    assert alive() is not None and len(released) == 1
+    graphs._free_released()
+    assert alive() is None and released == []
 
 
 # -- the Python plane -----------------------------------------------------------------

@@ -7,7 +7,7 @@ the port: its httpd (built from pingoo_tpu_torch/native by
 counterpart in the per-batch sidecar and is dropped. The `drain` fixture
 binary (a canned-verdict ring consumer) comes from the JAX package's own
 build, and the Prometheus text is linted with the JAX package's
-`lint_prometheus_text` (the port's metric registry is ROADMAP item 10).
+`lint_prometheus_text`, the reference of the port's copy.
 
 The stacks of cases whose subject is not the sidecar's liveness start
 their httpd with PINGOO_SIDECAR_TIMEOUT_MS=LENIENT_SIDECAR_TIMEOUT_MS

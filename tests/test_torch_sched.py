@@ -23,6 +23,7 @@ import dataclasses
 import json
 import random
 import time
+import types
 
 import numpy as np
 import pytest
@@ -378,15 +379,20 @@ def test_stage_budget_overrun_names_its_stage(crs40, monkeypatch):
         ._check_stage_budget("encode", time.monotonic() - 5.0)
     monkeypatch.setenv("PINGOO_SCHED_FAILOPEN", "allow")
     svc = VerdictService(port, lists, max_batch=16, device="cpu")
+    # The service's clock stands still: a batch launched `now` has spent
+    # none of the 2 ms deadline, however long the host takes to get here.
+    now = time.monotonic()
+    monkeypatch.setattr(service_mod, "time",
+                        types.SimpleNamespace(monotonic=lambda: now))
     with pytest.raises(service_mod._StageBudgetExceeded) as exc:
-        svc._check_stage_budget("encode", time.monotonic() - 5.0)
+        svc._check_stage_budget("encode", now - 5.0)
     assert exc.value.stage == "encode" and "encode" in str(exc.value)
     assert exc.value.elapsed_ms > 1000
-    svc._check_stage_budget("encode", time.monotonic())
-    svc._check_stage_budget("compute", time.monotonic() - 5.0)
+    svc._check_stage_budget("encode", now)
+    svc._check_stage_budget("compute", now - 5.0)
     svc._check_stage_budget("encode", None)
     with pytest.raises(service_mod._StageBudgetExceeded, match="dispatch"):
-        svc._check_stage_budget("dispatch", time.monotonic() - 5.0)
+        svc._check_stage_budget("dispatch", now - 5.0)
     assert service_mod.PIPELINE_STAGE_BUDGET \
         == {"encode": 0.45, "dispatch": 0.75}
 

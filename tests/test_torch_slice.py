@@ -40,6 +40,7 @@ from pingoo_tpu_torch.engine.batch import (RequestBatch, RequestTuple,
                                            batch_to_contexts, encode_requests)
 from pingoo_tpu_torch.engine.service import Verdict, VerdictService
 from pingoo_tpu_torch.expr import Ip, compile_expression, execute_as_bool
+from pingoo_tpu_torch.obs.registry import MetricRegistry
 from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
 from test_parity import HOST_FALLBACK_SOURCES, LISTS, RULE_SOURCES, \
     random_requests
@@ -211,14 +212,17 @@ def test_service_evaluate_on_cpu(small):
 def test_service_timing_stays_bounded(small, monkeypatch):
     """Past the window's bound VerdictService keeps WINDOW timings of each
     kind, while its counts and its snapshot's counts stay exact: memory
-    and the snapshot's cost do not grow with uptime."""
+    and the snapshot's cost do not grow with uptime. The snapshot's
+    stages are the JAX package's, read from the registry's histograms
+    (a registry of the service's own here: the process's is shared); no
+    provenance stage runs in the port."""
     _, port, _, lists = small
     monkeypatch.setattr(VerdictService, "WINDOW", 4)
     reqs = generate_traffic(40, attack_fraction=0.5, seed=7, lists=lists)
 
     async def run():
         service = VerdictService(port, lists, max_batch=4, max_wait_us=0,
-                                 device="cpu")
+                                 device="cpu", registry=MetricRegistry())
         await service.start()
         try:
             for k in range(0, len(reqs), 4):  # ten batches of four
@@ -237,8 +241,10 @@ def test_service_timing_stays_bounded(small, monkeypatch):
     snap = stats.snapshot()
     assert (snap["batches"], snap["requests"], snap["mean_occupancy"]) \
         == (10, 40, 4.0)
-    assert {k: v["count"] for k, v in snap["stages"].items()} \
-        == {"encode": 10, "verdict": 10, "finish": 10}
+    assert {k: v["count"] for k, v in snap["stages"].items()} == {
+        "queue_wait": 40, "batch_assembly": 40, "sched": 10, "encode": 10,
+        "prefilter": 10, "device_dispatch": 10, "device_compute": 10,
+        "resolve": 10, "provenance": 0}
     assert snap["verdict_p99_ms"] >= snap["verdict_p50_ms"] > 0
     assert service.pipeline_snapshot()["batches"] == {"on": 10}
 

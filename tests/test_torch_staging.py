@@ -723,7 +723,8 @@ def crs20():
 
 def leaf_matrix(plan, arrays, B):
     tensors = batch.batch_tensors(arrays, "cpu")
-    leaves = verdict._eval_leaves(plan, plan.np_tables, tensors, B, {})
+    leaves, _, _ = verdict._eval_leaves(plan, plan.np_tables, tensors, B,
+                                        {})
     return np.stack([(v & ~e).numpy() for _, (v, e) in
                      sorted(leaves.items())], axis=1)
 
