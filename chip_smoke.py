@@ -294,7 +294,41 @@
    `swap_storm` under `force` (every ticket once, heartbeat under 500
    ms). Outside the chaos arms no ladder rung may fail, in this phase
    or any other (`guard_ladder`). Prints {"sched": ...}.
-14. Prints one JSON line of per-kernel results (with each kernel's
+14. The ledgers (obs/perf.py, sched/scheduler.py). The compile ledger
+   is off through the set-up, where a VerdictService's programs must be
+   the unwrapped callables; then every process of the run keeps its
+   compile ledger (PINGOO_PERF_LEDGER) and a compile surface
+   (PINGOO_COMPILE_SURFACE: the graph keys' rows on the pow2 ladder, K
+   in {1, 2, 4}) in files of its own under one temporary directory,
+   never at the repo root. The set-up's nvcc build runs outside any
+   served program, so it is no program's compile. The compile ledger's
+   cold and warm counts and ms are printed after the slice phase's
+   megastep warm-up and measured passes, and after each ring and
+   staging arm's warm_up() and drives (the captures under traffic after
+   warm_up(), reported, not gated, as are events outside the surface);
+   each process's JSONL must equal its ledger's snapshot, and its
+   registries' pingoo_compile_total (each ring arm's own registry, the
+   arm's events exactly) the ledger's totals. The durable cost ledger
+   is off in every arm (PINGOO_COST_LEDGER=off), so each arm starts
+   from the seed whatever ran before it; its own steps use files of
+   their own under the same directory. In the ring phase a sidecar
+   that finds none reloads `missing`, drains the measured stream and
+   saves `cuda|sidecar` at stop(); a new one on the same plan reloads
+   `ok` with equal costs, one on the corpus less a rule `stale`. In the
+   sched phase a Python service serves the ring stream and stops, a new
+   one on the same plan reloads `ok` with equal costs, one on the corpus
+   less a rule `stale`, one on generate_ruleset(500, seed=5) what the
+   fingerprints predict (equal names and caps: `ok`); each prints the
+   first batch's estimate before and after the reload, beside
+   DEFAULT_SEED_MS; `python -m
+   pingoo_tpu_torch`'s SIGTERM drain must save `cuda|python` costs.
+   Last, the measured re-selection (`reselect_phase`): per-iteration
+   costs of the NFA kernel (single and pair stepping) and the DFA kernel
+   on the same 2048 x 2048 rows of the widest lowered bank,
+   `reselect_scan_strategies`, the tuned plan through the artifact cache
+   (its scan plans kept), and the main path served from it under
+   PINGOO_DFA=auto with no verdict differing from the oracle.
+15. Prints one JSON line of per-kernel results (with each kernel's
    launches in the config phase, on the ring drive, on the body
    phase's streamed passes, on the listener's measured pass, on the
    native phase's measured loadgen run, through the megastep's graph
@@ -335,6 +369,7 @@ import json
 import os
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -413,6 +448,179 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+_CARD: list = []
+
+
+def card() -> str:
+    """`card_line()`, read once per process (printed beside numbers)."""
+    if not _CARD:
+        _CARD.append(card_line())
+    return _CARD[0]
+
+
+# -- the ledgers (obs/perf.py, sched/scheduler.py) -----------------------------
+#
+# Every process of the run keeps its compile ledger and its durable cost
+# ledger in files of its own under one temporary directory, which the
+# first process makes and its children inherit through CHIP_SMOKE_LEDGERS;
+# nothing is written at the repo root. The compile surface file admits
+# the graph keys the planes capture (rows on the pow2 ladder, K in
+# {1, 2, 4}); an event outside it is reported, not gated.
+
+LEDGER_DIR_ENV = "CHIP_SMOKE_LEDGERS"
+COMPILE_SURFACE = {"version": 1, "planes": ["python", "sidecar"],
+                   "fns": ["verdict", "lanes", "megastep"],
+                   "kinds": ["cold", "warm"],
+                   "batch_buckets": [1 << i for i in range(13)],
+                   "k_rungs": [1, 2, 4]}
+# Compile events counted on registries of the ring arms' own, by (plane,
+# fn, kind): with the process's REGISTRY they make the ledger's totals.
+_OWN_REGISTRY_COMPILES: dict = {}
+
+
+def ledger_env() -> str:
+    """Point this process's compile ledger (PINGOO_PERF_LEDGER,
+    PINGOO_COMPILE_SURFACE) at files of its own in the run's ledger
+    directory, made (with the surface file) by the first process, and
+    turn its durable cost ledger off (PINGOO_COST_LEDGER=off): every arm
+    starts from the seed, whatever arm ran before it, and the cost
+    ledger's own steps point it at files of theirs (`cost_ledger_at`).
+    Returns the directory."""
+    import tempfile
+
+    from pingoo_tpu_torch.obs import perf
+
+    d = os.environ.get(LEDGER_DIR_ENV)
+    if not d:
+        d = tempfile.mkdtemp(prefix="chip-smoke-ledgers-")
+        os.environ[LEDGER_DIR_ENV] = d
+        with open(os.path.join(d, "compile_surface.json"), "w") as f:
+            json.dump(COMPILE_SURFACE, f)
+    pid = os.getpid()
+    os.environ.update({
+        "PINGOO_PERF_LEDGER": os.path.join(d, f"perf_ledger-{pid}.jsonl"),
+        "PINGOO_PERF_LEDGER_N": "100000",
+        "PINGOO_COMPILE_SURFACE": os.path.join(d, "compile_surface.json"),
+        "PINGOO_COST_LEDGER": "off"})
+    perf.reset_compile_ledger_for_tests()
+    return d
+
+
+@contextlib.contextmanager
+def cost_ledger_at(name: str):
+    """PINGOO_COST_LEDGER at a file of its own in the run's ledger
+    directory while the block runs (off again after it); yields the
+    path."""
+    path = os.path.join(os.environ[LEDGER_DIR_ENV],
+                        f"cost_ledger-{name}-{os.getpid()}.json")
+    prev = os.environ["PINGOO_COST_LEDGER"]
+    os.environ["PINGOO_COST_LEDGER"] = path
+    try:
+        yield path
+    finally:
+        os.environ["PINGOO_COST_LEDGER"] = prev
+
+
+def ledger_mark() -> int:
+    """The number of compile events this process's ledger holds."""
+    from pingoo_tpu_torch.obs.perf import get_compile_ledger
+
+    return len(get_compile_ledger().snapshot()["events"])
+
+
+def ledger_counts(since: int = 0) -> dict:
+    """The compile events from index `since` on: counts and ms by kind
+    and fn, and those outside the surface."""
+    from pingoo_tpu_torch.obs.perf import get_compile_ledger
+
+    events = get_compile_ledger().snapshot()["events"][since:]
+    out = {"cold": 0, "warm": 0, "cold_ms": 0.0, "warm_ms": 0.0,
+           "unexpected": 0, "by_fn": {}, "keys": []}
+    for e in events:
+        out[e["kind"]] += 1
+        out[f"{e['kind']}_ms"] = round(out[f"{e['kind']}_ms"]
+                                       + e["wall_ms"], 3)
+        out["unexpected"] += bool(e.get("unexpected"))
+        fn = f"{e['plane']}/{e['fn']}"
+        out["by_fn"][fn] = out["by_fn"].get(fn, 0) + 1
+        out["keys"].append((e["kind"], e["batch_bucket"], e["k"]))
+    return out
+
+
+def ledger_line(label: str, c: dict) -> None:
+    print(f"compile ledger, {label}: cold {c['cold']} ({c['cold_ms']:.1f} "
+          f"ms), warm {c['warm']} ({c['warm_ms']:.1f} ms), by fn "
+          f"{c['by_fn']}, outside the surface {c['unexpected']}; "
+          f"(kind, rows, K) {c['keys']} [{card()}]", flush=True)
+
+
+def compile_totals(registry) -> dict:
+    """{(plane, fn, kind): n} of a registry's pingoo_compile_total."""
+    out = {}
+    for key, v in registry.json_snapshot().get(
+            "pingoo_compile_total", {}).items():
+        lab = dict(kv.split("=", 1) for kv in key.split(","))
+        if v:
+            out[(lab["plane"], lab["fn"], lab["kind"])] = v
+    return out
+
+
+def ledger_check(label: str) -> dict:
+    """This process's compile ledger: every JSONL line must be its
+    snapshot's event, and the registries' pingoo_compile_total (the
+    process's REGISTRY and the ring arms' own) its totals."""
+    from pingoo_tpu_torch.obs.perf import get_compile_ledger
+    from pingoo_tpu_torch.obs.registry import REGISTRY
+
+    ledger = get_compile_ledger()
+    snap = ledger.snapshot()
+    lines = []
+    if ledger.path and os.path.exists(ledger.path):
+        with open(ledger.path) as f:
+            lines = [json.loads(line) for line in f]
+    if not ledger.enabled or lines != snap["events"]:
+        fail(f"{label}: the compile ledger (enabled {ledger.enabled}) "
+             f"wrote {len(lines)} lines, its snapshot holds "
+             f"{len(snap['events'])} events, and they differ")
+    counted = dict(compile_totals(REGISTRY))
+    for k, n in _OWN_REGISTRY_COMPILES.items():
+        counted[k] = counted.get(k, 0) + n
+    want = {tuple(k.split("/")): n for k, n in snap["totals"].items()}
+    if counted != want:
+        fail(f"{label}: pingoo_compile_total {counted}, the ledger's "
+             f"totals {want}")
+    print(f"compile ledger of the {label}: {len(lines)} events, JSONL "
+          f"equal to the snapshot, pingoo_compile_total equal to its "
+          f"totals {snap['totals']}, outside the surface "
+          f"{snap['unexpected_total']} [{card()}]", flush=True)
+    return dict(events=len(lines), totals=snap["totals"],
+                unexpected=snap["unexpected_total"])
+
+
+def ledger_off_check(plan, lists, dev) -> None:
+    """With PINGOO_PERF_LEDGER unset, a VerdictService's programs (the
+    verdict program and, under PINGOO_MEGASTEP=force, its runner's
+    megastep program) are the unwrapped callables."""
+    from pingoo_tpu_torch.engine.service import VerdictService
+    from pingoo_tpu_torch.engine.verdict import MegastepProgram
+    from pingoo_tpu_torch.obs import perf
+
+    if perf.get_compile_ledger().enabled:
+        fail("the compile ledger is on before ledger_env()")
+    os.environ["PINGOO_MEGASTEP"] = "force"
+    try:
+        service = VerdictService(plan, lists, max_batch=B, device=dev)
+    finally:
+        os.environ.pop("PINGOO_MEGASTEP")
+    fn, prog = service._verdict_fn, service._mega_runner.program
+    if isinstance(fn, perf._InstrumentedProgram) \
+            or type(prog) is not MegastepProgram:
+        fail(f"with the ledger off the service runs {type(fn).__name__} "
+             f"and {type(prog).__name__}, not the unwrapped programs")
+    print(f"compile ledger off: the service's programs are the unwrapped "
+          f"{type(fn).__name__} and {type(prog).__name__}", flush=True)
 
 
 def field_batch(rng, width: int, dev):
@@ -1574,6 +1782,7 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
         # costs a first call) outside the timings, then a fresh service;
         # under the megastep the warmed service itself, whose graphs the
         # warm-up captured, with its statistics started afresh.
+        mark = ledger_mark()
         warm = VerdictService(plan, lists, max_batch=B, device=dev)
         if mega_mode == "force":
             # This thread alone uses the card in the warm-up pass: its
@@ -1594,6 +1803,10 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
             mega = megas[mega_k] = {}
             mega["warm_s"] = warm_s
             mega["warm_graphs"] = service._mega_runner.snapshot()
+            mega["ledger"] = {"warm_up": ledger_counts(mark)}
+            ledger_line(f"slice phase, megastep K={mega_k}, after the "
+                        f"warm-up pass", mega["ledger"]["warm_up"])
+            mark = ledger_mark()
             service.stats = type(service.stats)(service.WINDOW,
                                                 service.stats.epoch)
             service._pipe = type(service._pipe)("python",
@@ -1621,6 +1834,9 @@ def slice_phase(plan, rules, lists, reqs, dev, oracle):
             if missing:
                 fail(f"{label}: no {missing} kernel launched through the "
                      f"graph replays")
+            mega["ledger"]["measured"] = ledger_counts(mark)
+            ledger_line(f"slice phase, megastep K={mega_k}, after the "
+                        f"measured pass", mega["ledger"]["measured"])
             mega.update(
                 launches=counts, graphs=service._mega_runner.snapshot(),
                 snapshot=service.pipeline_snapshot()["megastep"],
@@ -2747,8 +2963,12 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
     import threading
 
     from pingoo_tpu_torch import native_ring as nr
+    from pingoo_tpu_torch.obs.perf import get_compile_ledger
     from pingoo_tpu_torch.obs.registry import MetricRegistry
 
+    label = f"ring arm {mode}/{megastep} max_batch {max_batch}" + (
+        " (halo split)" if need == HALO_NEED else "")
+    mark = ledger_mark()
     os.environ["PINGOO_PIPELINE"] = mode
     os.environ["PINGOO_MEGASTEP"] = megastep
     try:
@@ -2762,12 +2982,16 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
         fail(f"the sidecar runs {sidecar.pipeline_mode}, not {mode}")
     t_arm = time.monotonic()
     warm_up = None
+    ledger = {}
     if megastep == "force":
         # As the native plane does before its httpd enqueues: under force
         # one window of each K the loop ships, narrow and wide, each
         # capturing its graph.
         warm_up = dict(windows=sidecar.warm_up(),
                        graphs=sidecar.stats()["megastep"]["graphs"])
+        ledger["warm_up"] = ledger_counts(mark)
+        ledger_line(f"{label} after warm_up()", ledger["warm_up"])
+    mark_drive = ledger_mark()
     thread = threading.Thread(target=sidecar.run, daemon=True)
     thread.start()
     try:
@@ -2788,6 +3012,21 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
         thread.join(timeout=30)
     if thread.is_alive():
         fail(f"the {mode} sidecar's drain loop did not stop")
+    # Captures under traffic: the graph keys the warm_up() did not reach.
+    ledger["drives"] = ledger_counts(mark_drive)
+    ledger_line(f"{label} after its drives (captures under traffic after "
+                f"warm_up())", ledger["drives"])
+    # The arm's registry counted exactly the arm's compile events.
+    own = compile_totals(sidecar._registry)
+    want = {}
+    for e in get_compile_ledger().snapshot()["events"][mark:]:
+        k = (e["plane"], e["fn"], e["kind"])
+        want[k] = want.get(k, 0) + 1
+    if own != want:
+        fail(f"{label}: the arm's registry counted compiles {own}, the "
+             f"ledger {want}")
+    for k, n in own.items():
+        _OWN_REGISTRY_COMPILES[k] = _OWN_REGISTRY_COMPILES.get(k, 0) + n
     stats = sidecar.stats()
     pipe = stats["pipeline"]
     peak = sidecar._pipe.peak_inflight
@@ -2808,7 +3047,7 @@ def ring_arm(ring, producer, plan, lists, want, dev, mode: str,
                 pipeline=pipe, megastep_stats=stats["megastep"],
                 graph_keys=(sorted(sidecar._mega_runner.keys)
                             if megastep == "force" else None),
-                metrics=metrics, drives=drives)
+                metrics=metrics, drives=drives, ledger=ledger)
 
 
 def staging_arm(ring, producer, plan, lists, dev, staging: str,
@@ -2826,6 +3065,8 @@ def staging_arm(ring, producer, plan, lists, dev, staging: str,
 
     env = {"PINGOO_PIPELINE": "on", "PINGOO_MEGASTEP": megastep,
            "PINGOO_STAGING": staging, "PINGOO_STAGING_DEPTH": STAGING_DEPTH}
+    label = f"ring staging arm {staging}/{megastep}"
+    mark = ledger_mark()
     os.environ.update(env)
     try:
         sidecar = nr.RingSidecar(ring, plan, lists, max_batch=B,
@@ -2835,9 +3076,13 @@ def staging_arm(ring, producer, plan, lists, dev, staging: str,
             os.environ.pop(name)
     t_arm = time.monotonic()
     warm_up = None
+    ledger = {}
     if megastep == "force":
         warm_up = dict(windows=sidecar.warm_up(),
                        graphs=sidecar.stats()["megastep"]["graphs"])
+        ledger["warm_up"] = ledger_counts(mark)
+        ledger_line(f"{label} after warm_up()", ledger["warm_up"])
+    mark_drive = ledger_mark()
     thread = threading.Thread(target=sidecar.run, daemon=True)
     thread.start()
     try:
@@ -2853,6 +3098,9 @@ def staging_arm(ring, producer, plan, lists, dev, staging: str,
     if thread.is_alive():
         fail(f"the staging arm's ({staging}, {megastep}) drain loop did "
              f"not stop")
+    ledger["drives"] = ledger_counts(mark_drive)
+    ledger_line(f"{label} after its drives (captures under traffic after "
+                f"warm_up())", ledger["drives"])
     stats = sidecar.stats()
     if megastep == "force" and (stats["megastep"]["echo_mismatch"]
                                 or not stats["megastep"]["windows"]):
@@ -2865,7 +3113,78 @@ def staging_arm(ring, producer, plan, lists, dev, staging: str,
                 peak_inflight=sidecar._pipe.peak_inflight,
                 megastep_stats=stats["megastep"],
                 graph_keys=(sorted(sidecar._mega_runner.keys)
-                            if megastep == "force" else None))
+                            if megastep == "force" else None),
+                ledger=ledger)
+
+
+def sidecar_cost_ledger(ring, producer, rules, lists, plan, want,
+                        dev) -> dict:
+    """The sidecar's durable cost ledger, in a file of its own: a
+    sidecar that finds none reloads `missing`, drains the measured
+    stream once and saves its costs at stop(), which must be the file's
+    one `cuda|sidecar` entry; a new sidecar on the same plan reloads
+    `ok` with exactly those costs; one on the corpus without its last
+    rule (another fingerprint) `stale`. Prints the first batch's
+    estimate before and after the reload beside the seed."""
+    import threading
+
+    import torch
+
+    from pingoo_tpu_torch import native_ring as nr
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.sched.scheduler import DEFAULT_SEED_MS
+
+    t0 = time.monotonic()
+    name = f"{torch.device(dev).type}|sidecar"
+    with cost_ledger_at("sidecar") as path:
+        first = nr.RingSidecar(ring, plan, lists, max_batch=B, device=dev)
+        before = first.sched.cost.estimate(B)
+        thread = threading.Thread(target=first.run, daemon=True)
+        thread.start()
+        try:
+            drive = ring_drive(first, lambda: producer.drive(11), want)
+        finally:
+            first.stop()
+            thread.join(timeout=30)
+        if thread.is_alive():
+            fail("the cost-ledger sidecar's drain loop did not stop")
+        saved = first.sched.cost.snapshot()
+        with open(path) as f:
+            entries = json.load(f)["entries"]
+        entry = entries.get(name) or {}
+        if set(entries) != {name} or entry["fingerprint"] != first._plan_fp \
+                or entry["cost"] != json.loads(json.dumps(saved)):
+            fail(f"the sidecar's cost ledger holds {sorted(entries)}, not "
+                 f"the stopped sidecar's {name} costs")
+        again = nr.RingSidecar(ring, plan, lists, max_batch=B, device=dev)
+        again.stop()
+        after = again.sched.cost.estimate(B)
+        if again.sched.cost.snapshot() != saved:
+            fail("the reloaded sidecar's costs differ from the saved")
+        dropped = nr.RingSidecar(
+            ring, compile_ruleset(rules[:-1], lists, device=dev), lists,
+            max_batch=B, device=dev)
+        dropped.stop()
+    results = {"first": first.cost_ledger_result,
+               "same plan": again.cost_ledger_result,
+               "one rule dropped": dropped.cost_ledger_result}
+    want_results = {"first": "missing", "same plan": "ok",
+                    "one rule dropped": "stale"}
+    if results != want_results:
+        fail(f"the sidecar's cost ledger reloads {results}, not "
+             f"{want_results}")
+    out = dict(results=results, fingerprints=dict(
+        plan=first._plan_fp, dropped=dropped._plan_fp),
+        estimate_ms_before=before, estimate_ms_after=after,
+        seed_ms=DEFAULT_SEED_MS, ewma_ms=entry["cost"]["ewma_ms"],
+        req_per_s=drive["req_per_s"], seconds=time.monotonic() - t0)
+    print(f"sidecar cost ledger: {results}; fingerprints "
+          f"{out['fingerprints']}; EWMA ms by rows {out['ewma_ms']}; "
+          f"estimate of a {B}-row first batch {before:.2f} ms before the "
+          f"reload (seed {DEFAULT_SEED_MS}) and {after:.2f} ms after it "
+          f"({RING_REQUESTS} requests drained, {drive['req_per_s']:.0f} "
+          f"req/s, {out['seconds']:.1f} s) [{card()}]", flush=True)
+    return out
 
 
 def ring_phase() -> int:
@@ -2943,6 +3262,8 @@ def ring_phase() -> int:
                     finally:
                         for name in env:
                             os.environ.pop(name)
+                cost_ledger = sidecar_cost_ledger(ring, producer, rules,
+                                                  lists, plan, want, dev)
                 producer.close()
                 time.sleep(0.2)
                 if ring.poll_verdict() is not None:
@@ -3026,11 +3347,13 @@ def ring_phase() -> int:
               + (f", megastep {d['megastep']}" if "megastep" in d else ""),
               flush=True)
     check_ladder("ring phase")
+    ledger = ledger_check("ring phase's process")
     print(json.dumps({"ring": dict(
         requests=RING_REQUESTS, max_batch=B, capacity=RING_CAPACITY,
         rules=500, build_s=build_s, warm_s=arms["on"]["warm_s"],
         processed=arms["on"]["processed"], drives=arms["on"]["drives"],
-        arms=arms, staging=staging, halo=halo)}), flush=True)
+        arms=arms, staging=staging, halo=halo, cost_ledger=cost_ledger,
+        compile_ledger=ledger)}), flush=True)
     return 0
 
 
@@ -3326,6 +3649,65 @@ def sched_ring_arm(label, ring, producer, plan, lists, want, dev, env,
     return res
 
 
+def cost_ledger_python(rules, lists, plan, reqs, dev) -> dict:
+    """The Python plane's durable cost ledger, in a file of its own: a
+    service that finds none reloads `missing`, serves `reqs` and saves
+    its costs at stop(); a new service on the same plan reloads `ok`
+    with exactly those costs; one on the corpus without its last rule
+    `stale`; one on generate_ruleset(500, seed=5) whatever the plans'
+    fingerprints say (the recipe hashes rule names, caps, the DFA mode
+    and the field specs: equal names and caps share an entry). Prints
+    the first batch's estimate before and after the reload beside the
+    seed."""
+    from pingoo_tpu_torch.compiler.plan import compile_ruleset
+    from pingoo_tpu_torch.engine.service import VerdictService
+    from pingoo_tpu_torch.sched.scheduler import DEFAULT_SEED_MS
+    from pingoo_tpu_torch.utils.crs import generate_ruleset
+
+    t0 = time.monotonic()
+    with cost_ledger_at("python") as path:
+        first = VerdictService(plan, lists, max_batch=B, device=dev)
+        before = first.sched.cost.estimate(B)
+        verdicts, wall = asyncio.run(serve(first, reqs))
+        saved = first.sched.cost.snapshot()
+        again = VerdictService(plan, lists, max_batch=B, device=dev)
+        after = again.sched.cost.estimate(B)
+        results = {"first": first.cost_ledger_result,
+                   "same plan": again.cost_ledger_result}
+        if again.sched.cost.snapshot() != saved:
+            fail("the reloaded Python plane's costs differ from the saved")
+        dropped = VerdictService(compile_ruleset(rules[:-1], lists,
+                                                 device=dev),
+                                 lists, max_batch=B, device=dev)
+        results["one rule dropped"] = dropped.cost_ledger_result
+        r5, l5 = generate_ruleset(500, seed=5)
+        seed5 = VerdictService(compile_ruleset(r5, l5, device=dev), l5,
+                               max_batch=B, device=dev)
+        results["seed 5"] = seed5.cost_ledger_result
+        want = {"first": "missing", "same plan": "ok",
+                "one rule dropped": "stale",
+                "seed 5": "ok" if seed5._plan_fp == first._plan_fp
+                else "stale"}
+        if results != want:
+            fail(f"the Python plane's cost ledger reloads {results}, not "
+                 f"{want}")
+        with open(path) as f:
+            entries = json.load(f)["entries"]
+        if set(entries) != {f"{first.device.type}|python"}:
+            fail(f"the Python plane saved {sorted(entries)}")
+    out = dict(results=results, fingerprints=dict(
+        plan=first._plan_fp, dropped=dropped._plan_fp, seed5=seed5._plan_fp),
+        estimate_ms_before=before, estimate_ms_after=after,
+        seed_ms=DEFAULT_SEED_MS, served=len(verdicts), wall_s=wall,
+        seconds=time.monotonic() - t0)
+    print(f"python cost ledger: {results}; fingerprints {out['fingerprints']}"
+          f"; estimate of a {B}-row first batch {before:.2f} ms before the "
+          f"reload (seed {DEFAULT_SEED_MS}) and {after:.2f} ms after it "
+          f"({len(verdicts)} requests served, {out['seconds']:.1f} s) "
+          f"[{card()}]", flush=True)
+    return out
+
+
 def sched_phase() -> int:
     """`--sched-phase`, in a process of its own: admission, the
     degradation ladder and chaos on the card, on the ring phase's
@@ -3430,6 +3812,7 @@ def sched_phase() -> int:
          "PINGOO_DEADLINE_MS": "0.000001"})
     if py["interpret"]["failopens"] != SCHED_INTERPRET_N:
         fail("the interpret arm did not serve every request on the host")
+    cost_ledger = cost_ledger_python(rules, lists, plan, reqs, dev)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ring")
         ring = nr.Ring(path, capacity=RING_CAPACITY, create=True)
@@ -3520,9 +3903,11 @@ def sched_phase() -> int:
         finally:
             ring.close()
     check_ladder("sched phase (outside its chaos arms)")
+    ledger = ledger_check("sched phase's process")
     print(json.dumps({"sched": dict(
-        seed=seed, python=py, ring=ring_arms,
-        seconds=time.monotonic() - t_phase)}, default=str), flush=True)
+        seed=seed, python=py, ring=ring_arms, cost_ledger=cost_ledger,
+        compile_ledger=ledger, seconds=time.monotonic() - t_phase)},
+        default=str), flush=True)
     return 0
 
 
@@ -4008,6 +4393,7 @@ def body_phase() -> int:
     ring = body_ring(dev)
     ring["phase_s"] = time.monotonic() - t_ring
     check_ladder("body phase")
+    ledger_check("body phase's process")
     print(json.dumps({"body": dict(
         window=BODY_WINDOW, configs=configs, busy=busy, ring=ring,
         seconds=time.monotonic() - t0)}), flush=True)
@@ -4735,8 +5121,13 @@ def listener_entry_point(raw: dict, tmp: str, probes, device=None,
                                            else "")
     classify = native_class if native else listener_class
     t0 = time.monotonic()
+    # Ledgers of the entry point's own: its drain saves the cost ledger.
+    costs = os.path.join(tmp, f"{name}-cost_ledger.json")
     proc = subprocess.Popen(cmd, cwd=tmp, stdout=log, stderr=log,
-                            env=dict(os.environ, PYTHONPATH=REPO))
+                            env=dict(os.environ, PYTHONPATH=REPO,
+                                     PINGOO_COST_LEDGER=costs,
+                                     PINGOO_PERF_LEDGER=os.path.join(
+                                         tmp, f"{name}-perf_ledger.jsonl")))
     try:
         while True:
             if proc.poll() is not None:
@@ -4780,6 +5171,16 @@ def listener_entry_point(raw: dict, tmp: str, probes, device=None,
         if native and (not children or any(map(proc_alive, children))):
             fail(f"{what} ran httpd children {children}; alive after its "
                  f"exit: {[p for p in children if proc_alive(p)]}")
+        saved = {}
+        if os.path.exists(costs):
+            with open(costs) as f:
+                saved = json.load(f)["entries"]
+        entry = ("cpu" if device == "cpu" else "cuda") + "|" + (
+            "sidecar" if native else "python")
+        if not native and not saved.get(entry, {}).get("cost", {}).get(
+                "ewma_ms"):
+            fail(f"{what}'s SIGTERM drain saved no {entry} costs: "
+                 f"{sorted(saved)}")
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -4790,8 +5191,13 @@ def listener_entry_point(raw: dict, tmp: str, probes, device=None,
           + (f" through {len(children)} httpd" if native else "")
           + f", answered {[p[0] for p in probes]} with "
           f"{[a[:2] for a in answers]}, exited 0 {drain_s:.2f} s after "
-          f"SIGTERM" + (", no httpd left" if native else ""), flush=True)
+          f"SIGTERM" + (", no httpd left" if native else "")
+          + f"; its cost ledger holds {sorted(saved)}"
+          + (f", {entry} EWMA ms by rows {saved[entry]['cost']['ewma_ms']}"
+             if entry in saved else "") + f" [{card()}]",
+          flush=True)
     return dict(boot_s=boot_s, drain_s=drain_s, answers=answers,
+                cost_ledger=sorted(saved),
                 **(dict(httpd_children=len(children)) if native else {}))
 
 
@@ -4958,6 +5364,7 @@ def listener_phase(device=None, n: int = N_REQUESTS) -> int:
     if missing:
         fail(f"the listener's measured pass launched no {missing} kernel")
     check_ladder("listener phase")
+    ledger_check("listener phase's process")
     print(json.dumps({"listener": dict(
         requests=n, conns=LISTENER_CONNS, max_batch=max_batch, boot_s=boot_s,
         passes=results, outcomes=kinds, entry_point=entry, dedup=dedup,
@@ -5730,6 +6137,7 @@ def native_phase(device=None, n: int = N_REQUESTS) -> int:
     if not body_verdicts:
         fail("the body pass's sidecar posted no body verdict")
     check_ladder("native phase")
+    ledger_check("native phase's process")
     print(json.dumps({"native": dict(
         requests=n, conns=NATIVE_CONNS, listed=len(listed),
         boot_s=boot_s, warm_up=warm_up, builds=took, sonames=sonames,
@@ -6544,6 +6952,116 @@ def swap_phase(rules, lists, plan, reqs, dev, oracle) -> dict:
     return out
 
 
+RESELECT_QUEUED_CALLS = 32
+
+
+def reselect_phase(rules, lists, plan, reqs, dev, oracle, main_out) -> dict:
+    """The measured re-selection of the plan's scan strategies, the
+    counterpart of bench.py's autotune_scan_strategies. On the widest
+    lowered bank (the one with the most NFA words that has a DFA) at B
+    rows of its field's full width, the NFA kernel (single and pair
+    stepping) and the DFA kernel walk the same rows and columns, each
+    timed queued; a run's time over its loop iterations (the columns, or
+    half of them for pair stepping) is its per-iteration cost. The costs
+    are scaled so that the NFA kernel's single stepping keeps its
+    modelled cost ("pallas"): the kinds with no route here ("scan",
+    "pair") keep their defaults, and the DFA is ranked against the NFA
+    kernel by measurement. `reselect_scan_strategies` re-ranks a copy of
+    the plan, `update_cached_plan` stores it in a temporary artifact
+    cache and `compile_ruleset_cached` loads it back, whose scan plans
+    must be the tuned ones; the main path served from it under
+    PINGOO_DFA=auto must give the oracle's verdicts, every one."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from pingoo_tpu_torch.compiler.cache import (compile_ruleset_cached,
+                                                 update_cached_plan)
+    from pingoo_tpu_torch.compiler.plan import (DEFAULT_STEP_COSTS,
+                                                reselect_scan_strategies)
+    from pingoo_tpu_torch.engine.service import VerdictService
+    from pingoo_tpu_torch.ops import _build
+    from pingoo_tpu_torch.ops import bitsplit_dfa as dfa_ops
+    from pingoo_tpu_torch.ops import nfa_scan
+
+    t0 = time.monotonic()
+    tables = plan.np_tables
+    key = max((k for k, e in plan.scan_plans.items() if e.dfa_key),
+              key=lambda k: tables[k].opt.shape[0])
+    nfa, dfa = tables[key], tables[plan.scan_plans[key].dfa_key]
+    field = key.split("_", 1)[1]
+    data, lens = field_batch(np.random.default_rng(SEED + 7),
+                             plan.field_specs[field], dev)
+    L = data.shape[1]
+    state = nfa_scan.init_scan_state(B, nfa.opt.shape[0], dev)
+    dstate, H = dfa_ops.dfa_init_state(B, dfa.num_words, dev)
+    runs = {
+        "pallas": (lambda: nfa_scan.fused_scan_chunk(
+            nfa, data, lens, state, 0, False), L),
+        "pallas_pair": (lambda: nfa_scan.fused_scan_chunk(
+            nfa, data, lens, state, 0, True), (L + 1) // 2),
+        "dfa": (lambda: dfa_ops.fused_dfa_chunk(
+            dfa, data, lens, dstate, H, 0), L)}
+    run_ms = {k: queued_ms(fn, RESELECT_QUEUED_CALLS)
+              for k, (fn, _) in runs.items()}
+    iter_ns = {k: run_ms[k] * 1e6 / runs[k][1] for k in runs}
+    scale = DEFAULT_STEP_COSTS["pallas"] / iter_ns["pallas"]
+    costs = dict(DEFAULT_STEP_COSTS,
+                 pallas_pair=iter_ns["pallas_pair"] * scale,
+                 dfa=iter_ns["dfa"] * scale)
+    before = {k: (e.strategy.kind, e.strategy.pair, e.dfa_auto)
+              for k, e in plan.scan_plans.items()}
+    tuned = copy.copy(plan)
+    tuned.scan_plans = dict(plan.scan_plans)
+    reselect_scan_strategies(tuned, costs)
+    t1 = time.monotonic()
+    with tempfile.TemporaryDirectory() as cache_dir:
+        update_cached_plan(rules, lists, tuned, cache_dir)
+        loaded = compile_ruleset_cached(rules, lists, cache_dir=cache_dir,
+                                        device=dev)
+    cache_s = time.monotonic() - t1
+    if loaded.scan_plans != tuned.scan_plans:
+        fail(f"the artifact cache gave back scan plans {loaded.scan_plans},"
+             f" not the tuned {tuned.scan_plans}")
+    after = {k: (e.strategy.kind, e.strategy.pair, e.dfa_auto)
+             for k, e in loaded.scan_plans.items()}
+    os.environ["PINGOO_DFA"] = "auto"
+    try:
+        _build.reset_launch_counts()
+        verdicts, wall = asyncio.run(serve(
+            VerdictService(loaded, lists, max_batch=B, device=dev), reqs))
+        launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    finally:
+        os.environ.pop("PINGOO_DFA")
+    matched = np.stack([v.matched for v in verdicts])
+    act = np.array([v.action for v in verdicts])
+    vb = np.array([v.verified_block for v in verdicts])
+    differ = int(((matched != oracle).any(axis=1) | (act != main_out[1])
+                  | (vb != main_out[2])).sum())
+    if differ:
+        fail(f"the tuned plan's main path: {differ} verdicts differ from "
+             f"the oracle's")
+    out = dict(bank=key, words=int(nfa.opt.shape[0]),
+               dfa_states=int(dfa.num_states), rows=B, columns=L,
+               run_ms=run_ms, iter_ns=iter_ns, costs=costs, before=before,
+               after=after, cache_s=cache_s, differ=differ,
+               req_per_s=len(reqs) / wall, launches=launches,
+               seconds=time.monotonic() - t0)
+    dfa_key = plan.scan_plans[key].dfa_key
+    print(f"re-selection: {key} ({out['words']} words; {dfa_key} "
+          f"{out['dfa_states']} states) at {B} x {L}, queued ms "
+          f"{({k: round(v, 4) for k, v in run_ms.items()})}, ns an "
+          f"iteration {({k: round(v, 4) for k, v in iter_ns.items()})}, "
+          f"costs {({k: round(v, 4) for k, v in costs.items()})}; (kind, "
+          f"pair, dfa_auto) before {before}, after {after}; the artifact "
+          f"cache's round trip {cache_s:.1f} s kept them; the tuned plan's "
+          f"main path under PINGOO_DFA=auto: {differ} verdicts differ, "
+          f"{out['req_per_s']:.0f} req/s, launches {launches} "
+          f"({out['seconds']:.1f} s) [{card()}]", flush=True)
+    return out
+
+
 def bot_alone() -> int:
     """`--bot-phase`: `setup()`, then `bot_phase`. Prints {"bot": ...},
     but no result line."""
@@ -6677,6 +7195,8 @@ def main() -> int:
         fail("pingoo_tpu_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, REPO)
     guard_ladder()
+    if sys.argv[1:]:
+        ledger_env()
     if sys.argv[1:] == ["--ring-phase"]:
         return ring_phase()
     if sys.argv[1:] == ["--body-phase"]:
@@ -6706,6 +7226,11 @@ def main() -> int:
         return out
 
     rules, lists, reqs, oracle, dev, plan = timed("setup", setup)
+    # The compile ledger is off until here: the service's programs are
+    # the unwrapped callables. From here on every process keeps its
+    # ledgers under one temporary directory.
+    ledger_off_check(plan, lists, dev)
+    ledger_dir = ledger_env()
     rng = np.random.default_rng(SEED)
     results = timed("kernels", kernel_phase, plan, dev, rng)
     results["prefilter"]["stage_a"] = timed("stage_a", stage_a_child)
@@ -6752,6 +7277,10 @@ def main() -> int:
     print(json.dumps({"bot": bot}), flush=True)
     swap = timed("swap", swap_phase, rules, lists, plan, reqs, dev, oracle)
     print(json.dumps({"swap": swap}), flush=True)
+    reselect = timed("reselect", reselect_phase, rules, lists, plan, reqs,
+                     dev, oracle, main_path)
+    print(json.dumps({"reselect": reselect}), flush=True)
+    compile_ledger = ledger_check("main process")
     print("main process, seconds a phase (children from spawn to exit): "
           + json.dumps(phase_s), flush=True)
     ring_halo = ring["halo"][f"{HALO_KNOBS[0][0]} on/off"]["drives"][0]
@@ -6797,6 +7326,12 @@ def main() -> int:
                 "route", "source", "replaces", "max_abs_err", "ms",
                 "plain_ms", "work")}})
     check_ladder("the main process's phases")
+    print(json.dumps({"ledgers": dict(
+        compile=compile_ledger, ring_cost=ring["cost_ledger"],
+        python_cost=sched["cost_ledger"],
+        entry_point_cost=listener["entry_point"]["cost_ledger"])}),
+        flush=True)
+    shutil.rmtree(ledger_dir, ignore_errors=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

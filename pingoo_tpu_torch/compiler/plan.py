@@ -23,7 +23,7 @@ importing that package), so both can compute on identical tables.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field as dc_field
+from dataclasses import dataclass, field as dc_field, replace as dc_replace
 from typing import Any, Optional
 
 import numpy as np
@@ -66,13 +66,19 @@ from .nfa import build_bank
 
 # -- scan strategy records ----------------------------------------------------
 #
-# The JAX package selects, per bank, a scan strategy from a modelled
-# per-iteration cost; the record rides the plan. The port keeps the same
-# records (and so the same `dfa_auto` decisions), though on a CUDA
-# tensor every NFA bank runs the one CUDA kernel whatever its kind or
-# pair flag says: those choices change no bits. The kind "pallas" names
-# the fused-kernel strategy.
+# The JAX package selects, per bank, a scan strategy from a per-iteration
+# cost model; the record rides the plan, and `reselect_scan_strategies`
+# re-selects from measured costs. The port keeps the same records (and so
+# the same decisions). On a CUDA tensor every NFA bank runs the one CUDA
+# kernel whatever the kind says; the pair flag picks its stepping (and
+# the halo rule's base iterations), and `dfa_auto` whether PINGOO_DFA=auto
+# runs the lowered DFA. Every route is exact: the choices change no bits.
+# The kind "pallas" names the fused-kernel strategy, always available
+# here.
 
+# Relative cost of one scan-loop iteration per strategy kind: the JAX
+# package's placeholders, replaced by measured values through
+# `reselect_scan_strategies`.
 DEFAULT_STEP_COSTS = {
     "scan": 1.0,
     "pair": 1.3,
@@ -84,11 +90,21 @@ DEFAULT_STEP_COSTS = {
 DFA_KIND = "dfa"
 
 
+def _kind_cost(c: dict, kind: str, default: float = 1.0) -> float:
+    """The cost of `kind` in a (possibly partial) cost dict, else its
+    DEFAULT_STEP_COSTS entry, else `default`."""
+    v = c.get(kind)
+    if v is None:
+        v = DEFAULT_STEP_COSTS.get(kind, default)
+    return float(v)
+
+
 @dataclass(frozen=True)
 class ScanStrategy:
     """One bank's scan strategy record: kind ("scan" or "pallas"), pair
     stepping, the halo split factor to attempt (halo_k), where the
-    choice came from, and its modelled per-iteration cost."""
+    choice came from ("default", "measured" or "env"), and its modelled
+    per-iteration cost."""
 
     kind: str = "scan"
     pair: bool = False
@@ -122,21 +138,51 @@ class NfaScanPlan:
     dfa_auto: bool = False
 
 
-def select_scan_strategy(tables) -> ScanStrategy:
-    """Cheapest (kind, pair) under the per-iteration cost model; pair
+def select_scan_strategy(tables, costs: dict | None = None,
+                         source: str = "default") -> ScanStrategy:
+    """Cheapest (kind, pair) under a per-iteration cost model; pair
     variants count half the iterations. The fused-kernel kinds are
     always available here (the port always has its kernel)."""
-    c = DEFAULT_STEP_COSTS
-    cands = [("scan", False, c["scan"]), ("scan", True, c["pair"] / 2),
-             ("pallas", False, c["pallas"]),
-             ("pallas", True, c["pallas_pair"] / 2)]
+    c = dict(costs or {})
+    cands = [("scan", False, _kind_cost(c, "scan")),
+             ("scan", True, _kind_cost(c, "pair") / 2),
+             ("pallas", False, _kind_cost(c, "pallas")),
+             ("pallas", True, _kind_cost(c, "pallas_pair") / 2)]
     kind, pair, cost = min(cands, key=lambda x: x[2])
     return ScanStrategy(kind=kind, pair=pair,
-                        halo_k=8 if tables.halo_ok else 1, cost=cost)
+                        halo_k=8 if tables.halo_ok else 1, source=source,
+                        cost=cost)
 
 
-def select_dfa_strategy() -> ScanStrategy:
-    return ScanStrategy(kind=DFA_KIND, cost=DEFAULT_STEP_COSTS[DFA_KIND])
+def select_dfa_strategy(costs: dict | None = None,
+                        source: str = "default") -> ScanStrategy:
+    """The record of a lowered bank's DFA route (one byte per iteration,
+    no pair variant)."""
+    return ScanStrategy(kind=DFA_KIND, pair=False, halo_k=1, source=source,
+                        cost=_kind_cost(costs or {}, DFA_KIND))
+
+
+def reselect_scan_strategies(plan: "RulesetPlan",
+                             costs: dict | None = None,
+                             source: str = "measured") -> None:
+    """Re-run the selection of every bank's records with `costs` (the
+    measured per-iteration costs) and update the plan in place, `dfa_auto`
+    re-ranked against the new non-DFA best. Persist the result with
+    compiler.cache.update_cached_plan."""
+    for key, entry in list(plan.scan_plans.items()):
+        strategy = select_scan_strategy(
+            plan.np_tables[key], costs, source=source)
+        kwargs = {"strategy": strategy}
+        if entry.split:
+            kwargs["short_strategy"] = select_scan_strategy(
+                plan.np_tables[entry.split[0]], costs, source=source)
+            kwargs["rest_strategy"] = select_scan_strategy(
+                plan.np_tables[entry.split[1]], costs, source=source)
+        if entry.dfa_key is not None:
+            dfa_strategy = select_dfa_strategy(costs, source=source)
+            kwargs["dfa_strategy"] = dfa_strategy
+            kwargs["dfa_auto"] = dfa_strategy.cost < strategy.cost
+        plan.scan_plans[key] = dc_replace(entry, **kwargs)
 
 
 def _dfa_lower_enabled() -> bool:
@@ -354,6 +400,12 @@ class RulesetPlan:
     @property
     def host_rules(self) -> list[PlannedRule]:
         return [r for r in self.rules if r.host]
+
+    @property
+    def rule_names(self) -> tuple[str, ...]:
+        """Rule names in their original index order, route pseudo-rules
+        included (hashed into `obs.perf.plan_fingerprint`)."""
+        return tuple(r.name for r in self.rules)
 
 
 def compile_ruleset(

@@ -19,8 +19,10 @@ from .sched import mesh_env_spec
 # (variable, predicate on its value, the ROADMAP.md port-queue item). Each
 # raises only where its value asks for its feature.
 # The scheduler's knobs (PINGOO_SCHED_MODE, PINGOO_SCHED_FAILOPEN,
-# PINGOO_DEADLINE_MS, PINGOO_SCHED_SEED_MS, PINGOO_MEGASTEP=auto) and
-# PINGOO_CHAOS are read as the JAX package reads them (sched/scheduler.py,
+# PINGOO_DEADLINE_MS, PINGOO_SCHED_SEED_MS, PINGOO_MEGASTEP=auto), the
+# ledgers' (PINGOO_COST_LEDGER, on by default; PINGOO_PERF_LEDGER,
+# PINGOO_PERF_LEDGER_N and PINGOO_COMPILE_SURFACE) and PINGOO_CHAOS are
+# read as the JAX package reads them (sched/scheduler.py, obs/perf.py,
 # obs/chaos.py).
 # Three knobs of the JAX package are not here: PINGOO_NFA_LOOKUP,
 # PINGOO_DFA_KERNEL and PINGOO_PREFILTER_KERNEL choose among its JAX
@@ -32,18 +34,6 @@ _UNPORTED = (
     # The JAX package's lane and row packing of lax.scan banks.
     ("PINGOO_SCAN_PACK", lambda v: v not in ("", "field"),
      "section 2, kernel work item 1, lane packing"),
-    # The durable cost ledger: empty, 0 and off disable it (the JAX
-    # package's default is on).
-    ("PINGOO_COST_LEDGER",
-     lambda v: v.strip().lower() not in ("", "0", "off"),
-     "port queue item 10, the cost ledger"),
-    # The compile ledger: empty, 0, off and false disable it (the JAX
-    # package's default), as does an empty surface file.
-    ("PINGOO_PERF_LEDGER",
-     lambda v: v.strip().lower() not in ("", "0", "off", "false"),
-     "port queue item 10, the compile ledger"),
-    ("PINGOO_COMPILE_SURFACE", lambda v: bool(v),
-     "port queue item 10, the compile ledger"),
     # Provenance: the JAX package's default is on; the port has none, so
     # only unset or 0 passes.
     ("PINGOO_PROVENANCE", lambda v: v not in ("", "0"),

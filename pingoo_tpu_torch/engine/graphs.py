@@ -54,6 +54,10 @@ hundreds of kernel launches cost the host one call.
   * A replay launches no Python launcher, so the kernels' launch counts
     (ops/_build.py) get, at each replay, the launches the capture
     recorded.
+  * A capture is a compile: a program wrapped by
+    `obs/perf.instrument_megastep` notes each in the compile ledger
+    (`megastep`, cold for the runner's first), its wall from the start
+    of the warm-up run to the end of the first replay.
 
 A capture, replay or launch failure raises to the plane, whose
 degradation ladder demotes its megastep rung (engine/ladder.py); a
@@ -196,9 +200,14 @@ class MegastepRunner:
         if len(self._graphs) > self.MAX_GRAPHS:
             self._graphs.popitem(last=False)
             self.evictions += 1
+        ms = (time.monotonic() - t0) * 1e3
+        # An instrumented program (obs/perf.instrument_megastep) puts the
+        # capture in the compile ledger; a plain one has no such hook.
+        note = getattr(self.program, "note_capture", None)
+        if note is not None:
+            note(key, ms, cold=self.captures == 0)
         self.captures += 1
         self.keys.add(key)
-        ms = (time.monotonic() - t0) * 1e3
         self.capture_ms_total += ms
         self.capture_ms_max = max(self.capture_ms_max, ms)
         return entry

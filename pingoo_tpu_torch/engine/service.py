@@ -94,6 +94,14 @@ REGISTRY by default) carries the JAX package's instruments of the
 Python plane: the wait and stage histograms, the prefilter, DFA and
 staged-bytes counters, the staging caps, and those of the scheduler,
 the ladder and the executor.
+
+The ledgers (obs/perf.py, sched/scheduler.py): the verdict program and
+the megastep's runner are instrumented for the compile ledger (nvcc
+builds and graph captures; unwrapped while PINGOO_PERF_LEDGER is off),
+and the scheduler's cost model reloads the durable cost ledger at
+construction (`cost_ledger_result`) and saves it at `stop()`
+(`persist_cost_ledger`), keyed by the backend (`cuda` or `cpu`) and the
+boot plan's fingerprint.
 """
 
 from __future__ import annotations
@@ -111,6 +119,9 @@ import numpy as np
 from ..compiler.plan import RulesetPlan
 from ..device import check_env, pipeline_depth, pipeline_mode, resolve_device
 from ..models import botscore
+from ..obs.perf import (batch_leading_dim, instrument_jit,
+                        instrument_megastep, plan_fingerprint,
+                        set_dispatch_context, staging_widths)
 from ..obs.pipeline import PipelineStats
 from ..obs.registry import LATENCY_BUCKETS_MS, WAIT_BUCKETS_MS
 from ..obs.schema import (DFA_METRICS, PREFILTER_METRICS,
@@ -118,6 +129,7 @@ from ..obs.schema import (DFA_METRICS, PREFILTER_METRICS,
                           VERDICT_STAGES)
 from ..ops._build import never_demoted
 from ..sched import Scheduler, SchedulerConfig
+from ..sched.scheduler import load_cost_ledger, save_cost_ledger
 from ..obs.trace import tuple_digest
 from ..obs.window import WINDOW, TimingWindow
 from .batch import (DeviceInputQueue, RequestBatch, RequestTuple,
@@ -414,6 +426,16 @@ class VerdictService:
         self.registry = registry
         self.sched = Scheduler(SchedulerConfig.from_env(max_batch),
                                plane="python", registry=registry)
+        # The durable cost ledger: the cost model reloads what the last
+        # run of this backend, plane and plan measured, over the seed.
+        # The fingerprint stays the boot plan's across swaps, as in the
+        # JAX package. (The compile ledger's series are made with the
+        # programs, in `_build_engine_state`.)
+        self._plan_fp = plan_fingerprint(plan)
+        self._backend_label = self.device.type
+        self.cost_ledger_result = load_cost_ledger(
+            self.sched.cost, backend=self._backend_label,
+            fingerprint=self._plan_fp, plane="python", registry=registry)
         self.ladder = DegradationLadder("python", registry=registry)
         self._dfa_rung = DfaRung(self.ladder, plan)
         self.stats = ServiceStats(self.WINDOW,
@@ -479,8 +501,11 @@ class VerdictService:
         if plan.device.type != self.device.type:
             raise ValueError(f"plan tables live on {plan.device}, the "
                              f"service runs on {self.device}")
+        fp, widths = plan_fingerprint(plan), staging_widths(plan)
         state = {"plan": plan,
-                 "verdict_fn": make_verdict_program(plan),
+                 "verdict_fn": instrument_jit(
+                     make_verdict_program(plan), "verdict", plane="python",
+                     fingerprint=fp, widths=widths, registry=self.registry),
                  "pf_gated_banks": len(prefilter_aux_banks(plan)[0]),
                  "aux_len": prefilter_aux_len(plan),
                  "stage_caps": None, "staging": None, "mega_runner": None,
@@ -499,8 +524,10 @@ class VerdictService:
                                                                   caps))
         if self._mega_mode != "off":
             state["mega_runner"] = MegastepRunner(
-                make_megastep_fn(plan, kind="matrix"), plan.np_tables,
-                plan.device)
+                instrument_megastep(
+                    make_megastep_fn(plan, kind="matrix"), plane="python",
+                    fingerprint=fp, registry=self.registry),
+                plan.np_tables, plan.device)
             state["mega_queue"] = DeviceInputQueue(
                 self._mega_rungs[-1], self.max_batch,
                 field_specs=plan.field_specs, nbuf=2)
@@ -578,6 +605,16 @@ class VerdictService:
                 item.fut.set_exception(RuntimeError(
                     "the service stopped before the swap's flip"))
         self.ensure_trace_stopped()
+        self.persist_cost_ledger()
+
+    def persist_cost_ledger(self) -> bool:
+        """Save the scheduler's CostModel into the durable cost ledger
+        (PINGOO_COST_LEDGER). Idempotent, so the SIGTERM drain may call
+        it after a graceful stop ran out of time; False when the ledger
+        is off or its file cannot be written."""
+        return save_cost_ledger(
+            self.sched.cost, backend=self._backend_label,
+            fingerprint=self._plan_fp, plane="python")
 
     # -- torch.profiler windows: PINGOO_PROFILE_DIR traces start() to
     # stop(), capture_profile() a bounded window; one at a time, each
@@ -1251,6 +1288,7 @@ class VerdictService:
             dev, echo, slices, aux = self._issue_megastep(
                 fast, n, k, state["mega_runner"], state["mega_queue"], epoch)
             return dev, echo, scores, slices, aux, None
+        set_dispatch_context(batch=batch_leading_dim(fast.arrays))
         out, aux, stage_a_ms = state["verdict_fn"](state["plan"].np_tables,
                                                    arrays)
         return (to_host_async(out), None, scores, None,

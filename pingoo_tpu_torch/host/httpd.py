@@ -34,7 +34,8 @@ features the port does not have:
     `stats.snapshot()` and `pipeline_snapshot()`) under
     `Accept: application/json`; the listener's counts reach the
     registry through a collector (`_export_metrics`, unregistered by
-    `close()`). The flight-recorder, compile-ledger and timeline routes
+    `close()`). /__pingoo/compileledger dumps the process's compile
+    ledger (obs/perf.py). The flight-recorder and timeline routes
     answer 501 (ROADMAP.md item 10, slice 3);
   * /__pingoo/profile opens a torch.profiler window
     (`VerdictService.capture_profile`).
@@ -853,8 +854,10 @@ class HttpListener:
         if req.path == "/__pingoo/profile":
             return await self._profile_response(req)
 
-        if req.path in ("/__pingoo/flightrecorder",
-                        "/__pingoo/compileledger", "/__pingoo/timeline"):
+        if req.path == "/__pingoo/compileledger":
+            return self._compileledger_response()
+
+        if req.path in ("/__pingoo/flightrecorder", "/__pingoo/timeline"):
             return not_ported_response(req.path)
 
         if req.path == "/__pingoo/explain":
@@ -958,6 +961,14 @@ class HttpListener:
             if name.lower() == "accept":
                 return "application/json" in value.lower()
         return False
+
+    def _compileledger_response(self) -> Response:
+        """The process's compile ledger (obs/perf.py): every nvcc build
+        and graph capture it paid, with its fn, kind, shape and wall."""
+        from ..obs.perf import get_compile_ledger
+
+        return Response(200, [("content-type", "application/json")],
+                        json.dumps(get_compile_ledger().snapshot()).encode())
 
     def _metrics_response(self, req: Request) -> Response:
         """Content-negotiated exposition: the registry's Prometheus text

@@ -237,8 +237,10 @@ async def run(config: Config, **kwargs) -> None:
         pass
     finally:
         # The drain must write out a live torch.profiler trace even when
-        # stop() hit the 20 s cap mid-way: it is buffered in memory.
-        # (The JAX package also persists its scheduler's cost ledger and
-        # dumps its flight recorders here: ROADMAP.md item 10.)
+        # stop() hit the 20 s cap mid-way: it is buffered in memory; and
+        # persist the scheduler's cost ledger, which stop() may not have
+        # reached. (The JAX package also dumps its flight recorders here:
+        # ROADMAP.md item 10, slice 3.)
         if server.verdict is not None:
             server.verdict.ensure_trace_stopped()
+            server.verdict.persist_cost_ledger()

@@ -78,6 +78,8 @@ from .engine.verdict import (LANE_NONE, _host_array, _resolve_megastep_mode,
                              to_host_async)
 from .expr import execute_as_bool
 from .obs.chaos import ChaosInjector
+from .obs.perf import (get_compile_ledger, instrument_megastep,
+                       plan_fingerprint, record_build, staging_widths)
 from .obs.pipeline import PipelineStats
 from .obs.schema import (DFA_METRICS, PREFILTER_METRICS, RESILIENCE_METRICS,
                          RING_METRICS, SHARED_WAIT_HISTOGRAM,
@@ -86,6 +88,7 @@ from .obs.window import WINDOW, TimingWindow
 from .ops import _build
 from .ops._build import never_demoted
 from .sched import Scheduler, SchedulerConfig
+from .sched.scheduler import load_cost_ledger, save_cost_ledger
 
 PKG_DIR = Path(__file__).resolve().parent
 NATIVE_DIR = PKG_DIR / "native"
@@ -848,6 +851,12 @@ class RingSidecar:
     collector is unregistered first thing in `stop()`, before any caller
     can unmap a ring.
 
+    The ledgers, as on the Python plane: the lane programs and the
+    megastep's runner are instrumented for the compile ledger
+    (obs/perf.py), and the cost model reloads the durable cost ledger at
+    construction (`cost_ledger_result`, entry `<cuda|cpu>|sidecar`) and
+    saves it at the end of `stop()`.
+
     `device=None` means the CUDA card (raises without one). Orphans of
     an earlier sidecar and rows whose url/path went past the slot caps
     are evaluated by the interpreter over their full strings.
@@ -905,6 +914,16 @@ class RingSidecar:
         self._init_metrics(registry)
         self.sched = Scheduler(SchedulerConfig.from_env(max_batch),
                                plane="sidecar", registry=registry)
+        # The durable cost ledger, as on the Python plane (the
+        # fingerprint is the boot plan's).
+        self._plan_fp = plan_fingerprint(plan)
+        self._backend_label = self._device.type
+        self.cost_ledger_result = load_cost_ledger(
+            self.sched.cost, backend=self._backend_label,
+            fingerprint=self._plan_fp, plane="sidecar", registry=registry)
+        # The compile series at zero: the sidecar's only compiles are its
+        # kernels' build below and its megastep's graph captures.
+        get_compile_ledger().ensure_instruments("sidecar", registry)
         self.ladder = DegradationLadder("sidecar", registry=registry)
         self._dfa_rung = DfaRung(self.ladder, plan)
         self.chaos = ChaosInjector.from_env()
@@ -988,7 +1007,10 @@ class RingSidecar:
             self.stage_ms["body"] = TimingWindow(self.WINDOW)
         if dev.type == "cuda":
             # A first-use kernel build takes seconds: never in a batch.
-            _build.build()
+            # One that ran nvcc is the lane program's cold compile.
+            record_build(_build.build, plane="sidecar", fn="lanes",
+                         fingerprint=self._plan_fp,
+                         widths=staging_widths(plan), registry=registry)
         # Bump each ring's epoch, then answer what the previous epoch
         # dequeued and never answered, before the drain loop starts.
         self.reconciled = {"reeval": 0, "failopen": 0}
@@ -1118,8 +1140,11 @@ class RingSidecar:
         slot_caps = dict(FIELD_CAPS, country=2)
         if self._mega_mode != "off":
             state["mega_runner"] = MegastepRunner(
-                make_megastep_fn(plan, kind="lanes",
-                                 service_groups=self._groups),
+                instrument_megastep(
+                    make_megastep_fn(plan, kind="lanes",
+                                     service_groups=self._groups),
+                    plane="sidecar", fingerprint=plan_fingerprint(plan),
+                    registry=self._registry),
                 plan.np_tables, plan.device)
             state["mega_queue"] = DeviceInputQueue(
                 self._mega_k, self.max_batch, field_specs=slot_caps,
@@ -2347,7 +2372,8 @@ class RingSidecar:
         called from another thread): only then may the caller close the
         rings, which the loop may be inside. The registry's collector is
         detached first, so that no scrape reads a ring the caller unmaps
-        next."""
+        next, and the cost model is saved to the durable cost ledger
+        last (PINGOO_COST_LEDGER)."""
         self._collector_live = False
         self._registry.unregister_collector(self._export_ring_telemetry)
         if self.body_scanner is not None:
@@ -2357,6 +2383,11 @@ class RingSidecar:
             if t is not None and t.is_alive() \
                     and t is not threading.current_thread():
                 t.join(timeout=join_timeout_s)
+        # The durable cost ledger: this run's costs for the next boot,
+        # saved once the loop no longer updates them (an unwritable file
+        # makes it return False).
+        save_cost_ledger(self.sched.cost, backend=self._backend_label,
+                         fingerprint=self._plan_fp, plane="sidecar")
 
 
 # -- the services table -------------------------------------------------------

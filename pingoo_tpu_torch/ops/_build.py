@@ -8,6 +8,10 @@ named by a hash of the source and flags, so an edited source rebuilds
 and an unchanged one is loaded as it is. The libraries are loaded with
 `ctypes`: every pointer and the stream travel as `c_void_p`.
 
+A build that runs (not a hit in `_build/`) is a compile for the compile
+ledger (obs/perf.py): it is counted on the building thread, where the
+served program that needed it notes the event.
+
 Nothing here runs at import time, so the package imports on a host with
 no nvcc and no card. A build or launch failure raises; there is no
 fallback to the plain versions on a CUDA tensor.
@@ -147,6 +151,11 @@ def build(names=None, verbose: bool = False) -> dict[str, float]:
     if errors:
         raise KernelBuildError("CUDA kernel build failed:\n"
                                + "\n".join(errors))
+    # A build that ran is a compile: the instrumented program on this
+    # thread, if any, notes it in the compile ledger (obs/perf.py).
+    from ..obs.perf import note_build
+
+    note_build()
     return took
 
 

@@ -25,10 +25,15 @@ The policy is pure float math on the host: it reads no tensor and never
 waits for the device. The counters live in `Scheduler.snapshot()` and
 in the JAX package's `pingoo_sched_*` instruments and
 `pingoo_mesh_devices` (1: one card) on the metric registry
-(`SchedMetrics`); the durable cost ledger and its reload counter are not
-ported yet (ROADMAP.md, port queue item 10, slice 2).
+(`SchedMetrics`).
 Unlike the JAX package, the cost model is not seeded from a bench
-history: `PINGOO_SCHED_SEED_MS`, else `DEFAULT_SEED_MS`.
+history: `PINGOO_SCHED_SEED_MS`, else `DEFAULT_SEED_MS`. A plane then
+reloads the durable cost ledger (`load_cost_ledger`, PINGOO_COST_LEDGER,
+on by default as in the JAX package): the `CostModel` snapshot the last
+run of the same backend, plane and plan saved at its drain
+(`save_cost_ledger`), which overwrites the seed. The file format is the
+JAX package's; the port's backend label is `cuda` on the card and `cpu`
+when the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import os
 from dataclasses import dataclass
 from typing import Optional
 
-from ..obs.schema import SCHED_METRICS
+from ..obs.schema import PERF_METRICS, SCHED_METRICS
 
 # The pow2 launch-size ladder of `pingoo_sched_batch_size`'s buckets.
 BATCH_SIZE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024,
@@ -321,6 +326,128 @@ class CostModel:
                 self._dispatch_bytes_ewma = disp
                 restored = True
         return restored
+
+
+# -- the durable cost ledger ------------------------------------------------
+#
+# CostModel snapshots, saved at a plane's drain and reloaded at its boot,
+# keyed by "<backend>|<plane>" and versioned by the plan's fingerprint
+# (obs/perf.plan_fingerprint): a reload only ever restores costs measured
+# on the same backend under the same plan.
+
+COST_LEDGER_VERSION = 1
+DEFAULT_COST_LEDGER = "COST_LEDGER.json"
+
+
+def cost_ledger_path() -> Optional[str]:
+    """PINGOO_COST_LEDGER: unset or empty -> the default path (on by
+    default: it is boot- and drain-time IO only); `0`/`off` -> disabled;
+    anything else is the path."""
+    raw = os.environ.get("PINGOO_COST_LEDGER", "").strip()
+    if raw.lower() in ("0", "off", "false", "none"):
+        return None
+    if not raw or raw.lower() in ("1", "on", "true"):
+        return DEFAULT_COST_LEDGER
+    return raw
+
+
+def _reload_counter(plane: str, result: str, registry=None):
+    """`pingoo_costmodel_reload_total{plane,result}`."""
+    if registry is None:
+        from ..obs.registry import REGISTRY as registry  # noqa: N813
+    return registry.counter(
+        "pingoo_costmodel_reload_total",
+        PERF_METRICS["pingoo_costmodel_reload_total"],
+        labels={"plane": plane, "result": result})
+
+
+def load_cost_ledger(cost: CostModel, *, backend: str, fingerprint: str,
+                     plane: str, path: Optional[str] = None,
+                     registry=None) -> str:
+    """Boot-time reload of this plane's saved CostModel snapshot. Returns
+    the result it counted: `ok` (restored), `stale` (another version or
+    plan fingerprint: discarded), `missing` (no file, or no entry for
+    this backend and plane), `error` (unreadable), or `disabled` (gated
+    off; nothing counted)."""
+    import json
+
+    if path is None:
+        path = cost_ledger_path()
+    if path is None:
+        return "disabled"
+    # Every result's series exists from boot, whichever fires.
+    for result in ("ok", "stale", "missing", "error"):
+        _reload_counter(plane, result, registry)
+    try:
+        if not os.path.exists(path):
+            _reload_counter(plane, "missing", registry).inc()
+            return "missing"
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        _reload_counter(plane, "error", registry).inc()
+        return "error"
+    if not isinstance(doc, dict) \
+            or doc.get("version") != COST_LEDGER_VERSION:
+        _reload_counter(plane, "stale", registry).inc()
+        return "stale"
+    entry = (doc.get("entries") or {}).get(f"{backend}|{plane}")
+    if not isinstance(entry, dict):
+        _reload_counter(plane, "missing", registry).inc()
+        return "missing"
+    if entry.get("fingerprint") != fingerprint:
+        _reload_counter(plane, "stale", registry).inc()
+        return "stale"
+    if not cost.restore(entry.get("cost") or {}):
+        _reload_counter(plane, "error", registry).inc()
+        return "error"
+    _reload_counter(plane, "ok", registry).inc()
+    return "ok"
+
+
+def save_cost_ledger(cost: CostModel, *, backend: str, fingerprint: str,
+                     plane: str, path: Optional[str] = None) -> bool:
+    """Drain-time save of this plane's CostModel snapshot: read, merge
+    (other backend|plane entries stay), write atomically through a
+    temporary file and a rename. False when the ledger is off or the
+    file cannot be written (an OSError), so a full disk never blocks
+    shutdown."""
+    import json
+    import time
+
+    if path is None:
+        path = cost_ledger_path()
+    if path is None:
+        return False
+    doc: dict = {"version": COST_LEDGER_VERSION, "entries": {}}
+    try:
+        with open(path) as f:
+            prior = json.load(f)
+        if isinstance(prior, dict) \
+                and prior.get("version") == COST_LEDGER_VERSION \
+                and isinstance(prior.get("entries"), dict):
+            doc["entries"] = prior["entries"]
+    except (OSError, ValueError):
+        pass
+    doc["entries"][f"{backend}|{plane}"] = {
+        "ts": round(time.time(), 3),
+        "backend": backend,
+        "plane": plane,
+        "fingerprint": fingerprint,
+        "cost": cost.snapshot(),
+    }
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+        return True
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        return False
 
 
 class SchedMetrics:

@@ -27,6 +27,7 @@ from pingoo_tpu.engine import bodyscan as ref_bs
 from pingoo_tpu.utils.crs import generate_ruleset as ref_generate_ruleset
 from pingoo_tpu_torch import native_ring as nr
 from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

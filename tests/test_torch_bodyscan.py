@@ -35,6 +35,7 @@ from pingoo_tpu_torch.compiler.plan import compile_ruleset
 from pingoo_tpu_torch.engine import bodyscan as bs
 from pingoo_tpu_torch.utils.crs import (LFI_RCE_CORES, SQLI_CORES, XSS_CORES,
                                         generate_ruleset, generate_traffic)
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

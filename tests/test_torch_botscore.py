@@ -43,6 +43,7 @@ from pingoo_tpu_torch.engine.batch import (RequestTuple, batch_tensors,
 from pingoo_tpu_torch.engine.service import VerdictService
 from pingoo_tpu_torch.expr import compile_expression
 from pingoo_tpu_torch.models import botscore
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -42,6 +42,7 @@ from pingoo_tpu_torch.utils.crs import (deployment, generate_ruleset,
                                         generate_traffic)
 from test_torch_config import plain
 from test_torch_tables import assert_same_arrays, ref_arrays, ref_meta
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -58,6 +58,7 @@ from pingoo_tpu_torch.engine.service import VerdictService
 from pingoo_tpu_torch.expr import compile_expression, execute_as_bool
 from pingoo_tpu_torch.ops import nfa_scan
 from pingoo_tpu_torch.utils.crs import generate_ruleset
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from pingoo_tpu_torch.host import h2 as h2mod
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 pytestmark = pytest.mark.skipif(not h2mod.available(),
                                 reason="libnghttp2 unavailable")

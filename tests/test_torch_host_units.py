@@ -39,6 +39,7 @@ from pingoo_tpu_torch.host.tlsmgr import (TlsManager, cert_sans,
                                           generate_self_signed)
 
 import test_host_units as ref_units
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -38,6 +38,7 @@ from pingoo_tpu_torch.engine.batch import RequestTuple
 from pingoo_tpu_torch.engine.hotswap import TenantPlanStore
 from pingoo_tpu_torch.engine.service import VerdictService
 from pingoo_tpu_torch.expr import compile_expression
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 CLEARED_ENV = ("PINGOO_CHAOS", "PINGOO_DFA", "PINGOO_PREFILTER", "PINGOO_MESH",
                "PINGOO_SCHED_MODE", "PINGOO_PARITY_SAMPLE", "PINGOO_PIPELINE",

@@ -35,6 +35,7 @@ from pingoo_tpu_torch.compiler.plan import compile_ruleset, \
 from pingoo_tpu_torch.engine.service import VerdictService
 from pingoo_tpu_torch.ops import _build
 from pingoo_tpu_torch.utils.crs import generate_ruleset
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -297,14 +298,10 @@ def test_entry_points_raise_without_a_card(no_card):
     ("PINGOO_MESH", "2x1x1"),
     ("PINGOO_SCAN_PACK", "length"),
     ("PINGOO_SCAN_PACK", "batch"),
-    ("PINGOO_COST_LEDGER", "COST_LEDGER.json"),
     # Observability knobs of later slices of port queue item 10.
     ("PINGOO_PROVENANCE", "1"),
     ("PINGOO_PARITY_SAMPLE", "0.5"),
     ("PINGOO_PARITY_FAULT_INJECT", "rule_"),
-    ("PINGOO_PERF_LEDGER", "on"),
-    ("PINGOO_PERF_LEDGER", "perf.jsonl"),
-    ("PINGOO_COMPILE_SURFACE", "COMPILE_SURFACE.json"),
     ("PINGOO_TIMELINE_SAMPLE", "0.01"),
     ("PINGOO_FLIGHT_DUMP_DIR", "flight"),
 ])
@@ -324,12 +321,9 @@ def test_unported_knobs_raise(monkeypatch, name, value):
     ("PINGOO_SCAN_PACK", "fill", "kernel work item 1, lane packing"),
     ("PINGOO_MESH", "2x1x1", "item 9b, the mesh"),
     ("PINGOO_MESH", "1x2x1", "item 9b, the mesh"),
-    ("PINGOO_COST_LEDGER", "on", "item 10, the cost ledger"),
     ("PINGOO_PROVENANCE", "on", "item 10, provenance"),
     ("PINGOO_PARITY_SAMPLE", "1", "item 10, parity sampling"),
     ("PINGOO_PARITY_FAULT_INJECT", "x", "item 10, parity sampling"),
-    ("PINGOO_PERF_LEDGER", "1", "item 10, the compile ledger"),
-    ("PINGOO_COMPILE_SURFACE", "s.json", "item 10, the compile ledger"),
     ("PINGOO_TIMELINE_SAMPLE", "1", "item 10, the timeline"),
     ("PINGOO_FLIGHT_DUMP_DIR", "/d", "item 10, the flight recorder"),
 ])
@@ -383,6 +377,13 @@ def test_unported_knobs_name_their_item(monkeypatch, name, value, item):
     ("PINGOO_PROVENANCE", "0"), ("PINGOO_PROVENANCE", None),
     ("PINGOO_PARITY_SAMPLE", "0"), ("PINGOO_TIMELINE_SAMPLE", "0"),
     ("PINGOO_PERF_LEDGER", "off"), ("PINGOO_PERF_LEDGER", "0"),
+    # The compile ledger and the durable cost ledger (item 10, slice 2,
+    # ported): the values that raised before.
+    ("PINGOO_COST_LEDGER", "COST_LEDGER.json"), ("PINGOO_COST_LEDGER", "on"),
+    ("PINGOO_PERF_LEDGER", "on"), ("PINGOO_PERF_LEDGER", "perf.jsonl"),
+    ("PINGOO_PERF_LEDGER", "1"),
+    ("PINGOO_COMPILE_SURFACE", "COMPILE_SURFACE.json"),
+    ("PINGOO_COMPILE_SURFACE", "s.json"),
 ])
 def test_ported_knob_values_pass(monkeypatch, name, value):
     if value is None:

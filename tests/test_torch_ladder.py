@@ -51,6 +51,7 @@ from pingoo_tpu_torch.engine import service as service_mod
 from pingoo_tpu_torch.engine import verdict as verdict_mod
 from pingoo_tpu_torch.ops._build import DeviceFault, KernelBuildError
 from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -6,8 +6,9 @@
     pong upstream, and its `HttpListener` for the XFF-token cases. The
     port's own decisions: the metrics route serves Prometheus text that
     lints clean, and its JSON payload under `Accept: application/json`;
-    the flight recorder, compile ledger and timeline routes answer 501
-    (ROADMAP item 10's later slices); /__pingoo/profile opens a
+    /__pingoo/compileledger dumps the compile ledger with the JAX
+    package's keys; the flight recorder and timeline routes answer 501
+    (ROADMAP item 10, slice 3); /__pingoo/profile opens a
     torch.profiler window.
   * Cross-package parity: the same raw requests to the JAX package's
     `Server(use_device=True)` (its CPU backend, as its own test runs it)
@@ -38,6 +39,7 @@ import torch
 
 from pingoo_tpu_torch.config import load_and_validate
 from pingoo_tpu_torch.host.server import Server
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -291,12 +293,26 @@ class TestEndToEnd:
         assert 'pingoo_requests_total{listener="' in text
         assert 'pingoo_verdict_wait_ms_bucket{le="+Inf",plane="python"}' \
             in text
-        for path in ("/__pingoo/flightrecorder",
-                     "/__pingoo/compileledger", "/__pingoo/timeline"):
+        for path in ("/__pingoo/flightrecorder", "/__pingoo/timeline"):
             status, headers, body = env.run(http_get(env.port, path))
             assert status == 501, path
             assert headers["content-type"] == "application/json"
             assert "item 10" in json.loads(body)["error"]
+
+    def test_compileledger_endpoint(self, env):
+        """The process's compile ledger, with the JAX package's keys."""
+        from pingoo_tpu.obs.perf import CompileLedger as RefLedger
+        from pingoo_tpu_torch.obs.perf import get_compile_ledger
+
+        status, headers, body = env.run(http_get(env.port,
+                                                 "/__pingoo/compileledger"))
+        assert status == 200
+        assert headers["content-type"] == "application/json"
+        payload = json.loads(body)
+        want = get_compile_ledger().snapshot()
+        assert set(payload) == set(want) == set(RefLedger().snapshot())
+        assert payload["enabled"] is False and payload["path"] is None
+        assert payload["compiles_total"] == len(payload["events"])
 
     def test_trace_id_header_and_sampled_access_log(self, env, caplog):
         import logging
@@ -679,7 +695,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_python_m_serves_and_drains_on_sigterm(loop_runner, tmp_path):
+def test_python_m_serves_and_drains_on_sigterm(loop_runner, tmp_path,
+                                               cost_ledger_per_test):
     async def boot_pong():
         return await start_pong()
 
@@ -718,6 +735,12 @@ def test_python_m_serves_and_drains_on_sigterm(loop_runner, tmp_path):
     assert captcha[0] == 403 and b"human" in captcha[2]
     assert proxied[0] == 200 and b"pong: GET /api/hello" in proxied[2]
     assert rc == 0, proc.stderr.read()[-3000:]
+    # The drain saved the Python plane's cost model where
+    # PINGOO_COST_LEDGER points (under tmp_path), and nothing in its
+    # working directory.
+    ledger = json.loads(cost_ledger_per_test.read_text())
+    assert set(ledger["entries"]) == {"cpu|python"}
+    assert not (tmp_path / "COST_LEDGER.json").exists()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

@@ -71,6 +71,7 @@ from pingoo_tpu_torch.ops import _build
 from pingoo_tpu_torch.utils.crs import generate_ruleset
 from test_parity import (ACTIONS, HOST_FALLBACK_SOURCES, LISTS, RULE_SOURCES,
                          random_requests)
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

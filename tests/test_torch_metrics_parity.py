@@ -15,6 +15,8 @@
     wait-histogram counts. The JAX package's instruments live on its
     process-wide REGISTRY, so its side is read as deltas; the port's
     service gets a registry of its own.
+  * Both planes' boot inventories of the compile ledger's and the cost
+    ledger's series (names, label sets, values) are the JAX package's.
   * The megastep's Stage-A aux output: each slice's row is the
     per-batch aux vector of that slice's rows, so summed over the
     slices it is the per-batch vectors' sum, and its candidate lanes
@@ -48,6 +50,7 @@ from pingoo_tpu_torch.host.httpd import HttpListener, Request
 from pingoo_tpu_torch.obs import schema
 from pingoo_tpu_torch.obs.registry import MetricRegistry, lint_prometheus_text
 from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -212,6 +215,8 @@ def test_python_plane_counts_equal_the_jax_packages(
         monkeypatch.delenv(name, raising=False)
     for name, value in {**ENV, "PINGOO_PREFILTER": pf_mode}.items():
         monkeypatch.setenv(name, value)
+    # Both packages' cost ledgers under tmp_path, never at the repo root.
+    monkeypatch.setenv("PINGOO_COST_LEDGER", str(tmp_path / "costs.json"))
     rules, lists = generate_ruleset(N_RULES, seed=seed, list_sizes=(64, 16))
     ref_rules, ref_lists = ref_generate_ruleset(N_RULES, seed=seed,
                                                 list_sizes=(64, 16))
@@ -268,6 +273,68 @@ def test_python_plane_counts_equal_the_jax_packages(
     assert s1["scan_banks_skipped"] and s1["dfa_banks"]
     assert delta(m1, m0, "pingoo_staged_bytes_total",
                  "mode=full,plane=python") > 0
+    assert lint_prometheus_text(registry.prometheus_text()) == []
+
+
+# -- the ledgers' boot inventory ----------------------------------------------
+
+LEDGER_SERIES = ("pingoo_compile_total", "pingoo_compile_ms",
+                 "pingoo_compile_unexpected_total",
+                 "pingoo_costmodel_reload_total")
+
+
+def ledger_series(snap, plane):
+    """{(metric, label key): value} of the ledgers' series of `plane` in
+    a registry's JSON snapshot (a histogram by its count)."""
+    out = {}
+    for name in LEDGER_SERIES:
+        for key, v in snap.get(name, {}).items():
+            if f"plane={plane}" in key.split(","):
+                out[(name, key)] = v["count"] if isinstance(v, dict) else v
+    return out
+
+
+@pytest.mark.parametrize("plane", ["python", "sidecar"])
+def test_ledgers_boot_inventory_equals_the_jax_packages(plane, monkeypatch,
+                                                        tmp_path):
+    """A plane's boot creates the compile ledger's series (every fn and
+    kind, at zero) and the cost ledger's reload series (one count of
+    `missing` here), with the JAX package's names, labels and values."""
+    for name in CLEAR:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("PINGOO_PROVENANCE", "0")
+    monkeypatch.setenv("PINGOO_COST_LEDGER", str(tmp_path / "none.json"))
+    rules, lists = generate_ruleset(N_RULES, seed=7, list_sizes=(64, 16))
+    ref_rules, ref_lists = ref_generate_ruleset(N_RULES, seed=7,
+                                                list_sizes=(64, 16))
+    plan = compile_ruleset(rules, lists, device="cpu")
+    ref_plan = ref_compile(ref_rules, ref_lists)
+    registry = MetricRegistry()
+    before = ledger_series(REF_REGISTRY.json_snapshot(), plane)
+    if plane == "python":
+        VerdictService(plan, lists, device="cpu", registry=registry)
+        RefService(ref_plan, ref_lists, use_device=False)
+    else:
+        from pingoo_tpu import native_ring as ref_nr
+        from pingoo_tpu_torch import native_ring as nr
+
+        rings = [nr.Ring(str(tmp_path / "port"), capacity=64, create=True),
+                 ref_nr.Ring(str(tmp_path / "ref"), capacity=64,
+                             create=True)]
+        try:
+            nr.RingSidecar(rings[0], plan, lists, device="cpu",
+                           registry=registry)
+            ref_nr.RingSidecar(rings[1], ref_plan, ref_lists)
+        finally:
+            for ring in rings:
+                ring.close()
+    got = ledger_series(registry.json_snapshot(), plane)
+    after = ledger_series(REF_REGISTRY.json_snapshot(), plane)
+    assert got == {k: v - before.get(k, 0) for k, v in after.items()}
+    assert sorted(v for v in got.values()) == [0] * (len(got) - 1) + [1]
+    assert got[("pingoo_costmodel_reload_total",
+                f"plane={plane},result=missing")] == 1
+    assert len(got) == 5 * 2 + 5 + 4
     assert lint_prometheus_text(registry.prometheus_text()) == []
 
 

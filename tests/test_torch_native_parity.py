@@ -46,6 +46,7 @@ import torch
 
 from pingoo_tpu import native_ring as ref_nr
 from pingoo_tpu_torch import native_ring as nr
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -39,6 +39,7 @@ import torch
 from pingoo_tpu import native_ring as ref_native_ring
 from pingoo_tpu_torch import native_ring
 from pingoo_tpu_torch.native_ring import Ring, RingSidecar
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -30,6 +30,7 @@ from pingoo_tpu_torch.obs.registry import (
     MetricRegistry,
     lint_prometheus_text,
 )
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 PKG = Path(__file__).resolve().parent.parent / "pingoo_tpu_torch"
 

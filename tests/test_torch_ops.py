@@ -44,6 +44,7 @@ from pingoo_tpu_torch.ops import bitsplit_dfa as dfa
 from pingoo_tpu_torch.ops import cidr, match_ops, nfa_scan
 from pingoo_tpu_torch.ops import prefilter as pf
 from pingoo_tpu_torch.ops import window_match
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -51,6 +51,7 @@ from pingoo_tpu_torch.engine.service import VerdictService
 from pingoo_tpu_torch.obs.pipeline import PIPELINE_EXEC_STAGES, PipelineStats
 from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
 from test_parity import random_requests
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -44,6 +44,7 @@ from pingoo_tpu_torch.config.schema import Action, RuleConfig
 from pingoo_tpu_torch.engine.service import VerdictService
 from pingoo_tpu_torch.expr import compile_expression
 from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 

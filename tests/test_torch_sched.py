@@ -7,8 +7,9 @@ plane's use of it, against the JAX package.
     package's on seeded sequences of observations and clocks, with the
     same explicit seed: every estimate, the wait budget, the launch and
     fail-open tests, K sizing, snapshot and restore.
-  * VerdictService under `continuous` and `fixed` gives the JAX
-    package's service's verdicts and the interpreter's; a tight deadline
+  * VerdictService under `continuous` and `fixed` gives the verdicts of
+    the JAX package's per-batch verdict function and the interpreter's;
+    a tight deadline
     moves the miss counters; `allow` answers exactly the late rows with
     action 0 and the rest as the oracle does; `interpret` gives the
     oracle's verdicts; a stage budget overrun names its stage; the
@@ -30,7 +31,9 @@ import pytest
 import torch
 
 from pingoo_tpu.compiler import compile_ruleset as ref_compile
-from pingoo_tpu.engine.service import VerdictService as RefService
+from pingoo_tpu.engine import verdict as ref_verdict
+from pingoo_tpu.engine.batch import bucket_arrays as ref_bucket_arrays
+from pingoo_tpu.engine.batch import encode_requests as ref_encode
 from pingoo_tpu.obs.registry import MetricRegistry
 from pingoo_tpu.sched import scheduler as ref_sched
 from pingoo_tpu.utils.crs import generate_ruleset as ref_generate_ruleset
@@ -42,6 +45,7 @@ from pingoo_tpu_torch.engine.service import VerdictService
 from pingoo_tpu_torch.engine.verdict import action_lanes, interpret_rules_row
 from pingoo_tpu_torch.sched import scheduler as sched
 from pingoo_tpu_torch.utils.crs import generate_ruleset
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -55,9 +59,11 @@ SCHED_ENV = ("PINGOO_SCHED_MODE", "PINGOO_DEADLINE_MS",
 
 
 @pytest.fixture(autouse=True)
-def _env(monkeypatch):
+def _env(monkeypatch, tmp_path):
     for name in SCHED_ENV:
         monkeypatch.delenv(name, raising=False)
+    # Every cost ledger under tmp_path, never at the repo root.
+    monkeypatch.setenv("PINGOO_COST_LEDGER", str(tmp_path / "costs.json"))
 
 
 # -- SchedulerConfig.from_env ---------------------------------------------------
@@ -236,22 +242,44 @@ def serve_all(service, reqs):
     return asyncio.run(run())
 
 
+_REF_VERDICTS: dict = {}
+
+
+def reference_verdicts(ref, ref_lists, seed, rows=16):
+    """(action, verified_block) per request of `stream(seed)` from the
+    JAX package's per-batch verdict function and action lanes, in
+    batches of `rows`. Its VerdictService is not the reference here: its
+    staging encoder hands out buffer sets in turn, so a batch that is
+    still in flight when three later ones have been encoded reads the
+    third one's rows (ROADMAP.md, fault 3)."""
+    if seed not in _REF_VERDICTS:
+        reqs = stream(ref_lists, seed)
+        fn = ref_verdict.make_verdict_fn(ref)
+        tables = ref.device_tables()
+        out = []
+        for i in range(0, len(reqs), rows):
+            batch = ref_encode(reqs[i:i + rows], ref.field_specs)
+            dev = fn(tables, ref_bucket_arrays(batch.arrays))
+            matched = ref_verdict.finish_batch(ref, dev, batch, ref_lists)
+            acts, vblk = ref_verdict.action_lanes(ref, matched)
+            out += [(int(a), bool(v)) for a, v in zip(acts, vblk)]
+        _REF_VERDICTS[seed] = out
+    return _REF_VERDICTS[seed]
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("mode", ["continuous", "fixed"])
 def test_service_modes_equal_the_reference_and_the_oracle(crs40, monkeypatch,
                                                           seed, mode):
     ref, ref_lists, port, lists = crs40
     monkeypatch.setenv("PINGOO_SCHED_MODE", mode)
-    ref_reqs = stream(ref_lists, seed)
-    reqs = as_port(ref_reqs)
+    reqs = as_port(stream(ref_lists, seed))
     want = oracle(port, lists, reqs)
     service = VerdictService(port, lists, max_batch=16, device="cpu")
     got = serve_all(service, reqs)
-    ref_got = serve_all(RefService(ref, ref_lists, use_device=False,
-                                   max_batch=16), ref_reqs)
     np.testing.assert_array_equal(np.stack([v.matched for v in got]), want)
     assert [(v.action, v.verified_block) for v in got] \
-        == [(v.action, v.verified_block) for v in ref_got]
+        == reference_verdicts(ref, ref_lists, seed)
     assert any(v.block for v in got) and not any(v.degraded for v in got)
     snap = service.stats.snapshot()["sched"]
     assert snap["mode"] == mode

@@ -62,6 +62,7 @@ from pingoo_tpu_torch.expr import Ip, compile_expression
 from pingoo_tpu_torch.utils.crs import generate_ruleset, generate_traffic
 from test_parity import (ACTIONS, HOST_FALLBACK_SOURCES, LISTS, RULE_SOURCES,
                          random_requests)
+from torch_ledgers import cost_ledger_per_module, cost_ledger_per_test  # noqa: F401
 
 torch.set_num_threads(1)
 
